@@ -1,0 +1,189 @@
+"""Aggregate fold, merge and finalize on tensors — the port of
+``presto_tpu/expr/aggregates.py`` for count, sum and avg.
+
+``fold`` reduces rows into per-slot states with segment sums
+(ops/segred.py, the ``agg_sum`` kernel for integer states);
+``scan_fold`` does the same over hash-sorted rows with segmented
+scans (ops/segscan.py); ``merge`` / ``scan_merge`` combine partial
+states; ``finalize`` turns states into the output column. LONG-decimal
+sum/avg states are the exact int128 limb decomposition a/b/hi (the
+low limb split into two 32-bit halves that each sum exactly in int64,
+the high limb summing mod 2^64).
+
+The call metadata (AggCall, output and state types) lives in
+:mod:`presto_tpu_torch.expr.aggmeta` and is re-exported here. Every
+other aggregate function raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from presto_tpu_torch import types as T
+from presto_tpu_torch.expr.aggmeta import (  # noqa: F401 (re-exports)
+    BOOL_FNS, BY_FNS, COVAR_FNS, MOMENT_FNS, SCAN_FNS, VAR_FNS, VARLEN_FNS,
+    AggCall, is_long_decimal, long_minmax_call, long_sum_call,
+    output_type, state_fields, state_type)
+from presto_tpu_torch.ops import segred
+from presto_tpu_torch.ops.hash import srl
+
+PORTED_FNS = frozenset({"count", "count_star", "sum", "avg"})
+
+
+def _unported(fn: str):
+    return NotImplementedError(
+        f"aggregate {fn} is not ported to presto_tpu_torch yet")
+
+
+def _zero(like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=like.dtype, device=like.device)
+
+
+def _limb32(lo64):
+    """Non-negative int64 halves of a low limb's bit pattern: each sums
+    exactly in int64 for up to 2^31 rows."""
+    return lo64 & 0xFFFFFFFF, srl(lo64, 32)
+
+
+def _recombine128(a, b, hi64):
+    """Per-slot limb sums -> int128 [n, 2] (see _limb32)."""
+    from presto_tpu_torch.ops import int128 as I
+    lo = a + (b << 32)
+    carry = I._ult(lo, a).to(torch.int64)
+    hi = hi64 + srl(b, 32) + carry
+    return I.pack(lo, hi)
+
+
+def _normalize_limbs(states: dict) -> dict:
+    """Carry-normalize LONG-decimal a/b partial sums back into the
+    32-bit limb domain before a merge re-sums them."""
+    packed = _recombine128(states["a"], states["b"], states["hi"])
+    u = packed[..., 0]
+    return {**states, "a": u & 0xFFFFFFFF, "b": srl(u, 32),
+            "hi": packed[..., 1]}
+
+
+def prepare_arg(fn: str, data, arg_type: T.DataType | None):
+    """Argument pre-conversion; count, sum and avg fold the raw value."""
+    if fn not in PORTED_FNS:
+        raise _unported(fn)
+    return data
+
+
+def fold(fn: str, data, weight, slots, capacity: int, *,
+         data2=None, data_valid=None, param=None):
+    """Fold rows into per-slot states. ``weight`` is bool live&valid."""
+    w = weight
+    if fn in ("count", "count_star"):
+        return {"count": segred.segment_sum(
+            w.to(torch.int64), slots, capacity)}
+    if fn in ("sum", "avg"):
+        c = segred.segment_sum(w.to(torch.int64), slots, capacity)
+        if data2 is not None:
+            # LONG decimal: data/data2 are the int128 low/high limbs
+            a, b = _limb32(torch.where(w, data, _zero(data)))
+            return {"a": segred.segment_sum(a, slots, capacity),
+                    "b": segred.segment_sum(b, slots, capacity),
+                    "hi": segred.segment_sum(
+                        torch.where(w, data2, _zero(data2)), slots,
+                        capacity),
+                    "count": c}
+        if not data.dtype.is_floating_point:
+            data = data.to(torch.int64)  # int32 args must not wrap
+        s = segred.segment_sum(torch.where(w, data, _zero(data)), slots,
+                               capacity)
+        return {"sum": s, "count": c}
+    raise _unported(fn)
+
+
+def scan_fold(fn: str, data, weight, sg, *, data2=None, data_valid=None,
+              param=None):
+    """Sorted-order fold (inputs in hash-sorted row order; state
+    arrays are per-row running values, meaningful at each run's last
+    row)."""
+    from presto_tpu_torch.ops import segscan as S
+    w = weight
+    if fn in ("count", "count_star"):
+        return {"count": S.seg_sum(w.to(torch.int64), sg)}
+    if fn in ("sum", "avg"):
+        c = S.seg_sum(w.to(torch.int64), sg)
+        if data2 is not None:
+            a, b = _limb32(torch.where(w, data, _zero(data)))
+            return {"a": S.seg_sum(a, sg), "b": S.seg_sum(b, sg),
+                    "hi": S.seg_sum(torch.where(w, data2, _zero(data2)),
+                                    sg),
+                    "count": c}
+        if not data.dtype.is_floating_point:
+            data = data.to(torch.int64)
+        s = S.seg_sum(torch.where(w, data, _zero(data)), sg)
+        return {"sum": s, "count": c}
+    raise _unported(fn)
+
+
+def scan_merge(fn: str, states: dict, live, sg):
+    """Sorted-order merge of partial states."""
+    from presto_tpu_torch.ops import segscan as S
+    w = live
+    if fn in ("count", "count_star"):
+        return {"count": S.seg_sum(
+            torch.where(w, states["count"], _zero(states["count"])), sg)}
+    if fn in ("sum", "avg"):
+        if "a" in states:
+            states = _normalize_limbs(states)
+            return {f: S.seg_sum(torch.where(w, states[f],
+                                             _zero(states[f])), sg)
+                    for f in ("a", "b", "hi", "count")}
+        return {f: S.seg_sum(torch.where(w, states[f], _zero(states[f])),
+                             sg)
+                for f in ("sum", "count")}
+    raise _unported(fn)
+
+
+def merge(fn: str, states: dict, slots, capacity: int, live):
+    """Merge partial states (rows of state columns) into a final state
+    table."""
+    w = live
+    if fn in ("count", "count_star"):
+        return {"count": segred.segment_sum(
+            torch.where(w, states["count"], _zero(states["count"])),
+            slots, capacity)}
+    if fn in ("sum", "avg"):
+        fields = ("a", "b", "hi", "count") if "a" in states \
+            else ("sum", "count")
+        if "a" in states:
+            states = _normalize_limbs(states)
+        return {f: segred.segment_sum(
+            torch.where(w, states[f], _zero(states[f])), slots, capacity)
+            for f in fields}
+    raise _unported(fn)
+
+
+def finalize(fn: str, states: dict, out_type: T.DataType,
+             arg_type: T.DataType | None, param: float | None = None):
+    """States -> (data, valid) final columns."""
+    if fn in ("count", "count_star"):
+        return states["count"], None
+    if fn == "sum" and "a" in states:
+        return (_recombine128(states["a"], states["b"], states["hi"]),
+                states["count"] > 0)
+    if fn == "avg" and "a" in states:
+        from presto_tpu_torch.ops import int128 as I
+        total = _recombine128(states["a"], states["b"], states["hi"])
+        c = states["count"]
+        q = I.div_round_half_up(total, I.from_i64(torch.clamp(c, min=1)))
+        return q, c > 0
+    if fn == "sum":
+        return states["sum"], states["count"] > 0
+    if fn == "avg":
+        s, c = states["sum"], states["count"]
+        safe = torch.clamp(c, min=1)
+        if isinstance(out_type, T.DecimalType):
+            # HALF_UP integer division in the scaled domain:
+            # sign(s) * ((2|s| + c) // 2c)
+            q = torch.sign(s) * ((2 * torch.abs(s) + safe) // (2 * safe))
+            return q, c > 0
+        sf = s.to(torch.float64)
+        if isinstance(arg_type, T.DecimalType):
+            sf = sf / arg_type.unscale_factor
+        return sf / safe.to(torch.float64), c > 0
+    raise _unported(fn)

@@ -1,0 +1,202 @@
+"""Build the CUDA kernels (``csrc/*.cu``) with nvcc and load them.
+
+The sources compile at first use, one ``nvcc -c`` per source started
+together, into one shared library with a plain C interface, loaded
+with ``ctypes`` (no PyTorch headers, so the build takes seconds). The
+library lands in ``build/presto_tpu_torch/`` at the repository root,
+named by a digest of the sources and flags, so an edited source
+rebuilds and an unchanged one loads the library already built.
+
+Every wrapper launches through :data:`LIBRARY` and counts its launches
+in :data:`LAUNCHES`, so a run can show which kernels the main path went
+through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "presto_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC"]
+
+# multijoin_walk's descriptor layout (csrc/multijoin.cu; checked
+# against the library at load)
+MJ_MAX_STEPS = 8
+MJ_MAX_KEYS = 4
+MJ_STEP_WORDS = 4 + 3 * MJ_MAX_KEYS
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+_SIGNATURES = {
+    "pt_segment_sum": [_P, _I, _P, _L, _I, _P, _P],
+    "pt_build_table": [_P, _P, _L, _P, _P, _L, _I, _P, _P],
+    "pt_probe_table": [_P, _P, _L, _P, _P, _L, _I, _P, _P, _P, _P],
+    "pt_multijoin_walk": [_P, _I, _P, _L, _I, _P, _P, _P, _P],
+    "pt_multijoin_limits": [_P, _P, _P],
+}
+
+
+class LaunchCounts:
+    """Launches per kernel. Each wrapper adds one where it launches
+    its kernel, and nowhere else."""
+
+    NAMES = ("segment_sum", "build_table", "probe_table", "multijoin_walk")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.counts = dict.fromkeys(self.NAMES, 0)
+
+    def add(self, name: str) -> None:
+        with self._lock:
+            self.counts[name] += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.counts = dict.fromkeys(self.NAMES, 0)
+
+    def snapshot(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self.counts)
+
+
+LAUNCHES = LaunchCounts()
+
+
+def nvcc_path() -> str:
+    """nvcc from CUDA_HOME, /usr/local/cuda or PATH."""
+    candidates = []
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        candidates.append(os.path.join(home, "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels of "
+            "presto_tpu_torch build from source at first use")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> Path:
+    """Compile every ``csrc/*.cu`` (in parallel) and link one shared
+    library; returns its path. Raises with nvcc's output on failure."""
+    sources = sorted(CSRC.glob("*.cu"))
+    target = BUILD_DIR / f"libpresto_tpu_torch_{_digest()}.so"
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sources:
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        errors = []
+        for src, _obj, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src.name}:\n{out.decode(errors='replace')}")
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        staged = Path(tmp) / target.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(staged),
+             *[str(obj) for _s, obj, _p in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n"
+                               + link.stdout.decode(errors="replace"))
+        os.replace(staged, target)  # atomic against a concurrent build
+    return target
+
+
+class KernelLibrary:
+    """The loaded shared library; builds it on first use."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._lib = None
+        self.path: Path | None = None
+        self.build_seconds: float | None = None
+
+    def get(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                t0 = time.perf_counter()
+                self.path = build_library()
+                lib = ctypes.CDLL(str(self.path))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                limits = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int()]
+                lib.pt_multijoin_limits(*[ctypes.byref(x) for x in limits])
+                got = tuple(x.value for x in limits)
+                if got != (MJ_MAX_STEPS, MJ_MAX_KEYS, MJ_STEP_WORDS):
+                    raise RuntimeError(
+                        f"multijoin descriptor layout mismatch: {got}")
+                self._lib = lib
+                self.build_seconds = time.perf_counter() - t0
+            return self._lib
+
+
+LIBRARY = KernelLibrary()
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    """Raise when a launch reported an error (cudaGetLastError)."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")
+
+
+def require_cuda(name: str, **tensors: torch.Tensor) -> None:
+    """Every tensor is a contiguous CUDA tensor on one device."""
+    devices = set()
+    for arg, t in tensors.items():
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"{name}: {arg} must be a CUDA tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        devices.add(t.device)
+    if len(devices) > 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+
+
+def require_dtype(name: str, arg: str, t: torch.Tensor,
+                  *dtypes: torch.dtype) -> None:
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: {arg} has dtype {t.dtype}, expected "
+                         f"one of {dtypes}")
