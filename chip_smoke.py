@@ -1,29 +1,37 @@
 """Drive presto_tpu_torch on the GPU: build its CUDA kernels, hold each
 against its plain PyTorch version at the main path's shapes, then run
-TPC-H Q1, Q6, Q3, Q5 and Q9 (and a lineitem-partsupp join, the unique
-non-dense join shape that reaches join_lookup at SF10) at SF10 on both
-kernel backends.
+all 22 TPC-H queries, a lineitem-partsupp join (the unique non-dense
+join shape that reaches join_lookup at SF10), a grouped min/max (which
+reaches segment_min: no TPC-H query folds a min through it) and a
+general cross join (which reaches the compaction kernel) at SF10 on
+both kernel backends.
 
     python3 chip_smoke.py [--scale 10] [--seed 19920101]
 
 Phases (any failure exits non-zero before the result line):
 
 1. The card's ``nvidia-smi`` name and power limit; the kernel build.
-2. Kernels: segment_sum over 60M rows (k = 6, 4096, 1<<20), build_table
-   on 15M rows and probe_table with 60M rows, multijoin_walk over a 60M
-   spine with 3 builds. Each is compared with its plain version on the
-   same inputs (exact equality required) and timed with CUDA events
-   beside the plain version, the one PyTorch call that computes the
-   same function where there is one, and the least time the card could
-   take for the bytes it must move.
+2. Kernels: segment_sum, segment_max and segment_min over 60M rows
+   (k = 6 or 1, 4096, 1<<20; max/min with values at +-2^63 and empty
+   segments), build_table on 15M rows and probe_table with 60M rows,
+   multijoin_walk over a 60M spine with 3 builds, and filter_compact of
+   a 60M-row mask (about 4% live) into 2^23 rows with int64, float64,
+   [n, 2] int64 and bool columns. Each is compared with its plain
+   version on the same inputs (exact equality required; live rows for
+   the compaction) and timed with CUDA events beside the plain
+   version, the one PyTorch call that computes the same function where
+   there is one, and the least time the card could take for the bytes
+   it must move.
 3. Queries: data made by the port's own TPC-H generator from the seed;
    every query runs with kernel_backend=cuda (the launch counts are
-   reset just before this pass and read just after) and then with
-   kernel_backend=torch; rows must be identical, and Q1/Q6 are checked
-   against an independent numpy computation over the generator's
-   arrays.
+   reset just before this pass and read just after, and each query's
+   peak device memory is read) and then with kernel_backend=torch;
+   rows must be identical, and Q1/Q6 (and Q11's row count, which is
+   0 at SF10) are checked against an independent numpy computation
+   over the generator's arrays.
 
-The last lines are a JSON summary of the kernels and
+The queries are the repository's TPC-H texts (tests/tpch_queries.py).
+The last lines are the card, a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -35,8 +43,12 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from tpch_queries import QUERIES as TPCH  # noqa: E402 (the 22 texts)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 SCALAR_OPS_PER_S = 67e12  # H100 SXM rate outside the tensor cores
@@ -44,12 +56,18 @@ SCALAR_OPS_PER_S = 67e12  # H100 SXM rate outside the tensor cores
 KERNELS = {
     "segment_sum": ("presto_tpu_torch/kernels/csrc/segment_sum.cu",
                     "presto_tpu/kernels/segagg.py:68"),
+    "segment_max": ("presto_tpu_torch/kernels/csrc/segment_cmp.cu",
+                    "presto_tpu/kernels/segagg.py:118"),
+    "segment_min": ("presto_tpu_torch/kernels/csrc/segment_cmp.cu",
+                    "presto_tpu/kernels/segagg.py:118"),
     "build_table": ("presto_tpu_torch/kernels/csrc/hashjoin.cu",
                     "presto_tpu/kernels/hashjoin.py:59"),
     "probe_table": ("presto_tpu_torch/kernels/csrc/hashjoin.cu",
                     "presto_tpu/kernels/hashjoin.py:151"),
     "multijoin_walk": ("presto_tpu_torch/kernels/csrc/multijoin.cu",
                        "presto_tpu/kernels/multijoin.py:59"),
+    "filter_compact": ("presto_tpu_torch/kernels/csrc/compact.cu",
+                       "presto_tpu/kernels/compact.py:84"),
 }
 # the kernel each query must run on the card. At SF10 the cost-based
 # planner builds Q3's orders-lineitem join on lineitem (an expanding
@@ -58,7 +76,10 @@ KERNELS = {
 # is a lineitem-partsupp join on partsupp's composite key
 QUERY_KERNELS = {"q01": "cuda:agg_sum", "q06": "cuda:agg_sum",
                  "q05": "cuda:multijoin", "q09": "cuda:multijoin",
-                 "lineitem_partsupp": "cuda:join_lookup"}
+                 "q15": "cuda:agg_max",
+                 "lineitem_partsupp": "cuda:join_lookup",
+                 "lineitem_extrema": "cuda:agg_min",
+                 "cross_join": "cuda:compact"}
 
 
 def log(msg: str) -> None:
@@ -99,6 +120,10 @@ def max_abs_err(a, b) -> float:
     import torch
     if a.shape != b.shape:
         raise AssertionError(f"shapes differ: {a.shape} vs {b.shape}")
+    if a.is_floating_point():
+        if not torch.equal(a, b):  # bits, NaN aside
+            return float((a - b).abs().max())
+        return 0.0
     d = (a.to(torch.int64) - b.to(torch.int64)).abs()
     return float(d.max()) if d.numel() else 0.0
 
@@ -154,6 +179,38 @@ def kernel_phase(dev, seed: int) -> dict:
         cases.append(case)
         del ids, ids64
     out["segment_sum"] = {**cases[0], "cases": cases}
+
+    # segment_max / segment_min: Q15's global max is k = 1; values at
+    # +-2^63 and ids that leave the upper half of the segments empty
+    data[:2] = torch.tensor([(1 << 63) - 1, -(1 << 63)], device=dev)
+    for name, is_max in (("segment_max", True), ("segment_min", False)):
+        cases = []
+        kernel = SA.segment_max_cuda if is_max else SA.segment_min_cuda
+        plain = SA.segment_max_torch if is_max else SA.segment_min_torch
+        for k in (1, 4096, 1 << 20):
+            ids = torch.randint(-1, max(k // 2, 1), (n,), dtype=torch.int32,
+                                device=dev, generator=gen)
+            got = kernel(data, ids, k)
+            want = plain(data, ids, k)
+            err = require_equal(f"{name} k={k}", [(got, want)])
+            idx = torch.where(ids >= 0, ids, k).to(torch.int64)
+
+            def library(idx=idx, k=k, is_max=is_max):
+                torch.full((k + 1,), -(1 << 63) if is_max
+                           else (1 << 63) - 1, dtype=torch.int64,
+                           device=dev).scatter_reduce_(
+                    0, idx, data, "amax" if is_max else "amin")
+            b_ms, b_by = bound(n * (8 + 4) + k * 8, n)
+            case = {"k": k, "max_abs_err": err,
+                    "ms": cuda_ms(lambda ids=ids, k=k: kernel(data, ids, k)),
+                    "plain_ms": cuda_ms(lambda ids=ids, k=k:
+                                        plain(data, ids, k)),
+                    "library_ms": cuda_ms(library),
+                    "bound_ms": b_ms, "bound_by": b_by}
+            log("kernel " + json.dumps({"name": name, **case}))
+            cases.append(case)
+            del ids, idx
+        out[name] = {**cases[0], "cases": cases}
     del data
 
     # build_table on an orders-sized build (15M unique keys of a 60M
@@ -251,66 +308,54 @@ def kernel_phase(dev, seed: int) -> dict:
         "library_ms": None, "bound_ms": w_ms, "bound_by": w_by}
     log("kernel " + json.dumps({"name": "multijoin_walk",
                                 **out["multijoin_walk"]}))
-    del keep, desc, got, want, spine, builds, args
+    del keep, desc, got, want, spine, builds, args, bkeys, pkeys, bl
+
+    # filter_compact: the general cross join's left side, a 60M-row
+    # scan with about 4% live compacted into 2^23 rows
+    from presto_tpu_torch.kernels import compact as CP
+    live = torch.rand(width, device=dev, generator=gen) < 0.04
+    arrays = {
+        "i64": torch.randint(-(1 << 62), 1 << 62, (width,), device=dev,
+                             generator=gen),
+        "f64": torch.rand(width, dtype=torch.float64, device=dev,
+                          generator=gen),
+        "dec": torch.randint(-(1 << 62), 1 << 62, (width, 2), device=dev,
+                             generator=gen),
+        "flag": torch.rand(width, device=dev, generator=gen) < 0.5}
+    cap = 1 << 23
+    got = CP.filter_compact_cuda(live, arrays, cap)
+    want = CP.filter_compact_torch(live, arrays, cap)
+    nlive = int(live.sum())
+    rows = min(nlive, cap)
+    err = require_equal("filter_compact", [(got[k][:rows], want[k][:rows])
+                                           for k in arrays])
+    row_bytes = sum(a.element_size() * (a.shape[1] if a.ndim == 2 else 1)
+                    for a in arrays.values())
+
+    def library():
+        # nonzero syncs with the host for its output size
+        idx = torch.nonzero(live).squeeze(1)[:cap]
+        return {k: a.index_select(0, idx) for k, a in arrays.items()}
+    c_ms, c_by = bound(width + rows * row_bytes + cap * row_bytes, width)
+    out["filter_compact"] = {
+        "max_abs_err": err, "live_rows": nlive, "capacity": cap,
+        "ms": cuda_ms(lambda: CP.filter_compact_cuda(live, arrays, cap)),
+        "plain_ms": cuda_ms(lambda: CP.filter_compact_torch(live, arrays,
+                                                            cap)),
+        "library_ms": cuda_ms(library), "library_note":
+            "torch.nonzero + index_select (nonzero syncs with the host)",
+        "bound_ms": c_ms, "bound_by": c_by}
+    log("kernel " + json.dumps({"name": "filter_compact",
+                                **out["filter_compact"]}))
+    del live, arrays, got, want
     torch.cuda.empty_cache()
     return out
 
 
 # -- phase 3: the main path at SF10 -----------------------------------------
 
-QUERIES = {
-    "q01": """
-select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
-  sum(l_extendedprice) as sum_base_price,
-  sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
-  sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
-  avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price,
-  avg(l_discount) as avg_disc, count(*) as count_order
-from lineitem
-where l_shipdate <= date '1998-12-01' - interval '90' day
-group by l_returnflag, l_linestatus
-order by l_returnflag, l_linestatus""",
-    "q06": """
-select sum(l_extendedprice * l_discount) as revenue
-from lineitem
-where l_shipdate >= date '1994-01-01'
-  and l_shipdate < date '1994-01-01' + interval '1' year
-  and l_discount between 0.05 and 0.07 and l_quantity < 24""",
-    "q03": """
-select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
-  o_orderdate, o_shippriority
-from customer, orders, lineitem
-where c_mktsegment = 'BUILDING' and c_custkey = o_custkey
-  and l_orderkey = o_orderkey and o_orderdate < date '1995-03-15'
-  and l_shipdate > date '1995-03-15'
-group by l_orderkey, o_orderdate, o_shippriority
-order by revenue desc, o_orderdate
-limit 10""",
-    "q05": """
-select n_name, sum(l_extendedprice * (1 - l_discount)) as revenue
-from customer, orders, lineitem, supplier, nation, region
-where c_custkey = o_custkey and l_orderkey = o_orderkey
-  and l_suppkey = s_suppkey and c_nationkey = s_nationkey
-  and s_nationkey = n_nationkey and n_regionkey = r_regionkey
-  and r_name = 'ASIA' and o_orderdate >= date '1994-01-01'
-  and o_orderdate < date '1994-01-01' + interval '1' year
-group by n_name
-order by revenue desc""",
-    "q09": """
-select nation, o_year, sum(amount) as sum_profit
-from (
-  select n_name as nation, extract(year from o_orderdate) as o_year,
-    l_extendedprice * (1 - l_discount) - ps_supplycost * l_quantity
-      as amount
-  from part, supplier, lineitem, partsupp, orders, nation
-  where s_suppkey = l_suppkey and ps_suppkey = l_suppkey
-    and ps_partkey = l_partkey and p_partkey = l_partkey
-    and o_orderkey = l_orderkey and s_nationkey = n_nationkey
-    and p_name like '%green%'
-) as profit
-group by nation, o_year
-order by nation, o_year desc""",
-    "lineitem_partsupp": """
+QUERIES = {**TPCH,
+           "lineitem_partsupp": """
 select ps_supplycost, sum(l_quantity) as q, count(*) as c
 from lineitem, partsupp
 where l_partkey = ps_partkey and l_suppkey = ps_suppkey
@@ -318,12 +363,32 @@ where l_partkey = ps_partkey and l_suppkey = ps_suppkey
 group by ps_supplycost
 order by q desc, ps_supplycost
 limit 5""",
-}
+           # the extremes of each line status: a direct group-by whose
+           # min/max fold through the agg_min/agg_max entries (no
+           # TPC-H query folds a min there: Q2's goes the sorted way)
+           "lineitem_extrema": """
+select l_returnflag, l_linestatus, min(l_shipdate) as first_ship,
+  max(l_receiptdate) as last_receipt, min(l_extendedprice) as min_price,
+  max(l_quantity) as max_qty, min(l_discount) as min_disc
+from lineitem
+group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus""",
+           # a fact table crossed with a small dimension: the general
+           # cross join compacts its filtered lineitem side (planned
+           # at 2.4M rows, so a 2^23-row capacity) before the product
+           "cross_join": """
+select r_name, count(*) as c, sum(l_extendedprice) as s
+from lineitem cross join region
+where l_orderkey < 600000
+group by r_name
+order by r_name""",
+           }
 
 
 def independent_checks(conn, rows: dict) -> None:
-    """Q6's revenue and Q1's group counts recomputed with numpy from
-    the generator's arrays, independent of the engine."""
+    """Q6's revenue, Q1's group counts and Q11's row count recomputed
+    with numpy from the generator's arrays, independent of the
+    engine."""
     li = conn.table("lineitem").columns
 
     def days(s):
@@ -351,6 +416,33 @@ def independent_checks(conn, rows: dict) -> None:
     have = {(r[0], r[1]): int(r[-1]) for r in rows["q01"]}
     if have != want:
         raise AssertionError(f"Q1 counts {have} != numpy {want}")
+    check_q11(conn, rows["q11"])
+
+
+def check_q11(conn, got) -> None:
+    """Q11's parts over the threshold, recomputed with numpy: its fixed
+    fraction 0.0001 is the SF1 value of the spec's 0.0001 / SF, so at
+    SF10 no part may reach it and the empty answer is the right one."""
+    ps = conn.table("partsupp").columns
+    su = conn.table("supplier").columns
+    na = conn.table("nation").columns
+    names = na["n_name"]
+    germany = np.asarray(na["n_nationkey"].data)[
+        list(names.dictionary).index("GERMANY")
+        == np.asarray(names.data)]
+    sup = np.asarray(su["s_suppkey"].data)[
+        np.isin(np.asarray(su["s_nationkey"].data), germany)]
+    m = np.isin(np.asarray(ps["ps_suppkey"].data), sup)
+    value = (np.asarray(ps["ps_supplycost"].data)[m].astype(np.int64)
+             * np.asarray(ps["ps_availqty"].data)[m])  # scale 2
+    parts, inv = np.unique(np.asarray(ps["ps_partkey"].data)[m],
+                           return_inverse=True)
+    sums = np.zeros(len(parts), np.int64)
+    np.add.at(sums, inv, value)
+    over = int((sums * 10_000 > int(value.sum())).sum()) if len(parts) \
+        else 0
+    if len(got) != over:
+        raise AssertionError(f"Q11 rows {len(got)} != numpy {over}")
 
 
 def query_phase(scale: float, seed: int) -> tuple[dict, dict]:
@@ -377,6 +469,7 @@ def query_phase(scale: float, seed: int) -> tuple[dict, dict]:
             passes0 = HS.SYNCS.by_site.get("ok-ladder", 0)
             syncs0 = HS.SYNCS.total()
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             rows[q] = engine.execute(sql)
             torch.cuda.synchronize()
@@ -387,7 +480,9 @@ def query_phase(scale: float, seed: int) -> tuple[dict, dict]:
                                    for tag in tags}),
                 "host_syncs": HS.SYNCS.total() - syncs0,
                 "ok_ladder_syncs": HS.SYNCS.by_site.get("ok-ladder", 0)
-                - passes0}
+                - passes0,
+                # resident scan columns included
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         return rows, secs, notes
 
     t = time.perf_counter()
@@ -403,7 +498,7 @@ def query_phase(scale: float, seed: int) -> tuple[dict, dict]:
     for q in QUERIES:
         if rows[q] != plain_rows[q]:
             raise AssertionError(f"{q}: cuda and torch backends differ")
-        if not rows[q]:
+        if not rows[q] and q != "q11":  # check_q11 holds its count
             raise AssertionError(f"{q}: no rows")
         if q in QUERY_KERNELS and QUERY_KERNELS[q] not in \
                 notes[q]["kernels"]:
@@ -419,7 +514,7 @@ def query_phase(scale: float, seed: int) -> tuple[dict, dict]:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"main path: {launches}")
     independent_checks(conn, rows)
-    log("independent numpy checks of Q1 and Q6: ok")
+    log("independent numpy checks of Q1, Q6 and Q11: ok")
     log("launches " + json.dumps(launches))
     return launches, queries
 

@@ -11,11 +11,12 @@ Hash-table capacities follow the reference: planner hints (pow2) or a
 the pass, and on overflow grows every failed capacity RETRY_GROWTH x
 and runs the plan again (the capacity retry ladder).
 
-Left out of this slice (ROADMAP): the AOT program cache, plan
-templates, block streaming, spill, grouped and segmented execution,
-dynamic filtering, per-node row statistics, and every plan node
-outside TableScan, Filter, Project, Aggregate, Join, MultiJoin, Sort,
-TopN, Limit, Exchange and Output (each raises NotImplementedError).
+Left out so far (ROADMAP): the AOT program cache, plan templates,
+block streaming, spill, grouped and segmented execution, dynamic
+filtering, per-node row statistics, and every plan node outside
+TableScan, Filter, Project, Aggregate, Join, MultiJoin, SemiJoin,
+CrossJoin, Distinct, Sort, TopN, Limit, Exchange and Output (each
+raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -201,6 +202,48 @@ class PlanInterpreter:
         cap = self._capacity(node, default)
         out, ok = OP.apply_multi_join(spine, builds, node,
                                       growth=max(1, cap // default))
+        self._note_ok(node, ok)
+        return out
+
+    def _r_semijoin(self, node: N.SemiJoin) -> DTable:
+        src = self.run(node.source)
+        filt = self.run(node.filter_source)
+        cap = self._capacity(node, next_pow2(2 * filt.n))
+        out, ok = OP.apply_semijoin(src, filt, node, cap)
+        self._note_ok(node, ok)
+        return out
+
+    def _r_crossjoin(self, node: N.CrossJoin) -> DTable:
+        left = self.run(node.left)
+        right = self.run(node.right)
+        if node.scalar:
+            return OP.apply_cross_scalar(left, right)
+        return self._cross_general(node, left, right)
+
+    def _cross_general(self, node: N.CrossJoin, left: DTable,
+                       right: DTable) -> DTable:
+        """Nested-loop cross join: compact each side to its estimated
+        live size (a ``left``/``right`` capacity rung with overflow
+        retry), then take the static product."""
+        lcap = self._capacity(
+            node, next_pow2(min(left.n, 2 * (node.left_rows or left.n))),
+            "left")
+        rcap = self._capacity(
+            node, next_pow2(min(right.n,
+                                2 * (node.right_rows or right.n))),
+            "right")
+        if lcap < left.n:
+            left, lok = OP.compact_dtable(left, lcap)
+            self._note_ok(node, lok, "left")
+        if rcap < right.n:
+            right, rok = OP.compact_dtable(right, rcap)
+            self._note_ok(node, rok, "right")
+        return OP.apply_cross_general(left, right)
+
+    def _r_distinct(self, node: N.Distinct) -> DTable:
+        src = self.run(node.source)
+        cap = self._capacity(node, next_pow2(min(2 * src.n, 1 << 22)))
+        out, ok = OP.apply_distinct(src, cap)
         self._note_ok(node, ok)
         return out
 

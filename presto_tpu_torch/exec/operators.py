@@ -15,6 +15,11 @@ Operator parity map (reference core/trino-main/.../operator/):
 - apply_aggregate             <- HashAggregationOperator + GroupByHash
 - apply_join                  <- HashBuilderOperator + LookupJoinOperator
 - apply_multi_join            <- a chain of LookupJoinOperators
+- apply_expand_join           <- LookupJoinOperator + PositionLinks chains
+- apply_semijoin              <- HashSemiJoinOperator
+- apply_cross_*               <- NestedLoopJoinOperator
+- compact_dtable              <- page compaction
+- apply_distinct              <- DistinctLimitOperator / MarkDistinct hash
 - apply_sort/topn/limit       <- OrderByOperator, TopNOperator, LimitOperator
 """
 
@@ -527,40 +532,40 @@ def apply_multi_join(spine: DTable, builds: list[DTable],
 
 def apply_expand_join(left: DTable, right: DTable, node: N.Join,
                       out_capacity: int) -> tuple:
-    """Expanding (many-to-many) INNER hash join: every (probe, build)
-    match becomes one output row, through the sorted lookup
-    (sort_build_side + probe_runs + expand_matches — the reference has
-    no Pallas kernel here). Output has static capacity
-    ``out_capacity``; overflow is reported for the retry ladder.
-    Returns (DTable [out_capacity], out_ok)."""
-    if node.join_type != N.JoinType.INNER or node.filter is not None:
+    """Expanding (many-to-many) INNER or LEFT hash join: every (probe,
+    build) match becomes one output row, and under LEFT each probe row
+    with no surviving match one row with NULL build columns, through
+    the sorted lookup (sort_build_side + probe_runs + expand_matches —
+    the reference has no Pallas kernel here). A residual filter applies
+    to the matched pairs. Output has static capacity ``out_capacity``;
+    overflow is reported for the retry ladder. Returns (DTable
+    [out_capacity], out_ok)."""
+    if node.join_type not in (N.JoinType.INNER, N.JoinType.LEFT):
         raise NotImplementedError(
-            "outer and filtered expanding joins are not ported to "
+            f"expanding {node.join_type} joins are not ported to "
             "presto_tpu_torch yet")
     lkeys = [lk for lk, _ in node.criteria]
     rkeys = [rk for _, rk in node.criteria]
     build_live = _and_key_valid(right, rkeys, right.live_mask())
     probe_live = _and_key_valid(left, lkeys, left.live_mask())
+    left_join = node.join_type == N.JoinType.LEFT
+    # a LEFT join keeps probe rows with NULL keys: they match nothing
+    probe_rows_live = left.live_mask() if left_join else probe_live
     rh = _row_hash(right, rkeys)
     _bsh, bsidx = H.sort_build_side(rh, build_live)
     ph = _row_hash(left, lkeys)
     lo, count, found = H.probe_runs(rh, build_live, ph, probe_live)
     probe_idx, build_row, out_live, ok = H.expand_matches(
-        lo, count, bsidx, found & probe_live, probe_live, out_capacity,
-        False)
+        lo, count, bsidx, found & probe_live, probe_rows_live,
+        out_capacity, left_join)
+    matched = build_row >= 0
     gather = torch.clamp(build_row, 0, max(right.n - 1, 0))
     out: dict[str, Val] = {}
     for sym, v in left.cols.items():
         out[sym] = Val(v.dtype, take(v.data, probe_idx),
                        None if v.valid is None else take(v.valid, probe_idx),
                        v.dictionary)
-    # inner expansion emits matched rows only: matched is redundant
-    # with out_live (see apply_join)
-    for sym, v in right.cols.items():
-        out[sym] = Val(v.dtype, take(v.data, gather),
-                       None if v.valid is None else take(v.valid, gather),
-                       v.dictionary)
-    eq = None
+    verify = None
     for lk, rk in node.criteria:
         lv, rv = left.cols[lk], right.cols[rk]
         if lv.is_string or rv.is_string:
@@ -568,10 +573,163 @@ def apply_expand_join(left: DTable, right: DTable, node: N.Join,
         e = take(lv.data, probe_idx) == take(rv.data, gather)
         if e.ndim == 2:
             e = e.all(dim=1)
-        eq = e if eq is None else (eq & e)
-    if eq is not None:
-        out_live = out_live & (eq | (build_row < 0))
+        verify = e if verify is None else (verify & e)
+    if verify is not None and not left_join:
+        out_live = out_live & (verify | ~matched)
+    for sym, v in right.cols.items():
+        gv = None if v.valid is None else take(v.valid, gather)
+        if left_join:
+            valid = matched if gv is None else (matched & gv)
+        else:
+            # inner expansion emits matched rows only: matched is
+            # redundant with out_live (see apply_join)
+            valid = gv
+        out[sym] = Val(v.dtype, take(v.data, gather), valid, v.dictionary)
+
+    f_ok = None
+    if node.filter is not None:
+        fv = ExprCompiler(out, left.device).compile(node.filter)
+        f_ok = fv.data if fv.valid is None else (fv.data & fv.valid)
+        if not left_join:
+            out_live = out_live & f_ok
+    if left_join and (f_ok is not None or verify is not None):
+        # a match failing the filter or the key value-verify is no
+        # match: a probe row whose slots all fail still emits once,
+        # unmatched (its first slot revives), and its other slots die
+        keep = matched & out_live
+        if f_ok is not None:
+            keep = keep & f_ok
+        if verify is not None:
+            keep = keep & verify
+        pidx = probe_idx.to(torch.int64)
+        surv = torch.zeros(left.n, dtype=torch.int32, device=left.device)
+        surv.scatter_reduce_(0, pidx, keep.to(torch.int32), "amax",
+                             include_self=True)
+        first = torch.cat([torch.ones(1, dtype=torch.bool,
+                                      device=left.device),
+                           probe_idx[1:] != probe_idx[:-1]])
+        revert = (first & (take(surv, probe_idx) == 0)
+                  & take(probe_rows_live, probe_idx) & out_live)
+        out_live = keep | revert
+        for sym, v in right.cols.items():
+            valid = keep if v.valid is None \
+                else (keep & take(v.valid, gather))
+            out[sym] = Val(v.dtype, out[sym].data, valid, v.dictionary)
     return DTable(out, out_live, out_capacity, left.device), ok
+
+
+def apply_semijoin(dt: DTable, filt: DTable, node: N.SemiJoin,
+                   capacity: int) -> tuple:
+    """Adds the boolean membership column ``node.output``: a dense
+    bitmap over the filter key's span when the planner marked it
+    dense, else the ``join_lookup`` kernel entry (with a value check
+    against 64-bit hash collisions). Under ``null_aware`` the mark is
+    NULL, not FALSE, when unmatched and the probed value or the filter
+    set holds a NULL (NOT IN's three-valued logic). Returns (DTable,
+    ok)."""
+    build_live = _and_key_valid(filt, node.filter_keys, filt.live_mask())
+    probe_live = _and_key_valid(dt, node.source_keys, dt.live_mask())
+    if node.dense_key is not None:
+        # one scatter onto an extra slot that absorbs dead and
+        # out-of-span rows, one gather
+        lo, hi = node.dense_key
+        span = hi - lo + 1
+        bkey = filt.cols[node.filter_key].data.to(torch.int64)
+        inside = build_live & (bkey >= lo) & (bkey <= hi)
+        bits = torch.zeros(span + 1, dtype=torch.bool, device=dt.device)
+        bits.index_put_((torch.where(inside, bkey - lo,
+                                     torch.full_like(bkey, span)),),
+                        torch.ones((), dtype=torch.bool, device=dt.device))
+        pkey = dt.cols[node.source_key].data.to(torch.int64)
+        in_range = (pkey >= lo) & (pkey <= hi)
+        found = probe_live & in_range & bits[torch.clamp(pkey - lo, 0,
+                                                         span - 1)]
+        ok = torch.ones((), dtype=torch.bool, device=dt.device)
+    else:
+        fh = _row_hash(filt, node.filter_keys)
+        sh = _row_hash(dt, node.source_keys)
+        build_row, found, ok = K.dispatch("join_lookup")(
+            fh, build_live.contiguous(), sh, probe_live.contiguous(),
+            capacity)
+        verify = _verify_keys(
+            dt, filt, list(zip(node.source_keys, node.filter_keys)),
+            torch.clamp(build_row, 0, max(filt.n - 1, 0)))
+        if verify is not None:
+            found = found & verify
+    out = dict(dt.cols)
+    mark_valid = None
+    if node.null_aware:
+        bk = filt.cols[node.filter_keys[0]]
+        false = torch.zeros((), dtype=torch.bool, device=dt.device)
+        build_has_null = (torch.any(filt.live_mask() & ~bk.valid)
+                          if bk.valid is not None else false)
+        pk = dt.cols[node.source_keys[0]]
+        probe_null = (~pk.valid if pk.valid is not None
+                      else torch.zeros(dt.n, dtype=torch.bool,
+                                       device=dt.device))
+        # x IN (empty set) is FALSE even for a NULL x
+        set_empty = ~torch.any(filt.live_mask())
+        mark_valid = found | set_empty | (~probe_null & ~build_has_null)
+    out[node.output] = Val(T.BOOLEAN, found, mark_valid)
+    return DTable(out, dt.live, dt.n, dt.device), ok
+
+
+def compact_dtable(dt: DTable, capacity: int) -> tuple:
+    """The live rows of ``dt`` at the front of a ``capacity``-row DTable,
+    in order, through the ``compact`` kernel entry. Returns (DTable
+    [capacity], ok); ok is False when the live rows overflow the
+    capacity (the retry ladder grows it). The count and the flag stay
+    on the device."""
+    live = dt.live_mask()
+    cnt = torch.sum(live.to(torch.int32))
+    ok = cnt <= capacity
+    arrays: dict = {}
+    for sym, v in dt.cols.items():
+        # a projected literal is a stride-0 view; the kernel reads rows
+        arrays[f"{sym}!d"] = v.data.contiguous()
+        if v.valid is not None:
+            arrays[f"{sym}!v"] = v.valid.contiguous()
+    out = K.dispatch("compact")(live.contiguous(), arrays, capacity)
+    cols = {sym: Val(v.dtype, out[f"{sym}!d"], out.get(f"{sym}!v"),
+                     v.dictionary)
+            for sym, v in dt.cols.items()}
+    live_out = torch.arange(capacity, device=dt.device) < cnt
+    return DTable(cols, live_out, capacity, dt.device), ok
+
+
+def apply_cross_general(left: DTable, right: DTable) -> DTable:
+    """General nested-loop cross join: the full static product
+    left.n x right.n. Callers compact both sides first, so the product
+    is sized by live estimates, not input capacities."""
+    nl, nr = left.n, right.n
+    dev = left.device
+    i = torch.arange(nl, dtype=torch.int64, device=dev).repeat_interleave(nr)
+    j = torch.arange(nr, dtype=torch.int64, device=dev).repeat(nl)
+    out: dict[str, Val] = {}
+    for side, idx in ((left, i), (right, j)):
+        for sym, v in side.cols.items():
+            out[sym] = Val(v.dtype, take(v.data, idx),
+                           None if v.valid is None else take(v.valid, idx),
+                           v.dictionary)
+    live = take(left.live_mask(), i) & take(right.live_mask(), j)
+    return DTable(out, live, nl * nr, dev)
+
+
+def apply_cross_scalar(left: DTable, right: DTable) -> DTable:
+    """Cross join against a single-row relation (an uncorrelated scalar
+    subquery): the scalar row's columns broadcast over the probe side.
+    The live row's index is an argmax on the device (0 with no live
+    row; validity then makes every value NULL)."""
+    rlive = right.live_mask()
+    idx = torch.argmax(rlive.to(torch.int32))
+    any_live = torch.any(rlive)
+    out = dict(left.cols)
+    for sym, v in right.cols.items():
+        data = v.data[idx]
+        data = data.expand((left.n,) + tuple(data.shape))
+        rv = any_live if v.valid is None else (any_live & v.valid[idx])
+        out[sym] = Val(v.dtype, data, rv.expand(left.n), v.dictionary)
+    return DTable(out, left.live, left.n, left.device)
 
 
 def _nulls_last(o: N.Ordering) -> bool:
@@ -656,3 +814,61 @@ def apply_limit(dt: DTable, count: int, offset: int = 0) -> DTable:
     pos = torch.cumsum(live.to(torch.int64), 0)
     keep = (pos > offset) & (pos <= offset + count)
     return DTable(dt.cols, live & keep, dt.n, dt.device)
+
+
+def apply_distinct(dt: DTable, capacity: int) -> tuple:
+    """SELECT DISTINCT: a group-by on every column with no aggregates
+    (the direct code-product path for small dictionary keys, else one
+    hash sort keeping each group's first row). Returns (DTable
+    [capacity], ok)."""
+    live = dt.live_mask()
+    keys = list(dt.cols)
+    direct = _direct_group_ids(dt, keys)
+    if direct is not None:
+        slots, capacity, sizes = direct
+        occupancy = segred.segment_sum(live.to(torch.int32), slots,
+                                       capacity) > 0
+        out = _decode_direct_keys(dt, keys, sizes, capacity)
+        return (DTable(out, occupancy, capacity, dt.device),
+                torch.ones((), dtype=torch.bool, device=dt.device))
+    rh = _row_hash(dt, keys)
+    payloads: list = []
+    refs = []
+    float_cols = []
+    for sym, v in dt.cols.items():
+        di = len(payloads)
+        if v.data.ndim == 2:  # LONG decimal key
+            khi, klo = _long_key_operands(v)
+            payloads += [H.unsigned_key(khi), H.unsigned_key(klo)]
+            vi = None
+            if v.valid is not None:
+                vi = len(payloads)
+                payloads.append(v.valid)
+            refs.append((sym, v, ("long", di, di + 1), vi))
+            continue
+        payloads.append(_group_key_operand(v))
+        vi = None
+        if v.valid is not None:
+            vi = len(payloads)
+            payloads.append(v.valid)
+        if v.data.dtype.is_floating_point:
+            float_cols.append((sym, v, vi))
+        else:
+            refs.append((sym, v, di, vi))
+    num_key_payloads = len(payloads)
+    for sym, v, vi in float_cols:
+        refs.append((sym, v, len(payloads), vi))
+        payloads.append(v.data)
+    sg = H.SortedGroups(rh, live, payloads, num_key_payloads)
+    ok = sg.ngroups <= capacity
+    compacted, occupied = sg.compact_first(sg.payloads, capacity)
+    out = {}
+    for sym, v, di, vi in refs:
+        valid = None if vi is None else compacted[vi]
+        if isinstance(di, tuple):  # LONG decimal limbs
+            data = _unpack_long_key(compacted[di[1]] ^ H.INT64_MIN,
+                                    compacted[di[2]] ^ H.INT64_MIN)
+        else:
+            data = compacted[di]
+        out[sym] = Val(v.dtype, data, valid, v.dictionary)
+    return DTable(out, occupied, capacity, dt.device), ok

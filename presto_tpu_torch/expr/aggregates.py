@@ -1,5 +1,6 @@
 """Aggregate fold, merge and finalize on tensors — the port of
-``presto_tpu/expr/aggregates.py`` for count, sum and avg.
+``presto_tpu/expr/aggregates.py`` for count, sum, avg, min, max and
+arbitrary.
 
 ``fold`` reduces rows into per-slot states with segment sums
 (ops/segred.py, the ``agg_sum`` kernel for integer states);
@@ -8,7 +9,10 @@ scans (ops/segscan.py); ``merge`` / ``scan_merge`` combine partial
 states; ``finalize`` turns states into the output column. LONG-decimal
 sum/avg states are the exact int128 limb decomposition a/b/hi (the
 low limb split into two 32-bit halves that each sum exactly in int64,
-the high limb summing mod 2^64).
+the high limb summing mod 2^64). LONG-decimal min/max/arbitrary
+states are the extremum's two limbs vlo/vhi, found in two passes:
+the signed high-limb extremum, then the low limb (in an
+order-preserving signed view) among the high-limb winners.
 
 The call metadata (AggCall, output and state types) lives in
 :mod:`presto_tpu_torch.expr.aggmeta` and is re-exported here. Every
@@ -27,7 +31,11 @@ from presto_tpu_torch.expr.aggmeta import (  # noqa: F401 (re-exports)
 from presto_tpu_torch.ops import segred
 from presto_tpu_torch.ops.hash import srl
 
-PORTED_FNS = frozenset({"count", "count_star", "sum", "avg"})
+PORTED_FNS = frozenset({"count", "count_star", "sum", "avg", "min", "max",
+                        "arbitrary"})
+# max and arbitrary reduce with segment max, min with segment min
+_MAX_FNS = ("max", "arbitrary")
+_I64_MIN = -(1 << 63)
 
 
 def _unported(fn: str):
@@ -37,6 +45,35 @@ def _unported(fn: str):
 
 def _zero(like: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=like.dtype, device=like.device)
+
+
+def _lo_sortable(lo64):
+    """Low limb's bit pattern -> an int64 whose signed order is the
+    limb's unsigned order (its own inverse)."""
+    return lo64 ^ _I64_MIN
+
+
+def _masked(w, data, is_max: bool):
+    """``data`` where ``w``, else a value no row beats (the dtype's min
+    for max, its max for min)."""
+    return torch.where(w, data, segred.identity(data.dtype, is_max))
+
+
+def _long_extremum(reduce, back, present, lo, hi, is_max: bool) -> dict:
+    """LONG-decimal extremum states in two passes: the signed high-limb
+    extremum, then the low limb (order-preserving signed view) among
+    the rows whose high limb won. ``reduce`` folds a per-row column
+    per group, ``back`` brings a per-group result back to the rows."""
+    bh = reduce(_masked(present, hi, is_max))
+    winner = present & (hi == back(bh))
+    bl = reduce(_masked(winner, _lo_sortable(lo), is_max))
+    return {"vlo": _lo_sortable(bl), "vhi": bh}
+
+
+def _slot_fns(ext, slots, capacity: int):
+    """(reduce, back) of :func:`_long_extremum` over slot ids."""
+    gather = slots.to(torch.int64).clamp(0, max(capacity - 1, 0))
+    return (lambda x: ext(x, slots, capacity)), (lambda b: b[gather])
 
 
 def _limb32(lo64):
@@ -93,6 +130,15 @@ def fold(fn: str, data, weight, slots, capacity: int, *,
         s = segred.segment_sum(torch.where(w, data, _zero(data)), slots,
                                capacity)
         return {"sum": s, "count": c}
+    if fn in ("min", "max", "arbitrary"):
+        c = segred.segment_sum(w.to(torch.int64), slots, capacity)
+        is_max = fn in _MAX_FNS
+        ext = segred.segment_max if is_max else segred.segment_min
+        if data2 is not None:
+            return {**_long_extremum(*_slot_fns(ext, slots, capacity), w,
+                                     data, data2, is_max), "count": c}
+        return {"val": ext(_masked(w, data, is_max), slots, capacity),
+                "count": c}
     raise _unported(fn)
 
 
@@ -117,6 +163,15 @@ def scan_fold(fn: str, data, weight, sg, *, data2=None, data_valid=None,
             data = data.to(torch.int64)
         s = S.seg_sum(torch.where(w, data, _zero(data)), sg)
         return {"sum": s, "count": c}
+    if fn in ("min", "max", "arbitrary"):
+        c = S.seg_sum(w.to(torch.int64), sg)
+        is_max = fn in _MAX_FNS
+        ext = S.seg_max if is_max else S.seg_min
+        if data2 is not None:
+            return {**_long_extremum(lambda x: ext(x, sg),
+                                     lambda b: S.broadcast_last(b, sg), w,
+                                     data, data2, is_max), "count": c}
+        return {"val": ext(_masked(w, data, is_max), sg), "count": c}
     raise _unported(fn)
 
 
@@ -136,6 +191,18 @@ def scan_merge(fn: str, states: dict, live, sg):
         return {f: S.seg_sum(torch.where(w, states[f], _zero(states[f])),
                              sg)
                 for f in ("sum", "count")}
+    if fn in ("min", "max", "arbitrary"):
+        is_max = fn in _MAX_FNS
+        ext = S.seg_max if is_max else S.seg_min
+        c = S.seg_sum(torch.where(w, states["count"],
+                                  _zero(states["count"])), sg)
+        if "vlo" in states:
+            return {**_long_extremum(
+                lambda x: ext(x, sg), lambda b: S.broadcast_last(b, sg),
+                w & (states["count"] > 0), states["vlo"], states["vhi"],
+                is_max), "count": c}
+        return {"val": ext(_masked(w, states["val"], is_max), sg),
+                "count": c}
     raise _unported(fn)
 
 
@@ -155,6 +222,19 @@ def merge(fn: str, states: dict, slots, capacity: int, live):
         return {f: segred.segment_sum(
             torch.where(w, states[f], _zero(states[f])), slots, capacity)
             for f in fields}
+    if fn in ("min", "max", "arbitrary"):
+        is_max = fn in _MAX_FNS
+        ext = segred.segment_max if is_max else segred.segment_min
+        c = segred.segment_sum(torch.where(w, states["count"],
+                                           _zero(states["count"])),
+                               slots, capacity)
+        if "vlo" in states:
+            return {**_long_extremum(
+                *_slot_fns(ext, slots, capacity), w & (states["count"] > 0),
+                states["vlo"], states["vhi"], is_max), "count": c}
+        return {"val": ext(_masked(w, states["val"], is_max), slots,
+                           capacity),
+                "count": c}
     raise _unported(fn)
 
 
@@ -163,6 +243,12 @@ def finalize(fn: str, states: dict, out_type: T.DataType,
     """States -> (data, valid) final columns."""
     if fn in ("count", "count_star"):
         return states["count"], None
+    if fn in ("min", "max", "arbitrary"):
+        if "vlo" in states:
+            from presto_tpu_torch.ops import int128 as I
+            return (I.pack(states["vlo"], states["vhi"]),
+                    states["count"] > 0)
+        return states["val"], states["count"] > 0
     if fn == "sum" and "a" in states:
         return (_recombine128(states["a"], states["b"], states["hi"]),
                 states["count"] > 0)

@@ -13,11 +13,12 @@ their device. Value model (``Val``): (dtype, data, valid, dictionary)
   host (LIKE matches the pattern over the dictionary and gathers a
   boolean lookup table by code).
 
-This slice ports what TPC-H Q1, Q3, Q5, Q6 and Q9 use: column
-references, literals, casts among numeric, decimal and date types, and
-the scalar functions add, subtract, multiply, eq, lt, lte, gt, gte,
-and, between, like and year. Every other expression form and function
-raises ``NotImplementedError`` naming itself.
+The port covers what the 22 TPC-H queries use: column references,
+literals, IN lists, CASE, casts among numeric, decimal and date
+types, and the scalar functions add, subtract, multiply, divide,
+eq, neq, lt, lte, gt, gte, and, or, not, between, like, substring and
+year. Every other expression form and function raises
+``NotImplementedError`` naming itself.
 """
 
 from __future__ import annotations
@@ -76,6 +77,19 @@ def as128(v: Val, scale: int):
     return d
 
 
+def where_data(cond, x, y, long: bool = False):
+    """``torch.where`` that broadcasts a scalar or [n] condition over
+    [n, 2] limb data. ``long`` marks LONG-decimal branches: a scalar
+    LONG value is [2]-shaped, like a 2-row column."""
+    if long or max(x.ndim, y.ndim) == 2:
+        if long:
+            x = x[None, :] if x.ndim == 1 else x
+            y = y[None, :] if y.ndim == 1 else y
+        cond = cond.reshape(cond.shape + (1,) * (2 - cond.ndim)) \
+            if cond.ndim < 2 else cond
+    return torch.where(cond, x, y)
+
+
 def and_valid(*vs):
     """AND of validity masks, None = all-valid."""
     masks = [v for v in vs if v is not None]
@@ -96,6 +110,32 @@ def _lut(values: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 
 # --- dictionary helpers (host side) ----------------------------------------
+
+
+def _dict_transform(v: Val, fn: Callable[[np.ndarray], np.ndarray]) -> Val:
+    """Apply a host string->string function over the dictionary and
+    remap codes to the new sorted dictionary."""
+    new_strings = fn(v.dictionary.astype("U")).astype(object)
+    new_dict, inverse = np.unique(new_strings.astype("U"),
+                                  return_inverse=True)
+    remap = _lut(inverse.astype(np.int32), v.data)
+    return Val(T.VARCHAR, remap[v.data.to(torch.int64)], v.valid,
+               new_dict.astype(object))
+
+
+def _merge_dicts(a: Val, b: Val) -> tuple[Val, Val]:
+    """Bring two string Vals onto one shared sorted dictionary."""
+    if a.dictionary is b.dictionary:
+        return a, b
+    union = np.unique(np.concatenate(
+        [a.dictionary.astype("U"), b.dictionary.astype("U")]))
+    ra = _lut(np.searchsorted(union, a.dictionary.astype("U"))
+              .astype(np.int32), a.data)
+    rb = _lut(np.searchsorted(union, b.dictionary.astype("U"))
+              .astype(np.int32), b.data)
+    u = union.astype(object)
+    return (Val(a.dtype, ra[a.data.to(torch.int64)], a.valid, u),
+            Val(b.dtype, rb[b.data.to(torch.int64)], b.valid, u))
 
 
 def _dict_predicate(v: Val, pred: Callable[[np.ndarray], np.ndarray]) -> Val:
@@ -186,6 +226,37 @@ class ExprCompiler:
 
     def _c_cast(self, e: ir.Cast) -> Val:
         return cast_val(self.compile(e.arg), e.dtype)
+
+    def _c_inlist(self, e: ir.InList) -> Val:
+        v = self.compile(e.arg)
+        if v.is_string:
+            values = [lit.value for lit in e.values]
+            return _dict_predicate(v, lambda d: np.isin(d, values))
+        acc = None
+        for lit in e.values:
+            hit = v.data == cast_val(self.compile(lit), v.dtype).data
+            acc = hit if acc is None else (acc | hit)
+        return _bool(acc, v.valid)
+
+    def _c_casewhen(self, e: ir.CaseWhen) -> Val:
+        default = (self.compile(e.default) if e.default is not None
+                   else self.compile(ir.Literal(e.dtype, None)))
+        result = cast_val(default, e.dtype)
+        long = is_long_dec(e.dtype)
+        # WHENs in reverse, so earlier conditions win
+        for cond, res in list(zip(e.conditions, e.results))[::-1]:
+            c = self.compile(cond)
+            r = cast_val(self.compile(res), e.dtype)
+            take = c.data if c.valid is None else (c.data & c.valid)
+            if r.is_string or result.is_string:
+                r, result = _merge_dicts(r, result)
+            data = where_data(take, r.data, result.data, long=long)
+            rv = torch.ones_like(take) if r.valid is None else r.valid
+            dv = torch.ones_like(take) if result.valid is None \
+                else result.valid
+            result = Val(e.dtype, data, torch.where(take, rv, dv),
+                         result.dictionary)
+        return result
 
     def _c_call(self, e: ir.Call) -> Val:
         fn = SCALARS.get(e.fn)
@@ -362,6 +433,50 @@ def _mul(e, args):
     return _arith(e, args, lambda x, y: x * y)
 
 
+def _scale(t) -> int:
+    return t.scale if isinstance(t, T.DecimalType) else 0
+
+
+@scalar("divide")
+def _div(e, args):
+    a, b = args
+    valid = and_valid(a.valid, b.valid)
+    if isinstance(e.dtype, T.DoubleType):
+        af, bf = cast_val(a, T.DOUBLE), cast_val(b, T.DOUBLE)
+        # division by zero is an error in SQL; it reads as NULL here,
+        # as in the reference
+        safe = torch.where(bf.data == 0.0, 1.0, bf.data)
+        return Val(e.dtype, af.data / safe,
+                   and_valid(valid, bf.data != 0.0))
+    if isinstance(e.dtype, T.DecimalType):
+        # decimal / decimal at result scale s: (a * 10^(s + sb - sa)) / b
+        # rounded half up (the reference's divideShortShortShort)
+        sa, sb, s = _scale(a.dtype), _scale(b.dtype), e.dtype.scale
+        pa = a.dtype.precision if isinstance(a.dtype, T.DecimalType) \
+            else 19
+        if (e.dtype.is_long or is_long_dec(a.dtype)
+                or is_long_dec(b.dtype) or s + sb - sa + pa > 18):
+            from presto_tpu_torch.ops import int128 as I
+            num = I.rescale_up(as128(a, sa), s + sb - sa)
+            den = as128(b, sb)
+            num, den = torch.broadcast_tensors(num, den)
+            bz = I.eq(den, torch.zeros_like(den))
+            q = I.div_round_half_up(num, den)
+            if not e.dtype.is_long:
+                q = I.to_i64(q)
+            return Val(e.dtype, q, and_valid(valid, ~bz))
+        num = a.data.to(torch.int64) * (10 ** (s + sb - sa))
+        den = torch.where(b.data == 0, 1, b.data.to(torch.int64))
+        q = (torch.abs(num) + torch.abs(den) // 2) // torch.abs(den)
+        q = torch.where((num >= 0) == (den >= 0), q, -q)
+        return Val(e.dtype, q, and_valid(valid, b.data != 0))
+    # SQL integer division truncates toward zero
+    safe = torch.where(b.data == 0, 1, b.data)
+    q = torch.abs(a.data) // torch.abs(safe)
+    q = torch.where((a.data >= 0) == (safe >= 0), q, -q)
+    return Val(e.dtype, q, and_valid(valid, b.data != 0))
+
+
 def _compare(e: ir.Call, args: list[Val], op, eq_only_op) -> Val:
     a, b = args
     valid = and_valid(a.valid, b.valid)
@@ -416,6 +531,11 @@ def _eq(e, args):
     return _compare(e, args, lambda x, y: x == y, lambda x, y: x == y)
 
 
+@scalar("neq")
+def _neq(e, args):
+    return _compare(e, args, lambda x, y: x != y, lambda x, y: x != y)
+
+
 @scalar("lt")
 def _lt(e, args):
     return _compare(e, args, lambda x, y: x < y, None)
@@ -455,6 +575,33 @@ def _and(e, args):
             new_valid = (av & bv) | known_false
         data, valid = new_data, new_valid
     return _bool(data, valid)
+
+
+@scalar("or")
+def _or(e, args):
+    """Kleene OR: TRUE dominates NULL."""
+    data, valid = None, None
+    for v in args:
+        d, vl = v.data, v.valid
+        if data is None:
+            data, valid = d, vl
+            continue
+        new_data = data | d
+        if valid is None and vl is None:
+            new_valid = None
+        else:
+            av = torch.ones_like(data) if valid is None else valid
+            bv = torch.ones_like(d) if vl is None else vl
+            known_true = (av & data) | (bv & d)
+            new_valid = (av & bv) | known_true
+        data, valid = new_data, new_valid
+    return _bool(data, valid)
+
+
+@scalar("not")
+def _not(e, args):
+    (a,) = args
+    return _bool(~a.data, a.valid)
 
 
 @scalar("like")
@@ -508,3 +655,23 @@ def _year(e, args):
     (a,) = args
     y, _, _ = _civil_from_days(_days_of(a))
     return Val(e.dtype, y, a.valid)
+
+
+# -- strings -----------------------------------------------------------------
+
+
+@scalar("substring")
+def _substring(e, args):
+    """A host transform over the dictionary (start and length must be
+    literals, read from the IR); rows remap by code."""
+    if not all(isinstance(a, ir.Literal) for a in e.args[1:]):
+        raise NotImplementedError("substring with non-literal start/length")
+    s0 = int(e.args[1].value)  # SQL 1-based
+    ln = int(e.args[2].value) if len(e.args) > 2 else None
+
+    def f(d):
+        if ln is None:
+            return np.array([s[s0 - 1:] for s in d], object)
+        return np.array([s[s0 - 1:s0 - 1 + ln] for s in d], object)
+
+    return _dict_transform(args[0], f)

@@ -2,7 +2,7 @@
 plain PyTorch versions.
 
 The port of ``presto_tpu/kernels/__init__.py``. Each Pallas kernel of
-the reference's main path is a CUDA C++ kernel for Hopper here
+the reference is a CUDA C++ kernel for Hopper here
 (``csrc/*.cu``, built with nvcc at first use, kernels/build.py):
 
 ==============  ===================================  ====================
@@ -14,6 +14,11 @@ multijoin       fused star-chain probe walk          the inline walk of
                 (kernels/multijoin.py)               apply_multi_join
 agg_sum         shared-memory / atomic segment sum   ``index_add_`` on int64
                 (kernels/segagg.py)
+agg_max,        warp / shared-memory / atomic        ``scatter_reduce_``
+agg_min         segment max and min                  onto the identity
+                (kernels/segagg.py)
+compact         count, scan, stable scatter          cumsum positions +
+                (kernels/compact.py)                 ``index_copy_``
 ==============  ===================================  ====================
 
 Selection is the ``kernel_backend`` session property:
@@ -33,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 
+from presto_tpu_torch.kernels import compact as _compact
 from presto_tpu_torch.kernels import hashjoin as _hashjoin
 from presto_tpu_torch.kernels import multijoin as _multijoin
 from presto_tpu_torch.kernels import segagg as _segagg
@@ -51,6 +57,12 @@ KERNELS: dict[str, dict[str, object]] = {
                     "torch": _hashjoin.lookup_join_torch},
     "agg_sum": {"cuda": _segagg.segment_sum_cuda,
                 "torch": _segagg.segment_sum_torch},
+    "agg_max": {"cuda": _segagg.segment_max_cuda,
+                "torch": _segagg.segment_max_torch},
+    "agg_min": {"cuda": _segagg.segment_min_cuda,
+                "torch": _segagg.segment_min_torch},
+    "compact": {"cuda": _compact.filter_compact_cuda,
+                "torch": _compact.filter_compact_torch},
     "multijoin": {"cuda": _multijoin.multijoin_cuda,
                   "torch": _multijoin.multijoin_torch},
 }

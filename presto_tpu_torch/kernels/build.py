@@ -43,6 +43,9 @@ _L = ctypes.c_longlong
 
 _SIGNATURES = {
     "pt_segment_sum": [_P, _I, _P, _L, _I, _P, _P],
+    "pt_segment_cmp": [_P, _I, _P, _L, _I, _I, _P, _P],
+    "pt_filter_compact": [_P, _L, _P, _I, _L, _P, _P, _P],
+    "pt_compact_tile_rows": [],
     "pt_build_table": [_P, _P, _L, _P, _P, _L, _I, _P, _P],
     "pt_probe_table": [_P, _P, _L, _P, _P, _L, _I, _P, _P, _P, _P],
     "pt_multijoin_walk": [_P, _I, _P, _L, _I, _P, _P, _P, _P],
@@ -54,7 +57,8 @@ class LaunchCounts:
     """Launches per kernel. Each wrapper adds one where it launches
     its kernel, and nowhere else."""
 
-    NAMES = ("segment_sum", "build_table", "probe_table", "multijoin_walk")
+    NAMES = ("segment_sum", "segment_max", "segment_min", "build_table",
+             "probe_table", "multijoin_walk", "filter_compact")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -146,6 +150,7 @@ class KernelLibrary:
         self._lib = None
         self.path: Path | None = None
         self.build_seconds: float | None = None
+        self.compact_tile_rows = 0  # rows per filter_compact tile
 
     def get(self) -> ctypes.CDLL:
         with self._lock:
@@ -163,6 +168,7 @@ class KernelLibrary:
                 if got != (MJ_MAX_STEPS, MJ_MAX_KEYS, MJ_STEP_WORDS):
                     raise RuntimeError(
                         f"multijoin descriptor layout mismatch: {got}")
+                self.compact_tile_rows = lib.pt_compact_tile_rows()
                 self._lib = lib
                 self.build_seconds = time.perf_counter() - t0
             return self._lib

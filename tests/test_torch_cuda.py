@@ -1,6 +1,7 @@
 """On the card only (marker ``cuda``): each CUDA kernel of
 presto_tpu_torch against its plain PyTorch version, with exact
-equality, and the main path end to end on both backends. Elsewhere
+equality (live rows for the compaction), and the 22 TPC-H queries and
+a general cross join end to end on both backends. Elsewhere
 every test skips with its reason. This file imports neither jax nor
 presto_tpu, so it runs where only the port is installed:
 
@@ -18,6 +19,7 @@ from presto_tpu_torch import kernels as K
 from presto_tpu_torch import types as T
 from presto_tpu_torch.expr.compile import Val
 from presto_tpu_torch.kernels import build as B
+from presto_tpu_torch.kernels import compact as CP
 from presto_tpu_torch.kernels import hashjoin as HJ
 from presto_tpu_torch.kernels import segagg as SA
 from presto_tpu_torch.ops import hash as H
@@ -64,6 +66,61 @@ def test_segment_sum_matches_plain(cuda, dtype, k):
     torch.cuda.synchronize()
     assert B.LAUNCHES.snapshot()["segment_sum"] == before + 1
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _cmp_inputs(dtype, n, k, seed):
+    rng = np.random.default_rng(seed)
+    if dtype is np.int64:
+        x = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+        x[:4] = [(1 << 63) - 1, -(1 << 63), (1 << 63) - 2, -(1 << 63) + 1]
+    else:
+        info = np.iinfo(dtype)
+        x = rng.integers(info.min, info.max, n, dtype=dtype,
+                         endpoint=True)
+    # ids past k and below 0 drop; ids >= k // 2 + 1 never occur except
+    # as the out-of-range ones, so those segments stay empty
+    ids = rng.integers(-3, k // 2 + 1, n).astype(np.int32)
+    ids[-5:] = k + 2
+    return x, ids
+
+
+@pytest.mark.parametrize("k", [1, 6, 4096, 70_000])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int8, np.int32, np.int64])
+@pytest.mark.parametrize("is_max", [True, False])
+def test_segment_max_min_match_plain(cuda, dtype, k, is_max):
+    x, ids = _cmp_inputs(dtype, 200_000, k, seed=k + int(is_max))
+    name = "segment_max" if is_max else "segment_min"
+    plain = SA.segment_max_torch if is_max else SA.segment_min_torch
+    kernel = SA.segment_max_cuda if is_max else SA.segment_min_cuda
+    want = plain(_t(x, cuda), _t(ids, cuda), k)
+    before = B.LAUNCHES.snapshot()[name]
+    got = kernel(_t(x, cuda), _t(ids, cuda), k)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES.snapshot()[name] == before + 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("capacity", [1 << 12, 1 << 17])
+def test_filter_compact_matches_plain(cuda, capacity):
+    # 1-D int64, float64 and bool columns and a [n, 2] long-decimal
+    # column; at 1 << 12 the live rows overflow the capacity
+    rng = np.random.default_rng(capacity)
+    n = 300_007
+    live = _t(rng.random(n) < 0.04, cuda)
+    arrays = {"i": _t(rng.integers(-(1 << 62), 1 << 62, n), cuda),
+              "f": _t(rng.random(n), cuda),
+              "b": _t(rng.random(n) > 0.5, cuda),
+              "d": _t(rng.integers(-(1 << 62), 1 << 62, (n, 2)), cuda),
+              "s": _t(rng.integers(0, 1 << 15, n).astype(np.int16), cuda)}
+    want = CP.filter_compact_torch(live, arrays, capacity)
+    before = B.LAUNCHES.snapshot()["filter_compact"]
+    got = CP.filter_compact_cuda(live, arrays, capacity)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES.snapshot()["filter_compact"] == before + 1
+    live_rows = min(int(live.sum()), capacity)
+    for name in arrays:
+        assert got[name].shape == want[name].shape
+        assert torch.equal(got[name][:live_rows], want[name][:live_rows])
 
 
 def _lookup_inputs(device, nb, npr, key_range, seed=0):
@@ -157,16 +214,39 @@ def test_multijoin_matches_plain(cuda):
         assert torch.equal(got.cols[c].data, want.cols[c].data)
 
 
-@pytest.mark.parametrize("qname", ["q01", "q06", "q03", "q05", "q09"])
+CROSS_JOIN_SQL = """
+select r_name, count(*) as c, sum(l_extendedprice) as s
+from lineitem cross join region
+where l_orderkey < 600
+group by r_name
+order by r_name"""
+
+
+EXTREMA_SQL = """
+select l_returnflag, l_linestatus, min(l_shipdate) as first_ship,
+  max(l_receiptdate) as last_receipt, min(l_extendedprice) as min_price,
+  max(l_quantity) as max_qty, min(l_discount) as min_disc
+from lineitem
+group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus"""
+
+
+@pytest.mark.parametrize("qname", [f"q{i:02d}" for i in range(1, 23)]
+                         + ["cross_join", "extrema"])
 def test_main_path_backends_agree(cuda, qname):
     import os
     import sys
     sys.path.insert(0, os.path.dirname(__file__))
     from tpch_queries import QUERIES
+    sql = {"cross_join": CROSS_JOIN_SQL,
+           "extrema": EXTREMA_SQL}.get(qname) or QUERIES[qname]
     e = Engine()
     e.register_catalog("tpch", TpchConnector(scale=0.01))
     rows = {}
     for backend in ("cuda", "torch"):
         e.session.set("kernel_backend", backend)
-        rows[backend] = e.execute(QUERIES[qname])
+        rows[backend] = e.execute(sql)
     assert rows["cuda"] == rows["torch"] and rows["cuda"]
+    if qname == "cross_join":
+        notes = {t for tags in e.last_kernel_notes.values() for t in tags}
+        assert "torch:compact" in notes

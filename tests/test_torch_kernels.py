@@ -1,6 +1,7 @@
 """The plain PyTorch versions of the port's kernels against the JAX
 package's Pallas kernels (interpret mode off-TPU, as tests/test_kernels.py
-runs them) and their XLA fallbacks, with exact equality. The CUDA
+runs them) and their XLA fallbacks, with exact equality (live rows
+only for the compaction, whose dead rows differ by design). The CUDA
 kernels against these plain versions are tests/test_torch_cuda.py.
 
 Inputs come from numpy with a fixed seed and go to both sides as
@@ -18,6 +19,7 @@ from presto_tpu import kernels as RK
 from presto_tpu import types as RT
 from presto_tpu.exec import operators as ROP
 from presto_tpu.expr.compile import Val as RVal
+from presto_tpu.kernels import compact as RCP
 from presto_tpu.kernels import hashjoin as RHJ
 from presto_tpu.kernels import segagg as RSA
 from presto_tpu.ops import hash as RH
@@ -26,9 +28,23 @@ from presto_tpu_torch import kernels as PK
 from presto_tpu_torch import types as PT
 from presto_tpu_torch.exec import operators as POP
 from presto_tpu_torch.expr.compile import Val as PVal
+from presto_tpu_torch.kernels import compact as PCP
 from presto_tpu_torch.kernels import hashjoin as PHJ
 from presto_tpu_torch.kernels import segagg as PSA
 from presto_tpu_torch.ops import hash as PH
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's CPU ops while this module
+    runs: the test workers run in parallel, and torch's default of one
+    OpenMP thread per core in every worker oversubscribes the host
+    (its spinning threads slowed the whole suite several times over)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 
 def _t(a, device="cpu") -> torch.Tensor:
@@ -97,6 +113,148 @@ def test_segment_sum_past_the_tpu_gate(dname):
     # on CPU tensors the kernel entry takes the plain version
     np.testing.assert_array_equal(
         PSA.segment_sum_cuda(_t(x), _t(ids), k).numpy(), want)
+
+
+# -- segment max / min ------------------------------------------------------
+
+_CMP_DTYPES = {"int8": np.int8, "int32": np.int32, "int64": np.int64}
+
+
+def _cmp_inputs(dtype, n, k, seed):
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(dtype)
+    x = rng.integers(info.min, info.max, n, dtype=dtype, endpoint=True)
+    x[:4] = [info.max, info.min, info.max - 1, info.min + 1]
+    # segments past k // 2 get no row (empty: they hold the identity);
+    # ids below 0 and at or past k drop
+    ids = rng.integers(-3, k // 2 + 1, n).astype(np.int32)
+    ids[-6:] = [k, k + 1, -1, k + 7, 0, k // 2]
+    return x, ids
+
+
+def _plain_cmp(x, ids, k, is_max):
+    fn = PSA.segment_max_torch if is_max else PSA.segment_min_torch
+    return fn(_t(x), _t(ids), k).numpy()
+
+
+@pytest.mark.parametrize("is_max", [True, False])
+@pytest.mark.parametrize("k", [1, 2, 33, 65536])
+@pytest.mark.parametrize("dname", list(_CMP_DTYPES))
+def test_segment_max_min_plain_matches_pallas_and_xla(dname, k, is_max):
+    x, ids = _cmp_inputs(_CMP_DTYPES[dname], 3000, k, seed=k + is_max)
+    with RK.use_backend("pallas"):
+        pallas = np.asarray(RSA._cmp_pallas(
+            jnp.asarray(x), jnp.asarray(ids), k, is_max))
+    xla_fn = RSA.segment_max_xla if is_max else RSA.segment_min_xla
+    xla = np.asarray(xla_fn(jnp.asarray(x), jnp.asarray(ids), k))
+    got = _plain_cmp(x, ids, k, is_max)
+    np.testing.assert_array_equal(got, xla)
+    np.testing.assert_array_equal(got, pallas)
+    assert got.dtype == xla.dtype == x.dtype
+    if k > 2:
+        info = np.iinfo(x.dtype)
+        assert got[-1] == (info.min if is_max else info.max)  # empty
+
+
+@pytest.mark.parametrize("is_max", [True, False])
+@pytest.mark.parametrize("dname", list(_CMP_DTYPES))
+def test_segment_max_min_past_the_tpu_gate(dname, is_max):
+    # k = 70 000 is past the Pallas kernel's VMEM gate (65 536): the
+    # port has no gate, and holds to the XLA fallback there
+    k = 70_000
+    x, ids = _cmp_inputs(_CMP_DTYPES[dname], 5000, k, seed=9 + is_max)
+    xla_fn = RSA.segment_max_xla if is_max else RSA.segment_min_xla
+    want = np.asarray(xla_fn(jnp.asarray(x), jnp.asarray(ids), k))
+    np.testing.assert_array_equal(_plain_cmp(x, ids, k, is_max), want)
+    # on CPU tensors the kernel entry takes the plain version
+    entry = PSA.segment_max_cuda if is_max else PSA.segment_min_cuda
+    np.testing.assert_array_equal(entry(_t(x), _t(ids), k).numpy(), want)
+
+
+def test_segment_max_min_float_columns_stay_plain():
+    from presto_tpu.ops import segred as RSR
+    from presto_tpu_torch.ops import segred as PSR
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=500)
+    ids = rng.integers(-1, 40, 500).astype(np.int32)
+    with PK.use_backend("cuda"), PK.collect() as used:
+        got = PSR.segment_max(_t(x), _t(ids), 50).numpy()
+    assert used == ["torch:agg_max"]
+    want = np.asarray(RSR.segment_max(jnp.asarray(x), jnp.asarray(ids),
+                                      50))
+    np.testing.assert_array_equal(got, want)  # -inf in empty segments
+
+
+# -- filter compaction ------------------------------------------------------
+
+
+def _compact_inputs(n, seed, frac=0.3):
+    rng = np.random.default_rng(seed)
+    live = rng.random(n) < frac
+    arrays = {"i64": rng.integers(-(1 << 62), 1 << 62, n),
+              "f64": rng.normal(size=n),
+              "i32": rng.integers(-1000, 1000, n).astype(np.int32),
+              "flag": rng.random(n) > 0.5,
+              "dec": rng.integers(-(1 << 62), 1 << 62, (n, 2))}
+    return live, arrays
+
+
+@pytest.mark.parametrize("capacity", [64, 512, 2048])
+def test_filter_compact_plain_matches_pallas_and_xla(capacity):
+    # 1000 rows, about 300 live: capacity 64 overflows (rows past it
+    # drop), 512 and 2048 hold every live row
+    live, arrays = _compact_inputs(1000, seed=capacity)
+    jl = jnp.asarray(live)
+    ja = {k: jnp.asarray(v) for k, v in arrays.items()}
+    with RK.use_backend("pallas"):
+        pallas = RCP.filter_compact_pallas(jl, ja, capacity)
+    xla = RCP.filter_compact_xla(jl, ja, capacity)
+    got = PCP.filter_compact_torch(_t(live),
+                                   {k: _t(v) for k, v in arrays.items()},
+                                   capacity)
+    entry = PCP.filter_compact_cuda(_t(live),
+                                    {k: _t(v) for k, v in arrays.items()},
+                                    capacity)
+    rows = min(int(live.sum()), capacity)  # the count both report
+    for k in arrays:
+        assert got[k].shape == tuple(np.asarray(xla[k]).shape)
+        for other in (pallas, xla):  # live rows only (R3)
+            np.testing.assert_array_equal(got[k].numpy()[:rows],
+                                          np.asarray(other[k])[:rows], k)
+        np.testing.assert_array_equal(entry[k].numpy(), got[k].numpy())
+        assert not got[k].numpy()[rows:].any()  # pad rows zero
+
+
+def test_compact_dtable_matches_reference():
+    rng = np.random.default_rng(11)
+    n = 700
+    live = rng.random(n) < 0.2
+    cols = {"a": (rng.integers(0, 99, n), rng.random(n) > 0.1),
+            "d": (rng.integers(-(1 << 40), 1 << 40, (n, 2)), None)}
+    typ = {"a": (RT.BIGINT, PT.BIGINT),
+           "d": (RT.DecimalType(38, 2), PT.DecimalType(38, 2))}
+    rdt = ROP.DTable({k: RVal(typ[k][0], jnp.asarray(d),
+                              None if v is None else jnp.asarray(v))
+                      for k, (d, v) in cols.items()}, jnp.asarray(live), n)
+    pdt = POP.DTable({k: PVal(typ[k][1], _t(d),
+                              None if v is None else _t(v))
+                      for k, (d, v) in cols.items()}, _t(live), n, "cpu")
+    for cap in (64, 256):  # 64 overflows the ~140 live rows
+        with RK.use_backend("xla"):
+            want, wok = ROP.compact_dtable(rdt, cap)
+        with PK.use_backend("torch"), PK.collect() as used:
+            got, gok = POP.compact_dtable(pdt, cap)
+        assert used == ["torch:compact"]
+        assert bool(gok) == bool(wok)
+        wl = np.asarray(want.live)
+        np.testing.assert_array_equal(got.live.numpy(), wl)
+        for k in cols:
+            np.testing.assert_array_equal(
+                got.cols[k].data.numpy()[wl], np.asarray(want.cols[k].data)[wl])
+            if cols[k][1] is not None:
+                np.testing.assert_array_equal(
+                    got.cols[k].valid.numpy()[wl],
+                    np.asarray(want.cols[k].valid)[wl])
 
 
 # -- join build + probe -----------------------------------------------------
@@ -250,5 +408,7 @@ def test_cuda_wrappers_reject_bad_inputs():
         PHJ.build_table(x, torch.ones(8, dtype=torch.bool), 16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         PHJ.probe_table(x, x.to(torch.int32), x, x.to(torch.bool))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        PSA._segment_cmp_cuda(x, x.to(torch.int32), 4, True)
     assert PH.next_pow2(1000) == 1024
     assert PHJ.table_capacity(3) == 8 and PHJ.table_capacity(1000) == 1024
