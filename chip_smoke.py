@@ -11,10 +11,13 @@ both kernel backends.
 Phases (any failure exits non-zero before the result line):
 
 1. The card's ``nvidia-smi`` name and power limit; the kernel build.
-2. Kernels: segment_sum, segment_max and segment_min over 60M rows
-   (k = 6 or 1, 4096, 1<<20; max/min with values at +-2^63 and empty
-   segments), build_table on 15M rows and probe_table with 60M rows,
-   multijoin_walk over a 60M spine with 3 builds, and filter_compact of
+2. Kernels: segment_sum over 60M rows (k = 6 and 1 in registers, 32
+   in lane columns of shared memory, 4096 in shared-memory partials,
+   1<<20 by global atomics), segment_max and segment_min over 60M rows (k = 1, 4096,
+   1<<20, with values at +-2^63 and empty segments), build_table on
+   15M rows and probe_table with 60M rows (and a build with duplicate
+   keys, compared only), multijoin_walk over a 60M spine with 3
+   builds, and filter_compact of
    a 60M-row mask (about 4% live) into 2^23 rows with int64, float64,
    [n, 2] int64 and bool columns. Each is compared with its plain
    version on the same inputs (exact equality required; live rows for
@@ -31,7 +34,8 @@ Phases (any failure exits non-zero before the result line):
    over the generator's arrays.
 
 The queries are the repository's TPC-H texts (tests/tpch_queries.py).
-The last lines are the card, a JSON summary of the kernels and
+The last lines are the card, a JSON summary of the kernels (each with
+the PR that last redesigned it, ``redesigned_in``) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -69,6 +73,10 @@ KERNELS = {
     "filter_compact": ("presto_tpu_torch/kernels/csrc/compact.cu",
                        "presto_tpu/kernels/compact.py:84"),
 }
+# the PR whose redesign each kernel runs (None: as first ported)
+REDESIGNED_IN = {"segment_sum": 3, "segment_max": None, "segment_min": None,
+                 "build_table": 3, "probe_table": None,
+                 "multijoin_walk": None, "filter_compact": None}
 # the kernel each query must run on the card. At SF10 the cost-based
 # planner builds Q3's orders-lineitem join on lineitem (an expanding
 # join, which has no kernel in the reference either) and its customer
@@ -152,11 +160,14 @@ def kernel_phase(dev, seed: int) -> dict:
     out: dict = {}
 
     # segment_sum: Q1's fold is 60M int64 rows into a handful of groups
+    # (k = 6, the headline); a global fold is k = 1; k = 32 is the lane
+    # path's widest, 4096 the shared-memory path's, 1<<20 the global
+    # atomics'
     n = 60_000_000
     data = torch.randint(-(1 << 40), 1 << 40, (n,), dtype=torch.int64,
                          device=dev, generator=gen)
     cases = []
-    for k in (6, 4096, 1 << 20):
+    for k in (6, 1, 32, 4096, 1 << 20):
         ids = torch.randint(0, k, (n,), dtype=torch.int32, device=dev,
                             generator=gen)
         got = SA.segment_sum_cuda(data, ids, k)
@@ -230,7 +241,26 @@ def kernel_phase(dev, seed: int) -> dict:
         raise AssertionError("build/probe reported a chain overflow")
     err = require_equal("build_table/probe_table",
                         [(got[0], want[0]), (got[1], want[1])])
-    keys, rows, _ok = HJ.build_table(bh, bl, cap)
+    # duplicate build keys (15M draws from a 60M span repeat ~1.7M
+    # keys): the kernel must keep each key's largest row, as the plain
+    # version's last-of-run does
+    dkeys = torch.randint(0, 4 * nb, (nb,), dtype=torch.int64, device=dev,
+                          generator=gen)
+    dh = H.combine_hashes([H.hash_int_column(dkeys)])
+    dup = HJ.lookup_join_cuda(dh, bl, ph, pl, cap)
+    dup_want = HJ.lookup_join_torch(dh, bl, ph, pl, cap)
+    if not bool(dup[2]):
+        raise AssertionError("build/probe (duplicates) reported a chain "
+                             "overflow")
+    err = max(err, require_equal("build_table/probe_table (duplicates)",
+                                 [(dup[0], dup_want[0]),
+                                  (dup[1], dup_want[1])]))
+    log(f"build/probe with {nb - int(torch.unique(dkeys).numel())} "
+        "duplicate build keys: equal to the plain version")
+    del dkeys, dh, dup, dup_want
+    # one [cap, 2] slot tensor (older trees return a key plane and a
+    # row plane), so kernel_ab.py can time either
+    *table, _ok = HJ.build_table(bh, bl, cap)
     b_ms, b_by = bound(nb * (8 + 1) + cap * (8 + 4) + 4, nb * 8)
     out["build_table"] = {
         "max_abs_err": err, "ms": cuda_ms(lambda: HJ.build_table(bh, bl,
@@ -243,12 +273,12 @@ def kernel_phase(dev, seed: int) -> dict:
                        npr * 8)
     out["probe_table"] = {
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: HJ.probe_table(keys, rows, ph, pl)),
+        "ms": cuda_ms(lambda: HJ.probe_table(*table, ph, pl)),
         "plain_ms": cuda_ms(lambda: H.probe_runs(bh, bl, ph, pl)),
         "library_ms": None, "bound_ms": p_ms, "bound_by": p_by}
     log("kernel " + json.dumps({"name": "probe_table",
                                 **out["probe_table"]}))
-    del keys, rows, got, want, bh, ph, pl
+    del table, got, want, bh, ph, pl
 
     # multijoin_walk over a lineitem-sized spine with three builds: an
     # orders-sized one on the spine, a supplier-sized one on the spine,
@@ -554,7 +584,8 @@ def main() -> int:
                         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"],
-                        "library_ms": k["library_ms"]})
+                        "library_ms": k["library_ms"],
+                        "redesigned_in": REDESIGNED_IN[name]})
     print(card, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

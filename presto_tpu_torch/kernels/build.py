@@ -35,19 +35,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # against the library at load)
 MJ_MAX_STEPS = 8
 MJ_MAX_KEYS = 4
-MJ_STEP_WORDS = 4 + 3 * MJ_MAX_KEYS
+MJ_STEP_WORDS = 3 + 3 * MJ_MAX_KEYS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
 _SIGNATURES = {
-    "pt_segment_sum": [_P, _I, _P, _L, _I, _P, _P],
+    "pt_segment_sum": [_P, _I, _P, _L, _I, _L, _L, _P, _P],
     "pt_segment_cmp": [_P, _I, _P, _L, _I, _I, _P, _P],
     "pt_filter_compact": [_P, _L, _P, _I, _L, _P, _P, _P],
     "pt_compact_tile_rows": [],
-    "pt_build_table": [_P, _P, _L, _P, _P, _L, _I, _P, _P],
-    "pt_probe_table": [_P, _P, _L, _P, _P, _L, _I, _P, _P, _P, _P],
+    "pt_build_part_counters": [],
+    "pt_build_table": [_P, _P, _L, _P, _L, _I, _P, _P, _P, _P, _P],
+    "pt_probe_table": [_P, _L, _P, _P, _L, _I, _P, _P, _P, _P],
     "pt_multijoin_walk": [_P, _I, _P, _L, _I, _P, _P, _P, _P],
     "pt_multijoin_limits": [_P, _P, _P],
 }
@@ -151,6 +152,7 @@ class KernelLibrary:
         self.path: Path | None = None
         self.build_seconds: float | None = None
         self.compact_tile_rows = 0  # rows per filter_compact tile
+        self.build_part_counters = 0  # ints of a partitioned build
 
     def get(self) -> ctypes.CDLL:
         with self._lock:
@@ -169,6 +171,7 @@ class KernelLibrary:
                     raise RuntimeError(
                         f"multijoin descriptor layout mismatch: {got}")
                 self.compact_tile_rows = lib.pt_compact_tile_rows()
+                self.build_part_counters = lib.pt_build_part_counters()
                 self._lib = lib
                 self.build_seconds = time.perf_counter() - t0
             return self._lib

@@ -4,6 +4,10 @@
 // (presto_tpu_torch/ops/hash.py); the kernels read them as
 // unsigned long long. EMPTY (all ones) marks a free table slot; the
 // host-side combine_hashes remaps it away from every real row hash.
+//
+// A hash table (build_table, probe_table, multijoin_walk) is one array
+// of 16-byte slots {uint64 key; int32 row; int32 pad}, held as an int64
+// tensor [cap, 2]. An empty slot is all ones: key EMPTY, row -1.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,6 +37,26 @@ __device__ __forceinline__ uint32_t slot32(unsigned long long h) {
   uint32_t hi = static_cast<uint32_t>(h >> 32);
   uint32_t lo = static_cast<uint32_t>(h);
   return mix32(lo ^ mix32(hi));
+}
+
+// One hash-table slot. Key and row share a 32-byte DRAM sector, so a
+// build's claim and its row update, and a probe's test and its row
+// read, touch one sector.
+struct __align__(16) Slot {
+  unsigned long long key;
+  int row;
+  int pad;
+};
+
+// Key and row of a slot in one 16-byte load (the row is the low word
+// of the second half).
+__device__ __forceinline__ void load_slot(const Slot* __restrict__ table,
+                                          uint32_t slot,
+                                          unsigned long long& key,
+                                          int& row) {
+  const longlong2 s = __ldg(reinterpret_cast<const longlong2*>(table) + slot);
+  key = static_cast<unsigned long long>(s.x);
+  row = static_cast<int>(s.y);
 }
 
 inline int grid_for(long long n, int threads, int max_blocks) {

@@ -10,19 +10,22 @@
 // row it reads the live flag and, per step, the key hashes (a spine
 // column, or a build column gathered at an earlier step's match) and
 // one or a few table slots; it writes one int32 gather per step and
-// the live flag. Tables above the 50 MB L2 are served from HBM.
+// the live flag. Tables above the 50 MB L2 are served from HBM, one
+// DRAM sector round trip per first slot touched.
 //
 // Design: one thread per spine row walks all k steps. Per step it
 // combines the step's column hashes with the multiply-xor and EMPTY
 // remap of ops/hash.combine_hashes in native 64-bit arithmetic, probes
 // that step's table (built by the build_table kernel) with linear
 // probing, and keeps the k matched build rows in registers, so a later
-// step's key can come from an earlier step's build. A dead row reads
-// nothing and gathers build row 0, as the reference's
-// clip(where(found, row, -1)) does. Step descriptors (table pointers,
-// masks, key sources) come in one small device array of int64 words.
-// Value checks against 64-bit hash collisions stay outside the kernel,
-// as in the reference.
+// step's key can come from an earlier step's build. A table is one
+// array of 16-byte slots (common.cuh): each probe reads a slot's key
+// and row with one 16-byte load, so a hit costs one sector, not one in
+// a key plane and another in a row plane. A dead row reads nothing and
+// gathers build row 0, as the reference's clip(where(found, row, -1))
+// does. Step descriptors (table pointer, mask, key sources) come in
+// one small device array of int64 words. Value checks against 64-bit
+// hash collisions stay outside the kernel, as in the reference.
 #include "common.cuh"
 
 namespace {
@@ -30,10 +33,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxSteps = 8;
 constexpr int kMaxKeys = 4;
-// descriptor words per step: keys ptr, rows ptr, mask, nkeys, then per
-// key (source, hash ptr, valid ptr); source -1 = spine, else the build
+// descriptor words per step: table ptr, mask, nkeys, then per key
+// (source, hash ptr, valid ptr); source -1 = spine, else the build
 // step whose matched row indexes the key column
-constexpr int kStepWords = 4 + 3 * kMaxKeys;
+constexpr int kStepWords = 3 + 3 * kMaxKeys;
 
 __global__ void multijoin_walk_kernel(const long long* __restrict__ desc,
                                       int k,
@@ -52,30 +55,30 @@ __global__ void multijoin_walk_kernel(const long long* __restrict__ desc,
     int row = 0;
     bool found = false;
     if (alive) {
-      const int nkeys = static_cast<int>(d[3]);
+      const int nkeys = static_cast<int>(d[2]);
       bool kv = true;
       unsigned long long h = 0ull;
       for (int j = 0; j < nkeys; ++j) {
-        const long long src = d[4 + 3 * j];
+        const long long src = d[3 + 3 * j];
         const long long idx = src < 0 ? i : g[src];
-        const bool* valid = reinterpret_cast<const bool*>(d[6 + 3 * j]);
+        const bool* valid = reinterpret_cast<const bool*>(d[5 + 3 * j]);
         if (valid != nullptr) kv = kv && valid[idx];
         const unsigned long long kh =
-            reinterpret_cast<const unsigned long long*>(d[5 + 3 * j])[idx];
+            reinterpret_cast<const unsigned long long*>(d[4 + 3 * j])[idx];
         h = j == 0 ? kh : (h * pt::kPhi64) ^ kh;
       }
       if (h == pt::kEmpty) h -= 1ull;  // combine_hashes' remap
       if (kv) {
-        const unsigned long long* keys =
-            reinterpret_cast<const unsigned long long*>(d[0]);
-        const int* rows = reinterpret_cast<const int*>(d[1]);
-        const uint32_t mask = static_cast<uint32_t>(d[2]);
+        const pt::Slot* table = reinterpret_cast<const pt::Slot*>(d[0]);
+        const uint32_t mask = static_cast<uint32_t>(d[1]);
         uint32_t slot = pt::slot32(h) & mask;
         bool decided = false;
         for (int j = 0; j < max_probes; ++j) {
-          const unsigned long long t = keys[slot];
+          unsigned long long t;
+          int r;
+          pt::load_slot(table, slot, t, r);
           if (t == h) {
-            row = rows[slot];
+            row = r;
             found = true;
             decided = true;
             break;

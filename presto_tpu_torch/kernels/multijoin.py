@@ -4,7 +4,8 @@ version.
 Port of ``try_fused`` (presto_tpu/kernels/multijoin.py:59). The kernel
 is ``csrc/multijoin.cu``, whose header says what bounds it on the card
 and how it walks; its per-step tables come from the build_table kernel
-(kernels/hashjoin.py).
+(kernels/hashjoin.py), each an int64 [cap, 2] array of 16-byte slots
+(key, row) that the walk reads with one load a slot.
 
 Both versions take the spine's columns and live mask, the builds as
 (cols, live, nrows), and the per-step criteria [(probe_sym,
@@ -183,7 +184,9 @@ def multijoin_walk(desc, k: int, spine_live, width: int,
 def step_descriptors(steps, builds, growth: int = 1,
                      max_probes: int = HJ.MAX_PROBES):
     """Build each step's table with the build_table kernel and pack the
-    walk's step descriptors. Returns (desc int64 device tensor, the
+    walk's step descriptors: per step the table's address, its slot
+    mask and key count, then per key (source step or -1 for the spine,
+    hash column address, validity address or 0). Returns (desc int64 device tensor, the
     tensors the descriptors point at, the build ok flags); the caller
     keeps the tensors alive until the walk is queued."""
     if not 1 <= len(steps) <= B.MJ_MAX_STEPS:
@@ -198,13 +201,13 @@ def step_descriptors(steps, builds, growth: int = 1,
     for si, ((_bcols, blive, bn), keys) in enumerate(zip(builds, steps)):
         cap = H.next_pow2(2 * max(bn, 1)) * max(int(growth), 1)
         rh = _combined_hash([bv for _s, _v, bv in keys])
-        tkeys, trows, b_ok = HJ.build_table(
+        table, b_ok = HJ.build_table(
             rh, _build_live(blive, keys).contiguous(), cap, max_probes)
         oks.append(b_ok)
-        keep += [tkeys, trows]
+        keep.append(table)
         base = si * B.MJ_STEP_WORDS
-        words[base:base + 4] = (tkeys.data_ptr(), trows.data_ptr(),
-                                tkeys.shape[0] - 1, len(keys))
+        words[base:base + 3] = (table.data_ptr(), table.shape[0] - 1,
+                                len(keys))
         for j, (src, v, _bv) in enumerate(keys):
             (kh,) = _col_hash(v)
             kh = kh.contiguous()
@@ -214,7 +217,7 @@ def step_descriptors(steps, builds, growth: int = 1,
                 vt = v.valid.contiguous()
                 keep.append(vt)
                 valid = vt.data_ptr()
-            words[base + 4 + 3 * j:base + 7 + 3 * j] = (
+            words[base + 3 + 3 * j:base + 6 + 3 * j] = (
                 src, kh.data_ptr(), valid)
     desc = torch.from_numpy(words).to(oks[0].device)
     return desc, keep, oks

@@ -49,6 +49,25 @@ def segment_sum_torch(data, segment_ids, num_segments: int):
     return acc[:k].to(_out_dtype(data))
 
 
+def vector_span(data, segment_ids) -> tuple[int, int]:
+    """The rows the ``segment_sum`` kernel reads four at a time:
+    (vbeg, nvec) for rows [vbeg, vbeg + 4 * nvec). vbeg skips the rows
+    before the first 16-byte boundary of the ids; the data must then be
+    aligned at row vbeg to its four-row word (4 * itemsize bytes, at
+    most 16), or every row takes scalar loads: (0, 0). A view at an
+    offset (a sliced column) thus keeps vector loads when its data and
+    ids are offset alike."""
+    n = data.shape[0]
+    ids_at = segment_ids.data_ptr()
+    size = data.element_size()
+    if ids_at % 4:
+        return 0, 0
+    head = (-ids_at % 16) // 4
+    if head >= n or (data.data_ptr() + head * size) % min(4 * size, 16):
+        return 0, 0
+    return head, (n - head) // 4
+
+
 def segment_sum_cuda(data, segment_ids, num_segments: int):
     """The ``segment_sum`` kernel on CUDA tensors; the plain version
     for tensors on the CPU."""
@@ -71,8 +90,9 @@ def segment_sum_cuda(data, segment_ids, num_segments: int):
     n = data.shape[0]
     if n and k:
         lib = B.LIBRARY.get()
+        vbeg, nvec = vector_span(data, segment_ids)
         rc = lib.pt_segment_sum(data.data_ptr(), _DTYPE_CODES[data.dtype],
-                                segment_ids.data_ptr(), n, k,
+                                segment_ids.data_ptr(), n, k, vbeg, nvec,
                                 out.data_ptr(), B.stream_handle(data.device))
         B.check(rc, name)
         B.LAUNCHES.add(name)

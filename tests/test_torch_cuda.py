@@ -53,19 +53,50 @@ def _seg_inputs(dtype, n, k, seed):
         info = np.iinfo(dtype)
         x = rng.integers(info.min, info.max, n, dtype=dtype)
     ids = rng.integers(-3, k + 3, n).astype(np.int32)
+    # -1 and k drop, and so does KP - 1 (k rounded up to a power of
+    # two, the accumulator count of the small-k paths) unless k is one
+    ids[3::7] = -1
+    ids[5::11] = k
+    ids[6::13] = (1 << (k - 1).bit_length()) - 1
     return x, ids
 
 
-@pytest.mark.parametrize("k", [1, 6, 4096, 70_000])
-@pytest.mark.parametrize("dtype", [np.int8, np.int32, np.int64, np.bool_])
+# the kernel's routing boundaries: registers to k = 8, lane columns of
+# shared memory to 32, shared-memory partials to 6144, global atomics
+# past it
+_BOUNDARY_KS = [1, 2, 6, 7, 8, 9, 16, 17, 32, 33, 6144, 6145, 70_000]
+_SUM_DTYPES = [np.bool_, np.uint8, np.int8, np.int16, np.int32, np.int64]
+
+
+@pytest.mark.parametrize("k", _BOUNDARY_KS)
+@pytest.mark.parametrize("dtype", _SUM_DTYPES)
 def test_segment_sum_matches_plain(cuda, dtype, k):
-    x, ids = _seg_inputs(dtype, 200_000, k, seed=k)
+    x, ids = _seg_inputs(dtype, 200_001, k, seed=k)  # an odd row count
     want = SA.segment_sum_torch(_t(x, cuda), _t(ids, cuda), k)
     before = B.LAUNCHES.snapshot()["segment_sum"]
     got = SA.segment_sum_cuda(_t(x, cuda), _t(ids, cuda), k)
     torch.cuda.synchronize()
     assert B.LAUNCHES.snapshot()["segment_sum"] == before + 1
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("offset", ["both", "data", "ids"])
+@pytest.mark.parametrize("k", [6, 33, 70_000])
+@pytest.mark.parametrize("dtype", [np.bool_, np.int16, np.int64])
+def test_segment_sum_offset_views(cuda, dtype, k, offset):
+    # views one row in: both alike keep vector loads after a scalar
+    # head, one alone sends every row to scalar loads
+    x, ids = _seg_inputs(dtype, 100_003, k, seed=3 * k)
+    tx, tids = _t(x, cuda), _t(ids, cuda)
+    dx = tx[1:] if offset in ("both", "data") else tx[:-1]
+    di = tids[1:] if offset in ("both", "ids") else tids[:-1]
+    span = SA.vector_span(dx, di)
+    assert span == ((3, (len(dx) - 3) // 4) if offset == "both"
+                    else (0, 0))
+    want = SA.segment_sum_torch(dx, di, k)
+    got = SA.segment_sum_cuda(dx, di, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def _cmp_inputs(dtype, n, k, seed):
@@ -134,18 +165,91 @@ def _lookup_inputs(device, nb, npr, key_range, seed=0):
 
 
 @pytest.mark.parametrize("case", ["duplicates", "dead_rows",
-                                  "empty_build"])
+                                  "empty_build", "min_table",
+                                  "partitioned"])
 def test_lookup_join_matches_plain(cuda, case):
     bh, bl, ph, pl = _lookup_inputs(cuda, 70_000, 200_000, 40_000)
+    capacity = 1 << 17
+    if case == "partitioned":
+        # a table past PARTITION_MIN_SLOTS builds by home-slot buckets
+        bh, bl, ph, pl = _lookup_inputs(cuda, 1_500_000, 3_000_000,
+                                        1_000_000)
+        capacity = 1 << 22
+        assert capacity > HJ.PARTITION_MIN_SLOTS
     if case == "dead_rows":
         bl[::3] = False
     if case == "empty_build":
         bl[:] = False
-    want = HJ.lookup_join_torch(bh, bl, ph, pl, 1 << 17)
-    got = HJ.lookup_join_cuda(bh, bl, ph, pl, 1 << 17)
+    if case == "min_table":
+        # capacity 1 gives the 8-slot minimum table: five build rows
+        # on three keys, one dead
+        bh, bl = bh[[0, 1, 0, 2, 1]], bl[:5].clone()
+        bl[:] = True
+        bl[3] = False
+        ph = torch.cat([bh, ph[:5]])
+        pl = torch.ones(10, dtype=torch.bool, device=cuda)
+        capacity = 1
+    want = HJ.lookup_join_torch(bh, bl, ph, pl, capacity)
+    got = HJ.lookup_join_cuda(bh, bl, ph, pl, capacity)
     torch.cuda.synchronize()
     assert bool(got[2])
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("capacity", [1 << 17, 1 << 21])
+def test_build_table_layout(cuda, capacity):
+    # one 16-byte slot a key: word 0 the key, word 1 the largest live
+    # row with that key over a high word of -1; empty slots all ones.
+    # 1 << 21 slots take the partitioned build
+    bh, bl, _ph, _pl = _lookup_inputs(cuda, 70_000, 10, 40_000)
+    table, ok = HJ.build_table(bh, bl, capacity)
+    torch.cuda.synchronize()
+    assert bool(ok) and table.shape == (capacity, 2)
+    assert table.dtype == torch.int64 and table.data_ptr() % 16 == 0
+    t = table.cpu().numpy()
+    h, live = bh.cpu().numpy(), bl.cpu().numpy()
+    want = {}
+    for row in np.flatnonzero(live):
+        want[h[row]] = row  # rows ascend: the last is the largest
+    used = t[:, 0] != -1
+    assert (t[~used] == -1).all()
+    assert (t[:, 1] >> 32 == -1).all()
+    got = dict(zip(t[used, 0], t[used, 1] & 0xFFFFFFFF))
+    assert got == want
+
+
+def test_lookup_join_empty_hash(cuda):
+    # a build key and a probe key equal to the EMPTY sentinel: the
+    # kernel tests a match before empty, as the Pallas kernel does, so
+    # the sentinel probe rows find the sentinel build rows (duplicates:
+    # the larger row); the plain (sorted) version drops EMPTY hashes
+    # with the dead rows. combine_hashes keeps EMPTY off every row
+    # hash, so no join meets this. The other keys' home slots lie away
+    # from the sentinel's.
+    cap = 2048
+    rng = np.random.default_rng(21)
+    cand = rng.integers(0, 1 << 62, 64).astype(np.uint64)
+
+    def home(h):
+        hi = (h >> np.uint64(32)).astype(np.uint32)
+        return _mix32(h.astype(np.uint32) ^ _mix32(hi)) & np.uint32(cap - 1)
+    empty = np.array([0xFFFFFFFFFFFFFFFF], np.uint64)
+    far = cand[np.abs(home(cand).astype(np.int64)
+                      - int(home(empty)[0])) > 16]
+    far = far[np.unique(home(far), return_index=True)[1]][:4].view(np.int64)
+    bh = _t(np.array([-1, far[0], -1, far[1], far[0]]), cuda)
+    bl = _t(np.array([True, True, True, True, False]), cuda)
+    ph = _t(np.array([-1, far[0], far[1], far[2], far[3], -1]), cuda)
+    pl = torch.ones(6, dtype=torch.bool, device=cuda)
+    got = HJ.lookup_join_cuda(bh, bl, ph, pl, cap)
+    want = HJ.lookup_join_torch(bh, bl, ph, pl, cap)
+    torch.cuda.synchronize()
+    assert bool(got[2])
+    real = [1, 2, 3, 4]
+    assert torch.equal(got[0][real], want[0][real])
+    assert torch.equal(got[1][real], want[1][real])
+    assert got[0][[0, 5]].tolist() == [2, 2] and bool(got[1][[0, 5]].all())
+    assert not bool(want[1][[0, 5]].any())
 
 
 def _mix32(x: np.ndarray) -> np.ndarray:
@@ -159,19 +263,33 @@ def _mix32(x: np.ndarray) -> np.ndarray:
     return x
 
 
-def test_lookup_join_chain_past_max_probes(cuda):
-    # 300 distinct hashes with one home slot (the kernels' slot mix):
-    # the chain outgrows 256 probes and ok must clear
-    rng = np.random.default_rng(99)
-    cand = rng.integers(0, 1 << 62, 400_000, dtype=np.uint64)
-    hi = (cand >> np.uint64(32)).astype(np.uint32)
-    lo = cand.astype(np.uint32)
-    slot = _mix32(lo ^ _mix32(hi)) & np.uint32(511)
-    h = cand[slot == np.bincount(slot).argmax()][:300].view(np.int64)
-    assert len(h) == 300
+def _unmix32(x: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`_mix32` (each step of fmix32 inverts)."""
+    x = x.astype(np.uint32)
+    with np.errstate(over="ignore"):
+        x ^= x >> np.uint32(16)
+        x *= np.uint32(pow(0xC2B2AE35, -1, 1 << 32))
+        x ^= (x >> np.uint32(13)) ^ (x >> np.uint32(26))
+        x *= np.uint32(pow(0x85EBCA6B, -1, 1 << 32))
+        x ^= x >> np.uint32(16)
+    return x
+
+
+@pytest.mark.parametrize("capacity", [512, 1 << 21])
+def test_lookup_join_chain_past_max_probes(cuda, capacity):
+    # 300 distinct hashes with one home slot (the kernels' slot mix,
+    # inverted: any high word, the low word that lands on slot 77): the
+    # chain outgrows 256 probes and ok must clear, in the direct build
+    # and in the partitioned one
+    hi = np.arange(1, 301, dtype=np.uint32) * np.uint32(2654435761)
+    lo = _unmix32(np.full(300, 77, np.uint32)) ^ _mix32(hi)
+    assert (_mix32(lo ^ _mix32(hi)) == 77).all()
+    h = ((hi.astype(np.uint64) << np.uint64(32))
+         | lo.astype(np.uint64)).view(np.int64)
+    assert len(np.unique(h)) == 300
     live = np.ones(300, bool)
     _row, _found, ok = HJ.lookup_join_cuda(
-        _t(h, cuda), _t(live, cuda), _t(h, cuda), _t(live, cuda), 512)
+        _t(h, cuda), _t(live, cuda), _t(h, cuda), _t(live, cuda), capacity)
     assert not bool(ok)
 
 

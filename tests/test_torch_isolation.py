@@ -33,7 +33,8 @@ def _imports(path: Path):
 
 def test_no_module_of_the_port_imports_jax_or_presto_tpu():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "profile_port.py"]
+                                          REPO / "profile_port.py",
+                                          REPO / "kernel_ab.py"]
     assert len(files) > 40
     bad = [f"{f.relative_to(REPO)}:{line}: {mod}"
            for f in files for line, mod in _imports(f) if _forbidden(mod)]

@@ -115,6 +115,82 @@ def test_segment_sum_past_the_tpu_gate(dname):
         PSA.segment_sum_cuda(_t(x), _t(ids), k).numpy(), want)
 
 
+# The routing boundaries of the segment_sum kernel (csrc/segment_sum.cu):
+# registers up to k = 8 and lane columns of shared memory up to 32 (both
+# with KP = k rounded up to a power of two), shared-memory partials up
+# to 6144, global atomics past it; these cases pin the contract the
+# kernel keeps at each edge
+_BOUNDARY_KS = [1, 2, 6, 7, 8, 9, 16, 17, 32, 33, 6144, 6145, 70_000]
+_ALL_SUM_DTYPES = {"bool": np.bool_, "uint8": np.uint8, "int8": np.int8,
+                   "int16": np.int16, "int32": np.int32, "int64": np.int64}
+
+
+def _padded_k(k: int) -> int:
+    return 1 << (k - 1).bit_length()
+
+
+def _boundary_inputs(dtype, n, k, seed):
+    rng = np.random.default_rng(seed)
+    if dtype is np.bool_:
+        x = rng.random(n) > 0.4
+    else:
+        info = np.iinfo(dtype)
+        x = rng.integers(info.min, info.max, n, dtype=dtype, endpoint=True)
+        x[:2] = [info.max, info.min]
+    ids = rng.integers(0, k, n).astype(np.int32)
+    # -1 and k drop; KP - 1 drops unless k is a power of two
+    ids[3::7] = -1
+    ids[5::11] = k
+    ids[6::13] = _padded_k(k) - 1
+    ids[:2] = 0  # the extremes wrap in one segment
+    return x, ids
+
+
+@pytest.mark.parametrize("k", _BOUNDARY_KS)
+@pytest.mark.parametrize("dname", list(_ALL_SUM_DTYPES))
+def test_segment_sum_plain_matches_pallas_at_kernel_boundaries(dname, k):
+    # an odd row count, and the same sum over an offset-1 view of the
+    # data and ids (the column slices a kernel may be handed)
+    x, ids = _boundary_inputs(_ALL_SUM_DTYPES[dname], 1001, k, seed=k)
+    with RK.use_backend("pallas"):
+        pallas = np.asarray(RSA.segment_sum_pallas(
+            jnp.asarray(x), jnp.asarray(ids), k))
+        pallas_tail = np.asarray(RSA.segment_sum_pallas(
+            jnp.asarray(x[1:]), jnp.asarray(ids[1:]), k))
+    got = PSA.segment_sum_torch(_t(x), _t(ids), k).numpy()
+    np.testing.assert_array_equal(got, pallas)
+    assert got.dtype == pallas.dtype
+    tx, tids = _t(x), _t(ids)
+    tail = PSA.segment_sum_cuda(tx[1:], tids[1:], k).numpy()
+    np.testing.assert_array_equal(tail, pallas_tail)
+
+
+@pytest.mark.parametrize("dname", list(_ALL_SUM_DTYPES))
+def test_segment_sum_vector_span(dname):
+    # the rows the kernel reads four at a time: ids 16-byte aligned from
+    # vbeg, data aligned to its four-row word there, else all scalar
+    # torch's own allocations are 64-byte aligned
+    x = torch.zeros(1001, dtype=_t(np.zeros(1, _ALL_SUM_DTYPES[dname])).dtype)
+    ids = torch.zeros(1001, dtype=torch.int32)
+    size = x.element_size()
+    assert x.data_ptr() % 64 == 0 and ids.data_ptr() % 64 == 0
+    assert PSA.vector_span(x, ids) == (0, 250)
+    # both offset by one row: three scalar head rows, then aligned
+    assert PSA.vector_span(x[1:], ids[1:]) == (3, 249)
+    assert PSA.vector_span(x[4:], ids[4:]) == (0, 249)
+    # one of the two offset alone: the data is not aligned where the
+    # ids are, so every row takes scalar loads
+    assert PSA.vector_span(x[:1000], ids[1:]) == (0, 0)
+    assert PSA.vector_span(x[1:], ids[:1000]) == (0, 0)
+    # fewer rows than the head
+    assert PSA.vector_span(x[1:3], ids[1:3]) == (0, 0)
+    for lo in range(4):
+        vbeg, nvec = PSA.vector_span(x[lo:], ids[lo:])
+        assert (ids[lo:].data_ptr() + 4 * vbeg) % 16 == 0
+        assert (x[lo:].data_ptr() + vbeg * size) % min(4 * size, 16) == 0
+        assert vbeg + 4 * nvec <= 1001 - lo < vbeg + 4 * nvec + 4
+
+
 # -- segment max / min ------------------------------------------------------
 
 _CMP_DTYPES = {"int8": np.int8, "int32": np.int32, "int64": np.int64}
@@ -310,6 +386,63 @@ def _one_slot_hashes(n: int, capacity: int) -> np.ndarray:
     return pick[:n]
 
 
+def _home(h: np.ndarray, capacity: int) -> np.ndarray:
+    from presto_tpu.kernels import u64
+    hi, lo = u64.split(jnp.asarray(h.view(np.uint64)))
+    return np.asarray(u64.slot32(hi, lo)) & np.uint32(capacity - 1)
+
+
+def _special_lookup(case: str):
+    """Build and probe inputs at the table's edges: ``empty_hash``, a
+    build key and a probe key equal to the EMPTY sentinel (the probe
+    tests a match before empty), with the other keys' home slots away
+    from the sentinel's; ``min_table``, duplicates in the 8-slot
+    minimum table."""
+    rng = np.random.default_rng(21)
+    if case == "min_table":
+        bh = rng.integers(0, 1 << 62, 3)[[0, 1, 0, 2, 1]]
+        ph = np.concatenate([bh, rng.integers(0, 1 << 62, 5)])
+        return (bh.view(np.uint64), np.array([True, True, True, False,
+                                               True]),
+                ph.view(np.uint64), np.ones(10, bool), 1)
+    cap = 2048
+    empty = np.int64(-1)
+    cand = rng.integers(0, 1 << 62, 64)
+    homes = _home(cand, cap)
+    far = cand[np.abs(homes.astype(np.int64)
+                      - int(_home(np.array([empty]), cap)[0])) > 16]
+    far = far[np.unique(_home(far, cap), return_index=True)[1]][:4]
+    bh = np.array([empty, far[0], empty, far[1], far[0]], np.int64)
+    ph = np.array([empty, far[0], far[1], far[2], far[3], empty], np.int64)
+    return (bh.view(np.uint64), np.array([True, True, True, True, False]),
+            ph.view(np.uint64), np.ones(6, bool), cap)
+
+
+@pytest.mark.parametrize("case", ["empty_hash", "min_table"])
+def test_lookup_join_plain_matches_pallas_at_the_edges(case):
+    bh, bl, ph, pl, cap = _special_lookup(case)
+    pallas, xla = _ref_lookups(bh, bl, ph, pl, cap)
+    got = PHJ.lookup_join_torch(_t(bh), _t(bl), _t(ph), _t(pl), cap)
+    sentinel = ph == np.uint64(0xFFFFFFFFFFFFFFFF)
+    for g, p, x in zip(got[:2], pallas[:2], xla[:2]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+        np.testing.assert_array_equal(g.numpy()[~sentinel],
+                                      np.asarray(p)[~sentinel])
+    assert bool(got[2]) and bool(np.asarray(pallas[2]))
+    if case == "empty_hash":
+        # the reference's two paths part at the sentinel: the Pallas
+        # kernel tests a match before empty, so a probe hash equal to
+        # EMPTY finds the build rows hashed EMPTY (duplicates: the
+        # larger row), while the sorted path drops EMPTY hashes with
+        # the dead rows. combine_hashes remaps EMPTY away from every
+        # row hash, so no join meets it; the CUDA kernel keeps the
+        # Pallas kernel's answer (tests/test_torch_cuda.py)
+        np.testing.assert_array_equal(np.asarray(pallas[0])[sentinel],
+                                      [2, 2])
+        assert np.asarray(pallas[1])[sentinel].all()
+        assert not got[1].numpy()[sentinel].any()
+
+
 def test_lookup_join_chain_past_max_probes():
     # 300 distinct hashes in ONE home slot: the chain outgrows the 256
     # probes, the Pallas kernel reports ok=False (the capacity ladder's
@@ -407,7 +540,7 @@ def test_cuda_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="CUDA tensor"):
         PHJ.build_table(x, torch.ones(8, dtype=torch.bool), 16)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        PHJ.probe_table(x, x.to(torch.int32), x, x.to(torch.bool))
+        PHJ.probe_table(x.view(4, 2), x, x.to(torch.bool))
     with pytest.raises(ValueError, match="CUDA tensor"):
         PSA._segment_cmp_cuda(x, x.to(torch.int32), 4, True)
     assert PH.next_pow2(1000) == 1024
