@@ -24,7 +24,9 @@ Phases (any failure exits non-zero before the result line):
    the compaction) and timed with CUDA events beside the plain
    version, the one PyTorch call that computes the same function where
    there is one, and the least time the card could take for the bytes
-   it must move.
+   it must move; the probe and the walk also beside their random-read
+   floor, one ``index_select`` of as many random 16-byte table slots
+   as their live first probes.
 3. Queries: data made by the port's own TPC-H generator from the seed;
    every query runs with kernel_backend=cuda (the launch counts are
    reset just before this pass and read just after, and each query's
@@ -75,8 +77,9 @@ KERNELS = {
 }
 # the PR whose redesign each kernel runs (None: as first ported)
 REDESIGNED_IN = {"segment_sum": 3, "segment_max": None, "segment_min": None,
-                 "build_table": 3, "probe_table": None,
-                 "multijoin_walk": None, "filter_compact": None}
+                 "build_table": 3, "probe_table": 4,
+                 "multijoin_walk": 4, "filter_compact": None}
+SLOT_BYTES = 16  # a hash-table slot: key, row and pad (csrc/common.cuh)
 # the kernel each query must run on the card. At SF10 the cost-based
 # planner builds Q3's orders-lineitem join on lineitem (an expanding
 # join, which has no kernel in the reference either) and its customer
@@ -145,6 +148,24 @@ def require_equal(name: str, pairs) -> float:
 
 
 # -- phase 2: kernels at the main path's shapes -----------------------------
+
+
+def random_read_ms(dev, seed: int, tables: list[tuple[int, int]]) -> float:
+    """The random-read floor of a hash-table kernel: the time of
+    ``index_select`` over (slots in the table, live first probes)
+    pairs, with that many random slot indices into a table of that
+    many 16-byte slots (viewed as complex128, one element a slot, so
+    each index is one 16-byte read). The same random reads and nothing
+    else; not the same function, so no library call."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    work = [(torch.zeros(cap, dtype=torch.complex128, device=dev),
+             torch.randint(0, cap, (n,), device=dev, generator=gen))
+            for cap, n in tables]
+    ms = cuda_ms(lambda: [t.index_select(0, slots) for t, slots in work])
+    del work
+    return ms
 
 
 def kernel_phase(dev, seed: int) -> dict:
@@ -261,7 +282,7 @@ def kernel_phase(dev, seed: int) -> dict:
     # one [cap, 2] slot tensor (older trees return a key plane and a
     # row plane), so kernel_ab.py can time either
     *table, _ok = HJ.build_table(bh, bl, cap)
-    b_ms, b_by = bound(nb * (8 + 1) + cap * (8 + 4) + 4, nb * 8)
+    b_ms, b_by = bound(nb * (8 + 1) + cap * SLOT_BYTES + 4, nb * 8)
     out["build_table"] = {
         "max_abs_err": err, "ms": cuda_ms(lambda: HJ.build_table(bh, bl,
                                                                 cap)),
@@ -269,13 +290,15 @@ def kernel_phase(dev, seed: int) -> dict:
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
     log("kernel " + json.dumps({"name": "build_table",
                                 **out["build_table"]}))
-    p_ms, p_by = bound(npr * (8 + 1) + cap * (8 + 4) + npr * (4 + 1) + 4,
+    p_ms, p_by = bound(npr * (8 + 1) + cap * SLOT_BYTES + npr * (4 + 1) + 4,
                        npr * 8)
     out["probe_table"] = {
         "max_abs_err": err,
         "ms": cuda_ms(lambda: HJ.probe_table(*table, ph, pl)),
         "plain_ms": cuda_ms(lambda: H.probe_runs(bh, bl, ph, pl)),
-        "library_ms": None, "bound_ms": p_ms, "bound_by": p_by}
+        "library_ms": None, "bound_ms": p_ms, "bound_by": p_by,
+        "random_read_floor_ms": random_read_ms(
+            dev, seed + 1, [(cap, int(pl.sum()))])}
     log("kernel " + json.dumps({"name": "probe_table",
                                 **out["probe_table"]}))
     del table, got, want, bh, ph, pl
@@ -327,15 +350,22 @@ def kernel_phase(dev, seed: int) -> dict:
     # chained key's hash over the first build, every table; outputs:
     # three gathers and the live mask
     w_bytes = (width * 1 + 2 * width * 8 + nb * 8
-               + sum(c * 12 for c in caps) + 3 * width * 4 + width)
+               + sum(c * SLOT_BYTES for c in caps) + 3 * width * 4 + width)
     w_ms, w_by = bound(w_bytes, width * 3 * 8)
+    # the rows that probe each step: live entering it (no key is null)
+    probes = [int(spine.live.sum())] + [
+        int(MJ.multijoin_torch(*args[:3], args[3][:s], crit[:s])[1].sum())
+        for s in (1, 2)]
     out["multijoin_walk"] = {
         "max_abs_err": err,
         "ms": cuda_ms(lambda: MJ.multijoin_walk(desc, 3, spine.live,
                                                 width)),
         "fused_ms": cuda_ms(lambda: MJ.multijoin_cuda(*args)),
         "plain_ms": cuda_ms(lambda: MJ.multijoin_torch(*args)),
-        "library_ms": None, "bound_ms": w_ms, "bound_by": w_by}
+        "library_ms": None, "bound_ms": w_ms, "bound_by": w_by,
+        "step_probes": probes,
+        "random_read_floor_ms": random_read_ms(dev, seed + 2,
+                                               list(zip(caps, probes)))}
     log("kernel " + json.dumps({"name": "multijoin_walk",
                                 **out["multijoin_walk"]}))
     del keep, desc, got, want, spine, builds, args, bkeys, pkeys, bl
@@ -585,6 +615,8 @@ def main() -> int:
                         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"],
                         "library_ms": k["library_ms"],
+                        "random_read_floor_ms":
+                            k.get("random_read_floor_ms"),
                         "redesigned_in": REDESIGNED_IN[name]})
     print(card, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

@@ -32,14 +32,44 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 # multijoin_walk's descriptor layout (csrc/multijoin.cu; checked
-# against the library at load)
+# against the library at load). The walk takes it by value as one
+# kernel parameter, so it is packed on the host and never copied to the
+# device by the wrapper.
 MJ_MAX_STEPS = 8
 MJ_MAX_KEYS = 4
-MJ_STEP_WORDS = 3 + 3 * MJ_MAX_KEYS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+
+
+class MjKey(ctypes.Structure):
+    """One probe key: ``source`` -1 for the spine, else the earlier
+    build step whose matched row indexes the key's column; ``hash`` and
+    ``valid`` (0 = no nulls) are device addresses."""
+    _fields_ = [("source", _L), ("hash", _P), ("valid", _P)]
+
+
+class MjStep(ctypes.Structure):
+    """One walk step: its table's address, the slot mask, its keys."""
+    _fields_ = [("table", _P), ("mask", _L), ("nkeys", _L),
+                ("keys", MjKey * MJ_MAX_KEYS)]
+
+
+class MjDesc(ctypes.Structure):
+    """The walk's kernel parameter: MJ_MAX_STEPS steps, 960 bytes."""
+    _fields_ = [("steps", MjStep * MJ_MAX_STEPS)]
+
+
+def mj_layout() -> tuple[int, ...]:
+    """The layout ``pt_multijoin_layout`` reports for the structs above:
+    the limits, then MjDesc's size, MjStep's size and field offsets,
+    MjKey's size and field offsets."""
+    return (MJ_MAX_STEPS, MJ_MAX_KEYS, ctypes.sizeof(MjDesc),
+            ctypes.sizeof(MjStep), MjStep.table.offset, MjStep.mask.offset,
+            MjStep.nkeys.offset, MjStep.keys.offset, ctypes.sizeof(MjKey),
+            MjKey.source.offset, MjKey.hash.offset, MjKey.valid.offset)
+
 
 _SIGNATURES = {
     "pt_segment_sum": [_P, _I, _P, _L, _I, _L, _L, _P, _P],
@@ -50,7 +80,7 @@ _SIGNATURES = {
     "pt_build_table": [_P, _P, _L, _P, _L, _I, _P, _P, _P, _P, _P],
     "pt_probe_table": [_P, _L, _P, _P, _L, _I, _P, _P, _P, _P],
     "pt_multijoin_walk": [_P, _I, _P, _L, _I, _P, _P, _P, _P],
-    "pt_multijoin_limits": [_P, _P, _P],
+    "pt_multijoin_layout": [_P, _I],
 }
 
 
@@ -164,12 +194,13 @@ class KernelLibrary:
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
-                limits = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int()]
-                lib.pt_multijoin_limits(*[ctypes.byref(x) for x in limits])
-                got = tuple(x.value for x in limits)
-                if got != (MJ_MAX_STEPS, MJ_MAX_KEYS, MJ_STEP_WORDS):
+                want = mj_layout()
+                got = (ctypes.c_longlong * len(want))()
+                count = lib.pt_multijoin_layout(got, len(want))
+                if count != len(want) or tuple(got) != want:
                     raise RuntimeError(
-                        f"multijoin descriptor layout mismatch: {got}")
+                        "multijoin descriptor layout mismatch: library "
+                        f"{tuple(got)[:count]}, host {want}")
                 self.compact_tile_rows = lib.pt_compact_tile_rows()
                 self.build_part_counters = lib.pt_build_part_counters()
                 self._lib = lib

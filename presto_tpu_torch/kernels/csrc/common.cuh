@@ -48,8 +48,13 @@ struct __align__(16) Slot {
   int pad;
 };
 
-// Key and row of a slot in one 16-byte load (the row is the low word
-// of the second half).
+// Key and row of a slot in one 16-byte read-only load (the row is the
+// low word of the second half). Plain caching: it allocates in L1,
+// since probe keys that arrive clustered (a lineitem spine in order)
+// read one slot from several warps of an SM in turn, and
+// L1::no_allocate doubled Q21's walk; and no L2 policy, since an
+// evict_last policy made no difference at the kernel phase's random
+// keys or on the queries (PERF.md).
 __device__ __forceinline__ void load_slot(const Slot* __restrict__ table,
                                           uint32_t slot,
                                           unsigned long long& key,
@@ -57,6 +62,32 @@ __device__ __forceinline__ void load_slot(const Slot* __restrict__ table,
   const longlong2 s = __ldg(reinterpret_cast<const longlong2*>(table) + slot);
   key = static_cast<unsigned long long>(s.x);
   row = static_cast<int>(s.y);
+}
+
+// Looks up hash h of a live row with linear probing from its home
+// slot. A slot whose key equals h is a match, tested BEFORE empty, as
+// the reference's probe does (h may equal the EMPTY sentinel); an
+// empty slot ends a miss; a row that passes max_probes slots undecided
+// clears ok. Returns whether h matched, and sets row to the matching
+// slot's row (-1 for an empty slot matched by EMPTY).
+__device__ __forceinline__ bool probe(const Slot* __restrict__ table,
+                                     uint32_t mask, int max_probes,
+                                     unsigned long long h, int& row,
+                                     int* __restrict__ ok) {
+  uint32_t slot = slot32(h) & mask;
+  for (int left = max_probes; left > 0; --left) {
+    unsigned long long key;
+    int r;
+    load_slot(table, slot, key, r);
+    if (key == h) {
+      row = r;
+      return true;
+    }
+    if (key == kEmpty) return false;
+    slot = (slot + 1u) & mask;
+  }
+  atomicExch(ok, 0);  // the chain passed max_probes undecided
+  return false;
 }
 
 inline int grid_for(long long n, int threads, int max_blocks) {

@@ -44,12 +44,19 @@
 // 8-byte stores) and 1.1 ms staged as here, the table's fill included
 // (kernel_ab.py on an NVIDIA H100 80GB HBM3 at 700 W).
 //
-// Probe: one thread per probe row, read-only, loads key and row with
-// one 16-byte load and tests a match BEFORE empty, exactly as the
-// reference (a hash may equal the sentinel). Concurrent
-// inserts can lay out chains in another order than the sequential TPU
-// grid, so on a nearly full table ok may differ from the reference's;
-// build_row and found cannot.
+// Probe: read-only, one probe row a thread, one 16-byte load a slot
+// that tests a match BEFORE empty, exactly as the reference (a hash may
+// equal the sentinel). 60M probes into 2^25 slots take about 2.46 ms,
+// within 1.1x of the random-read floor of their 57M first slots alone
+// (an index_select of as many random 16-byte slots, 2.24-2.28 ms): the
+// card's random DRAM reads, not the kernel, set the time. Several probe
+// rows a thread, with all their first reads in flight, were no faster
+// (2, 4 or 8 rows: 2.45, 2.48, 2.81 ms), and evict-first hints on the
+// streamed columns lost on the queries' probe traffic (kernel_ab.py
+// and profile_port.py on an NVIDIA H100 80GB HBM3 at 700 W).
+// Concurrent inserts can lay out chains in another order than the
+// sequential TPU grid, so on a nearly full table ok may differ from the
+// reference's; build_row and found cannot.
 #include "common.cuh"
 
 namespace {
@@ -228,41 +235,19 @@ __global__ void build_part_kernel(const long long* __restrict__ part_hash,
          static_cast<unsigned long long>(part_hash[i]), part_row[i], ok);
 }
 
-__global__ void probe_table_kernel(const pt::Slot* __restrict__ table,
-                                   uint32_t mask,
-                                   const long long* __restrict__ hash,
-                                   const bool* __restrict__ live,
-                                   long long n, int max_probes,
-                                   int* __restrict__ build_row,
-                                   bool* __restrict__ found,
-                                   int* __restrict__ ok) {
+// One probe row a thread.
+__global__ void __launch_bounds__(kThreads)
+    probe_table_kernel(const pt::Slot* __restrict__ table, uint32_t mask,
+                       const unsigned long long* __restrict__ hash,
+                       const bool* __restrict__ live, long long n,
+                       int max_probes, int* __restrict__ build_row,
+                       bool* __restrict__ found, int* __restrict__ ok) {
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   int row = -1;
   bool hit = false;
-  if (live[i]) {
-    const unsigned long long h = static_cast<unsigned long long>(hash[i]);
-    uint32_t slot = pt::slot32(h) & mask;
-    bool decided = false;
-    for (int j = 0; j < max_probes; ++j) {
-      unsigned long long t;
-      int r;
-      pt::load_slot(table, slot, t, r);
-      if (t == h) {  // match first: h may equal the EMPTY sentinel
-        row = r;
-        hit = true;
-        decided = true;
-        break;
-      }
-      if (t == pt::kEmpty) {
-        decided = true;
-        break;
-      }
-      slot = (slot + 1u) & mask;
-    }
-    if (!decided) atomicExch(ok, 0);
-  }
+  if (live[i]) hit = pt::probe(table, mask, max_probes, hash[i], row, ok);
   build_row[i] = row;
   found[i] = hit;
 }
@@ -313,13 +298,13 @@ extern "C" int pt_build_part_counters() { return 2 * kParts + 1; }
 
 // ok (1, set to 1) is initialised by the caller.
 extern "C" int pt_probe_table(const pt::Slot* table, long long cap,
-                              const long long* hash, const bool* live,
-                              long long n, int max_probes, int* build_row,
-                              bool* found, int* ok, void* stream) {
+                              const unsigned long long* hash,
+                              const bool* live, long long n, int max_probes,
+                              int* build_row, bool* found, int* ok,
+                              void* stream) {
   if (n > 0) {
-    const long long blocks = (n + kThreads - 1) / kThreads;
-    probe_table_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+    probe_table_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                         kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         table, static_cast<uint32_t>(cap - 1), hash, live, n, max_probes,
         build_row, found, ok);
   }

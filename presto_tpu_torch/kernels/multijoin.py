@@ -5,7 +5,10 @@ Port of ``try_fused`` (presto_tpu/kernels/multijoin.py:59). The kernel
 is ``csrc/multijoin.cu``, whose header says what bounds it on the card
 and how it walks; its per-step tables come from the build_table kernel
 (kernels/hashjoin.py), each an int64 [cap, 2] array of 16-byte slots
-(key, row) that the walk reads with one load a slot.
+(key, row) that the walk reads with one load a slot. The step
+descriptors are a ``build.MjDesc`` packed on the host and passed to
+the kernel by value: no device copy, so a fused walk never waits on
+the stream.
 
 Both versions take the spine's columns and live mask, the builds as
 (cols, live, nrows), and the per-step criteria [(probe_sym,
@@ -27,7 +30,8 @@ rows gather build row 0, as the reference's ``clip(where(found, row,
 
 from __future__ import annotations
 
-import numpy as np
+import ctypes
+
 import torch
 
 from presto_tpu_torch.kernels import build as B
@@ -153,17 +157,20 @@ def _kernel_shaped(steps) -> bool:
 
 def multijoin_walk(desc, k: int, spine_live, width: int,
                    max_probes: int = HJ.MAX_PROBES):
-    """Launch the walk kernel over step descriptors ``desc`` (int64
-    [k * MJ_STEP_WORDS] on the device, see :func:`step_descriptors`).
-    Returns (gathers int32 [k, width], alive bool [width], ok bool
-    [1])."""
+    """Launch the walk kernel over the first ``k`` steps of ``desc`` (a
+    :class:`build.MjDesc` from :func:`step_descriptors`, passed to the
+    kernel by value). Returns (gathers int32 [k, width], alive bool
+    [width], ok bool [1])."""
     name = "multijoin_walk"
-    B.require_cuda(name, desc=desc, spine_live=spine_live)
-    B.require_dtype(name, "desc", desc, torch.int64)
+    B.require_cuda(name, spine_live=spine_live)
     B.require_dtype(name, "spine_live", spine_live, torch.bool)
-    if not 1 <= k <= B.MJ_MAX_STEPS or desc.shape != (k * B.MJ_STEP_WORDS,):
-        raise ValueError(f"{name}: {k} steps, the kernel takes 1.."
-                         f"{B.MJ_MAX_STEPS} with {B.MJ_STEP_WORDS} words each")
+    if not isinstance(desc, B.MjDesc) or not 1 <= k <= B.MJ_MAX_STEPS:
+        raise ValueError(f"{name}: {k} steps of a build.MjDesc, the kernel "
+                         f"takes 1..{B.MJ_MAX_STEPS}")
+    steps = desc.steps[:k]
+    if not all(st.table and 1 <= st.nkeys <= B.MJ_MAX_KEYS
+               for st in steps):
+        raise ValueError(f"{name}: a step of desc has no table or keys")
     if spine_live.shape != (width,):
         raise ValueError(f"{name}: spine_live must be [{width}]")
     dev = spine_live.device
@@ -172,55 +179,69 @@ def multijoin_walk(desc, k: int, spine_live, width: int,
     ok = torch.ones(1, dtype=torch.int32, device=dev)
     if width:
         lib = B.LIBRARY.get()
-        rc = lib.pt_multijoin_walk(desc.data_ptr(), k, spine_live.data_ptr(),
-                                   width, int(max_probes),
-                                   gathers.data_ptr(), alive.data_ptr(),
-                                   ok.data_ptr(), B.stream_handle(dev))
+        rc = lib.pt_multijoin_walk(
+            ctypes.addressof(desc), k, spine_live.data_ptr(), width,
+            int(max_probes), gathers.data_ptr(), alive.data_ptr(),
+            ok.data_ptr(), B.stream_handle(dev))
         B.check(rc, name)
         B.LAUNCHES.add(name)
     return gathers, alive, ok.to(torch.bool)
 
 
-def step_descriptors(steps, builds, growth: int = 1,
-                     max_probes: int = HJ.MAX_PROBES):
-    """Build each step's table with the build_table kernel and pack the
-    walk's step descriptors: per step the table's address, its slot
-    mask and key count, then per key (source step or -1 for the spine,
-    hash column address, validity address or 0). Returns (desc int64 device tensor, the
-    tensors the descriptors point at, the build ok flags); the caller
-    keeps the tensors alive until the walk is queued."""
+def _check_limits(steps) -> None:
+    """The chain fits the walk kernel: 1 to MJ_MAX_STEPS steps of 1 to
+    MJ_MAX_KEYS keys each."""
     if not 1 <= len(steps) <= B.MJ_MAX_STEPS:
         raise ValueError(f"multijoin_walk: {len(steps)} steps, the kernel "
                          f"takes 1..{B.MJ_MAX_STEPS}")
-    if any(len(keys) > B.MJ_MAX_KEYS for keys in steps):
-        raise ValueError("multijoin_walk: more than "
-                         f"{B.MJ_MAX_KEYS} keys in a step")
+    if any(not 1 <= len(keys) <= B.MJ_MAX_KEYS for keys in steps):
+        raise ValueError("multijoin_walk: a step needs 1 to "
+                         f"{B.MJ_MAX_KEYS} keys")
+
+
+def descriptor(steps, tables) -> tuple:
+    """Pack the walk's step descriptors (:class:`build.MjDesc`): per
+    step its table's address, slot mask and key count, then per key its
+    source (-1 for the spine, else the earlier step), the address of
+    its 64-bit hash column and of its validity (0 when it has no
+    nulls). Host work only: no library, no device copy. Returns (desc, the hash and
+    validity tensors it points at)."""
+    _check_limits(steps)
+    desc = B.MjDesc()
     keep: list = []
-    words = np.zeros(len(steps) * B.MJ_STEP_WORDS, dtype=np.int64)
-    oks = []
-    for si, ((_bcols, blive, bn), keys) in enumerate(zip(builds, steps)):
+    for st, keys, table in zip(desc.steps, steps, tables):
+        st.table = table.data_ptr()
+        st.mask = table.shape[0] - 1
+        st.nkeys = len(keys)
+        for key, (src, v, _bv) in zip(st.keys, keys):
+            (kh,) = _col_hash(v)
+            kh = kh.contiguous()
+            keep.append(kh)
+            key.source, key.hash = src, kh.data_ptr()
+            if v.valid is not None:
+                vt = v.valid.contiguous()
+                keep.append(vt)
+                key.valid = vt.data_ptr()
+    return desc, keep
+
+
+def step_descriptors(steps, builds, growth: int = 1,
+                     max_probes: int = HJ.MAX_PROBES):
+    """Build each step's table with the build_table kernel and pack the
+    walk's step descriptors (:func:`descriptor`). Returns (desc, the
+    tensors the descriptors point at, the build ok flags); the caller
+    keeps the tensors alive until the walk is queued."""
+    _check_limits(steps)  # before any build
+    tables, oks = [], []
+    for (_bcols, blive, bn), keys in zip(builds, steps):
         cap = H.next_pow2(2 * max(bn, 1)) * max(int(growth), 1)
         rh = _combined_hash([bv for _s, _v, bv in keys])
         table, b_ok = HJ.build_table(
             rh, _build_live(blive, keys).contiguous(), cap, max_probes)
+        tables.append(table)
         oks.append(b_ok)
-        keep.append(table)
-        base = si * B.MJ_STEP_WORDS
-        words[base:base + 3] = (table.data_ptr(), table.shape[0] - 1,
-                                len(keys))
-        for j, (src, v, _bv) in enumerate(keys):
-            (kh,) = _col_hash(v)
-            kh = kh.contiguous()
-            keep.append(kh)
-            valid = 0
-            if v.valid is not None:
-                vt = v.valid.contiguous()
-                keep.append(vt)
-                valid = vt.data_ptr()
-            words[base + 3 + 3 * j:base + 6 + 3 * j] = (
-                src, kh.data_ptr(), valid)
-    desc = torch.from_numpy(words).to(oks[0].device)
-    return desc, keep, oks
+    desc, keep = descriptor(steps, tables)
+    return desc, keep + tables, oks
 
 
 def multijoin_cuda(spine_cols: dict, spine_live, width: int,

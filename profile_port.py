@@ -29,8 +29,8 @@ import time
 from chip_smoke import QUERIES
 
 # the CUDA functions of each wrapper (kernels/csrc/*.cu, all in an
-# anonymous namespace); segment_cmp's carry kMax as their last
-# template argument
+# anonymous namespace; a template's arguments follow its name);
+# segment_cmp's carry kMax as their last template argument
 _KERNEL_FUNCTIONS = {
     "seg_sum_reg": "segment_sum", "seg_sum_lanes": "segment_sum",
     "seg_sum_shared": "segment_sum",

@@ -21,6 +21,7 @@ from presto_tpu_torch.expr.compile import Val
 from presto_tpu_torch.kernels import build as B
 from presto_tpu_torch.kernels import compact as CP
 from presto_tpu_torch.kernels import hashjoin as HJ
+from presto_tpu_torch.kernels import multijoin as MJ
 from presto_tpu_torch.kernels import segagg as SA
 from presto_tpu_torch.ops import hash as H
 
@@ -219,6 +220,10 @@ def test_build_table_layout(cuda, capacity):
 
 
 def test_lookup_join_empty_hash(cuda):
+    _empty_hash_lookup(cuda)
+
+
+def _empty_hash_lookup(cuda, cap=2048):
     # a build key and a probe key equal to the EMPTY sentinel: the
     # kernel tests a match before empty, as the Pallas kernel does, so
     # the sentinel probe rows find the sentinel build rows (duplicates:
@@ -226,7 +231,6 @@ def test_lookup_join_empty_hash(cuda):
     # with the dead rows. combine_hashes keeps EMPTY off every row
     # hash, so no join meets this. The other keys' home slots lie away
     # from the sentinel's.
-    cap = 2048
     rng = np.random.default_rng(21)
     cand = rng.integers(0, 1 << 62, 64).astype(np.uint64)
 
@@ -330,6 +334,179 @@ def test_multijoin_matches_plain(cuda):
     assert torch.equal(got.live, want.live)
     for c in ("a_c", "b_w", "c_name"):
         assert torch.equal(got.cols[c].data, want.cols[c].data)
+
+
+@pytest.mark.parametrize("case", ["width_1", "width_7", "remainder",
+                                  "offset_alike", "offset_apart",
+                                  "partitioned"])
+def test_probe_table_matches_plain(cuda, case):
+    # odd probe widths, views of the hash and live columns at offsets
+    # (alike and apart), and a table past PARTITION_MIN_SLOTS
+    n = {"width_1": 1, "width_7": 7}.get(case, 200_003)
+    nb, cap = ((600_000, 1 << 21) if case == "partitioned"
+               else (70_000, 1 << 17))
+    bh, bl, ph, pl = _lookup_inputs(cuda, nb, n + 8, 4 * nb // 7, seed=n)
+    assert (cap > HJ.PARTITION_MIN_SLOTS) == (case == "partitioned")
+    lo = {"offset_alike": (1, 1), "offset_apart": (2, 1)}.get(case, (0, 0))
+    hv, lv = ph[lo[0]:lo[0] + n], pl[lo[1]:lo[1] + n]
+    table, b_ok = HJ.build_table(bh, bl, cap)
+    before = B.LAUNCHES.snapshot()["probe_table"]
+    row, found, ok = HJ.probe_table(table, hv, lv)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES.snapshot()["probe_table"] == before + 1
+    want = HJ.lookup_join_torch(bh, bl, hv, lv, cap)
+    assert bool(b_ok) and bool(ok)
+    assert row.shape == found.shape == (n,)
+    assert torch.equal(row, want[0]) and torch.equal(found, want[1])
+
+
+@pytest.mark.parametrize("cap", [2048, 1 << 21])
+def test_probe_table_empty_hash(cuda, cap):
+    # R4 (test_lookup_join_empty_hash) in a table that fits the L2 and
+    # in one past PARTITION_MIN_SLOTS
+    _empty_hash_lookup(cuda, cap)
+
+
+def test_probe_table_chain_past_max_probes(cuda):
+    # 300 keys on one home slot of a table past PARTITION_MIN_SLOTS,
+    # built with room for the chain: probed at 256 slots the chain's
+    # tail is undecided and ok clears; at 512 every key is found
+    cap = 1 << 21
+    hi = np.arange(1, 301, dtype=np.uint32) * np.uint32(2654435761)
+    lo = _unmix32(np.full(300, 77, np.uint32)) ^ _mix32(hi)
+    h = _t(((hi.astype(np.uint64) << np.uint64(32))
+            | lo.astype(np.uint64)).view(np.int64), cuda)
+    live = torch.ones(300, dtype=torch.bool, device=cuda)
+    table, b_ok = HJ.build_table(h, live, cap, max_probes=512)
+    short = HJ.probe_table(table, h, live)
+    full = HJ.probe_table(table, h, live, max_probes=512)
+    torch.cuda.synchronize()
+    assert bool(b_ok) and not bool(short[2]) and bool(full[2])
+    assert full[0].tolist() == list(range(300)) and bool(full[1].all())
+
+
+def _walk_chain(device, case, seed=11):
+    """A spine and unique builds chained as ``case`` says, for the walk
+    against its plain version: (spine cols, spine live, width, builds
+    as (cols, live, n), criteria).
+
+    - k1, k2, k3, k8: that many steps; step i is keyed by a column of
+      step i - 1 when i is odd (a key chained from step 0 at i = 1,
+      from a middle step at i = 3, 5, 7), by a spine column when even;
+    - composite4: a step on a four-column key, then a chained step;
+    - chain_middle: the third of three steps keyed by the second's
+      column;
+    - nulls: nulls in a spine key, a chained key and a build key;
+    - width_3, offset_1, offset_4: the k3 chain over 3 spine rows, or
+      with the spine live mask a view 1 or 4 rows into a longer one;
+    - partitioned: a first build past PARTITION_MIN_SLOTS; in_l2: every
+      table a few KB."""
+    rng = np.random.default_rng(seed)
+    width = {"width_3": 3, "partitioned": 1_500_003}.get(case, 200_003)
+    k = {"k1": 1, "k2": 2, "k8": 8, "composite4": 2}.get(case, 3)
+    size = {"partitioned": 600_000, "in_l2": 500}.get(case, 40_000)
+
+    def col(a, valid=None):
+        return Val(T.BIGINT, _t(a, device),
+                   None if valid is None else _t(valid, device))
+    spine = {}
+    builds, crit = [], []
+    for i in range(k):
+        n = size if i == 0 else max(size // (i + 1), 50)
+        keys = rng.permutation(2 * n)[:n]
+        bcols = {f"b{i}_key": col(keys),
+                 f"b{i}_x": col(rng.integers(0, 2 * max(size // (i + 2), 50),
+                                             n))}
+        chained = i % 2 == 1 or (case == "chain_middle" and i == 2)
+        if case == "chain_middle" and i == 1:
+            chained = False
+        if chained:
+            crit.append([(f"b{i - 1}_x", f"b{i}_key")])
+        else:
+            spine[f"s{i}"] = col(rng.integers(0, 2 * n, width))
+            crit.append([(f"s{i}", f"b{i}_key")])
+        builds.append((bcols, _t(rng.random(n) > 0.1, device), n))
+    if case == "composite4":
+        n = 3000
+        combo = rng.permutation(20 ** 4)[:n]
+        parts = [combo // 20 ** j % 20 for j in range(4)]
+        builds[0] = ({**{f"b0_k{j}": col(parts[j]) for j in range(4)},
+                      "b0_x": col(rng.integers(0, 2 * builds[1][2], n))},
+                     _t(rng.random(n) > 0.1, device), n)
+        for j in range(4):
+            spine[f"s0_{j}"] = col(rng.integers(0, 20, width))
+        crit[0] = [(f"s0_{j}", f"b0_k{j}") for j in range(4)]
+    if case == "nulls":
+        s0 = spine["s0"]
+        spine["s0"] = col(s0.data.cpu().numpy(), rng.random(width) > 0.2)
+        x = builds[0][0]["b0_x"]
+        builds[0][0]["b0_x"] = col(x.data.cpu().numpy(),
+                                   rng.random(x.data.shape[0]) > 0.25)
+        key = builds[2][0]["b2_key"]
+        builds[2][0]["b2_key"] = col(key.data.cpu().numpy(),
+                                     rng.random(key.data.shape[0]) > 0.2)
+    live = _t(rng.random(width + 8) > 0.05, device)
+    at = {"offset_1": 1, "offset_4": 4}.get(case, 0)
+    return spine, live[at:at + width], width, builds, crit
+
+
+_WALK_CASES = ["k1", "k2", "k3", "k8", "composite4", "chain_middle",
+               "nulls", "width_3", "offset_1", "offset_4", "partitioned",
+               "in_l2"]
+
+
+@pytest.mark.parametrize("case", _WALK_CASES)
+def test_multijoin_walk_matches_plain(cuda, case):
+    args = _walk_chain(cuda, case)
+    spine, live, width, builds, crit = args
+    if case == "partitioned":
+        assert H.next_pow2(2 * builds[0][2]) > HJ.PARTITION_MIN_SLOTS
+    want = MJ.multijoin_torch(*args)
+    before = B.LAUNCHES.snapshot()
+    with K.use_backend("cuda"):
+        got = MJ.multijoin_cuda(*args)
+    torch.cuda.synchronize()
+    after = B.LAUNCHES.snapshot()
+    assert after["multijoin_walk"] == before["multijoin_walk"] + 1
+    assert after["build_table"] == before["build_table"] + len(builds)
+    assert bool(got[2])
+    assert torch.equal(got[1], want[1])
+    if width > 3:
+        assert 0 < int(got[1].sum()) < width
+    for g, w in zip(got[0], want[0]):
+        assert g.shape == (width,) and torch.equal(g, w)
+
+
+def test_multijoin_walk_chain_past_max_probes(cuda):
+    # one probe a row: a row whose home slot holds another key is left
+    # undecided, and the walk alone clears ok (the tables built fine)
+    spine, live, width, builds, crit = _walk_chain(cuda, "k3")
+    steps = MJ._resolve(spine, builds, crit)
+    desc, keep, oks = MJ.step_descriptors(steps, builds)
+    _g, _a, ok = MJ.multijoin_walk(desc, len(steps), live, width)
+    _g, _a, short = MJ.multijoin_walk(desc, len(steps), live, width,
+                                      max_probes=1)
+    torch.cuda.synchronize()
+    assert all(bool(b) for b in oks) and bool(ok) and not bool(short)
+    del keep
+
+
+@pytest.mark.parametrize("case", ["nulls", "partitioned"])
+def test_fused_walk_adds_no_host_sync(cuda, case):
+    # the step descriptors go to the kernel as its parameter: no
+    # blocking copy to the device, so the fused walk never waits on the
+    # stream (torch raises on a synchronizing call in this mode), with
+    # small tables and with a partitioned build's scratch
+    args = _walk_chain(cuda, case)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with K.use_backend("cuda"):
+            got = MJ.multijoin_cuda(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = MJ.multijoin_torch(*args)
+    assert torch.equal(got[1], want[1])
 
 
 CROSS_JOIN_SQL = """

@@ -459,10 +459,28 @@ def test_lookup_join_chain_past_max_probes():
 
 # -- the fused multi-join walk ----------------------------------------------
 
+# the chain shapes the walk kernel must take (kernels/multijoin.py):
+# each is held against the reference's Pallas walk and its XLA walk
+_CHAIN_SHAPES = ["star", "one_step", "composite", "nulls", "chain_middle",
+                 "dead_spine", "empty_build"]
 
-def _star(seed=5):
-    """A spine of 2000 rows and three unique builds; the third build's
-    key is a column of the first build (a chained key)."""
+
+def _star(seed=5, shape="star"):
+    """A spine of 2000 rows and unique builds, chained as ``shape``
+    says. A column is an array, or (array, validity) where it has
+    nulls.
+
+    - star: three builds; the third's key is a column of the first (a
+      key chained from step 0);
+    - one_step: the first build alone;
+    - composite: the second build on a two-column key;
+    - nulls: nulls in a spine key, a chained key and a build key;
+    - chain_middle: four builds; the fourth's key is a column of the
+      second (a key chained from a middle step);
+    - dead_spine: the star with every spine row dead;
+    - empty_build: the star with a second build whose rows are all
+      dead, so its table holds nothing (the reference's Pallas walk
+      takes no zero-row build)."""
     rng = np.random.default_rng(seed)
     n = 2000
     spine = {"s_a": rng.integers(0, 120, n), "s_b": rng.integers(0, 60, n),
@@ -474,14 +492,42 @@ def _star(seed=5):
     builds = [(b1, rng.random(100) > 0.1), (b2, np.ones(50, bool)),
               (b3, rng.random(35) > 0.05)]
     criteria = [[("s_a", "a_key")], [("s_b", "b_key")], [("a_c", "c_key")]]
+    if shape == "one_step":
+        builds, criteria = builds[:1], criteria[:1]
+    elif shape == "composite":
+        pairs = rng.permutation(80 * 3)[:50]
+        b2.update(b_key=pairs // 3, b_key2=pairs % 3)
+        spine["s_c"] = rng.integers(0, 3, n)
+        criteria[1] = [("s_b", "b_key"), ("s_c", "b_key2")]
+    elif shape == "nulls":
+        spine["s_a"] = (spine["s_a"], rng.random(n) > 0.2)
+        b1["a_c"] = (b1["a_c"], rng.random(100) > 0.25)
+        b3["c_key"] = (b3["c_key"], rng.random(35) > 0.2)
+    elif shape == "chain_middle":
+        b2["b_d"] = rng.integers(0, 30, 50)
+        builds.append(({"d_key": rng.permutation(30)[:25],
+                        "d_x": rng.integers(0, 7, 25)},
+                       rng.random(25) > 0.1))
+        criteria.append([("b_d", "d_key")])
+    elif shape == "dead_spine":
+        spine_live = np.zeros(n, bool)
+    elif shape == "empty_build":
+        builds[1] = (b2, np.zeros(50, bool))
     return spine, spine_live, builds, criteria
+
+
+def _data_valid(v):
+    return v if isinstance(v, tuple) else (v, None)
 
 
 def _ref_multi_join(spine, spine_live, builds, criteria, backend):
     def table(cols, live):
-        return ROP.DTable({k: RVal(RT.BIGINT, jnp.asarray(v))
-                           for k, v in cols.items()},
-                          jnp.asarray(live), len(live))
+        vals = {}
+        for k, v in cols.items():
+            data, valid = _data_valid(v)
+            vals[k] = RVal(RT.BIGINT, jnp.asarray(data),
+                           None if valid is None else jnp.asarray(valid))
+        return ROP.DTable(vals, jnp.asarray(live), len(live))
     node = types.SimpleNamespace(criteria=criteria)
     with RK.use_backend(backend):
         out, ok = ROP.apply_multi_join(
@@ -493,9 +539,13 @@ def _ref_multi_join(spine, spine_live, builds, criteria, backend):
 def _port_multi_join(spine, spine_live, builds, criteria, backend,
                      device="cpu"):
     def table(cols, live):
-        return POP.DTable({k: PVal(PT.BIGINT, _t(v, device))
-                           for k, v in cols.items()},
-                          _t(live, device), len(live), torch.device(device))
+        vals = {}
+        for k, v in cols.items():
+            data, valid = _data_valid(v)
+            vals[k] = PVal(PT.BIGINT, _t(data, device),
+                           None if valid is None else _t(valid, device))
+        return POP.DTable(vals, _t(live, device), len(live),
+                          torch.device(device))
     node = types.SimpleNamespace(criteria=criteria)
     with PK.use_backend(backend):
         return POP.apply_multi_join(
@@ -508,20 +558,80 @@ def _live_rows(dt, live, cols):
     return {c: np.asarray(dt.cols[c].data)[live] for c in cols}
 
 
-@pytest.mark.parametrize("ref_backend", ["pallas", "xla"])
-def test_multijoin_plain_walk_matches_reference(ref_backend):
-    spine, spine_live, builds, criteria = _star()
+@pytest.mark.parametrize(
+    "ref_backend,shape",
+    [(b, s) for s in _CHAIN_SHAPES for b in ("pallas", "xla")],
+    ids=[b if s == "star" else f"{b}-{s}"
+         for s in _CHAIN_SHAPES for b in ("pallas", "xla")])
+def test_multijoin_plain_walk_matches_reference(ref_backend, shape):
+    spine, spine_live, builds, criteria = _star(shape=shape)
     ref, rok = _ref_multi_join(spine, spine_live, builds, criteria,
                                ref_backend)
     got, ok = _port_multi_join(spine, spine_live, builds, criteria, "torch")
     assert bool(ok) and bool(np.asarray(rok))
     np.testing.assert_array_equal(got.live.numpy(), np.asarray(ref.live))
-    assert 0 < int(got.live.sum()) < len(spine_live)
-    cols = ["s_v", "a_c", "b_w", "c_name"]
+    if shape in ("dead_spine", "empty_build"):
+        assert not got.live.any()
+    else:
+        assert 0 < int(got.live.sum()) < len(spine_live)
+    cols = ["s_v"] + [c for bcols, _lv in builds for c in bcols]
     want = _live_rows(ref, ref.live, cols)
     have = _live_rows(got, got.live.numpy(), cols)
     for c in cols:
         np.testing.assert_array_equal(have[c], want[c])
+
+
+def test_multijoin_descriptor_layout():
+    # the walk's kernel parameter, packed on the host with no library
+    # loaded: the field order the kernel's structs have (960 bytes, 15
+    # words a step), the sources a chain resolves to, and the limits
+    from presto_tpu_torch.kernels import build as B
+    from presto_tpu_torch.kernels import multijoin as PMJ
+    from presto_tpu_torch.ops import hash as PH
+    assert B.mj_layout() == (8, 4, 960, 120, 0, 8, 16, 24, 24, 0, 8, 16)
+    assert [f for f, _t in B.MjStep._fields_] == ["table", "mask", "nkeys",
+                                                  "keys"]
+    assert [f for f, _t in B.MjKey._fields_] == ["source", "hash", "valid"]
+    spine, spine_live, builds, criteria = _star(shape="nulls")
+    spine_cols = {k: PVal(PT.BIGINT, _t(_data_valid(v)[0]),
+                          None if _data_valid(v)[1] is None
+                          else _t(_data_valid(v)[1]))
+                  for k, v in spine.items()}
+    bl = []
+    for cols, live in builds:
+        bl.append(({k: PVal(PT.BIGINT, _t(_data_valid(v)[0]),
+                            None if _data_valid(v)[1] is None
+                            else _t(_data_valid(v)[1]))
+                    for k, v in cols.items()}, _t(live), len(live)))
+    steps = PMJ._resolve(spine_cols, bl, criteria)
+    assert [[src for src, _v, _bv in keys] for keys in steps] == \
+        [[-1], [-1], [0]]
+    tables = [torch.full((PH.next_pow2(2 * n), 2), -1, dtype=torch.int64)
+              for _c, _l, n in bl]
+    desc, keep = PMJ.descriptor(steps, tables)
+    assert B.LIBRARY._lib is None
+    got = []
+    for st, keys, table in zip(desc.steps, steps, tables):
+        assert st.table == table.data_ptr()
+        assert st.mask == table.shape[0] - 1 and st.nkeys == len(keys)
+        for key, (src, v, _bv) in zip(st.keys, keys):
+            got.append(key.source)
+            held = {t.data_ptr(): t for t in keep}
+            np.testing.assert_array_equal(
+                held[key.hash].numpy(),
+                PH.hash_int_column(v.data, v.valid).numpy())
+            if v.valid is None:
+                assert key.valid is None
+            else:
+                assert torch.equal(held[key.valid], v.valid)
+    assert got == [-1, -1, 0]
+    assert all(st.table is None for st in desc.steps[3:])
+    # the limits: at most 8 steps of 1 to 4 keys, before any build
+    with pytest.raises(ValueError, match="9 steps"):
+        PMJ.step_descriptors(steps * 3, bl * 3)
+    with pytest.raises(ValueError, match="1 to 4 keys"):
+        PMJ.descriptor([steps[0] * 5], tables[:1])
+    assert B.LIBRARY._lib is None
 
 
 def test_multijoin_cuda_entry_on_cpu_takes_plain_version():
