@@ -13,20 +13,22 @@ Phases (any failure exits non-zero before the result line):
 1. The card's ``nvidia-smi`` name and power limit; the kernel build.
 2. Kernels: segment_sum over 60M rows (k = 6 and 1 in registers, 32
    in lane columns of shared memory, 4096 in shared-memory partials,
-   1<<20 by global atomics), segment_max and segment_min over 60M rows (k = 1, 4096,
-   1<<20, with values at +-2^63 and empty segments), build_table on
+   1<<20 by global atomics), segment_max and segment_min over 60M rows
+   (k = 1, 6 in int64 and int32, 4096, 1<<20 in random and in sorted
+   order, with values at +-2^63 and empty segments), build_table on
    15M rows and probe_table with 60M rows (and a build with duplicate
    keys, compared only), multijoin_walk over a 60M spine with 3
-   builds, and filter_compact of
-   a 60M-row mask (about 4% live) into 2^23 rows with int64, float64,
-   [n, 2] int64 and bool columns. Each is compared with its plain
-   version on the same inputs (exact equality required; live rows for
-   the compaction) and timed with CUDA events beside the plain
-   version, the one PyTorch call that computes the same function where
-   there is one, and the least time the card could take for the bytes
-   it must move; the probe and the walk also beside their random-read
-   floor, one ``index_select`` of as many random 16-byte table slots
-   as their live first probes.
+   builds, and filter_compact of a 60M-row mask (about 4% live) into
+   2^23 rows with int64, float64, [n, 2] int64 and bool columns. Each
+   is compared with its plain version on the same inputs (exact
+   equality required; live rows for the compaction) and timed with
+   CUDA events beside the plain version, the one PyTorch call that
+   computes the same function where there is one, and the least time
+   the card could take for the bytes it must move; the probe and the
+   walk also beside their random-read floor, one ``index_select`` of
+   as many random 16-byte table slots as their live first probes, and
+   the compaction beside its gather floor, ``index_select`` of every
+   column at the live indices found beforehand plus the zeroed tail.
 3. Queries: data made by the port's own TPC-H generator from the seed;
    every query runs with kernel_backend=cuda (the launch counts are
    reset just before this pass and read just after, and each query's
@@ -76,9 +78,9 @@ KERNELS = {
                        "presto_tpu/kernels/compact.py:84"),
 }
 # the PR whose redesign each kernel runs (None: as first ported)
-REDESIGNED_IN = {"segment_sum": 3, "segment_max": None, "segment_min": None,
+REDESIGNED_IN = {"segment_sum": 3, "segment_max": 5, "segment_min": 5,
                  "build_table": 3, "probe_table": 4,
-                 "multijoin_walk": 4, "filter_compact": None}
+                 "multijoin_walk": 4, "filter_compact": 5}
 SLOT_BYTES = 16  # a hash-table slot: key, row and pad (csrc/common.cuh)
 # the kernel each query must run on the card. At SF10 the cost-based
 # planner builds Q3's orders-lineitem join on lineitem (an expanding
@@ -212,37 +214,58 @@ def kernel_phase(dev, seed: int) -> dict:
         del ids, ids64
     out["segment_sum"] = {**cases[0], "cases": cases}
 
-    # segment_max / segment_min: Q15's global max is k = 1; values at
-    # +-2^63 and ids that leave the upper half of the segments empty
+    # segment_max / segment_min: Q15's global max is k = 1 (ids -1 or
+    # 0); lineitem_extrema's direct group-by folds int64 decimals and an
+    # int32 date into k = 6; 4096 takes the shared-memory partials and
+    # 1<<20 the global atomics (ids in [-1, k // 2): values at +-2^63,
+    # the upper half of the segments empty). The last case sorts the
+    # values the way that defeats the kernel's skipped atomics
+    # (ascending for max, descending for min: every row beats its
+    # segment so far)
     data[:2] = torch.tensor([(1 << 63) - 1, -(1 << 63)], device=dev)
+    data32 = torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32,
+                           device=dev, generator=gen)
+    data32[:2] = torch.tensor([(1 << 31) - 1, -(1 << 31)], device=dev)
+    ascending = torch.sort(data).values
+    cmp_cases = [("k=1", data, 1, False), ("k=6", data, 6, True),
+                 ("k=6 int32", data32, 6, True),
+                 ("k=4096", data, 4096, False),
+                 ("k=1048576", data, 1 << 20, False),
+                 ("k=1048576 sorted", ascending, 1 << 20, False)]
     for name, is_max in (("segment_max", True), ("segment_min", False)):
         cases = []
         kernel = SA.segment_max_cuda if is_max else SA.segment_min_cuda
         plain = SA.segment_max_torch if is_max else SA.segment_min_torch
-        for k in (1, 4096, 1 << 20):
-            ids = torch.randint(-1, max(k // 2, 1), (n,), dtype=torch.int32,
+        for label, values, k, full in cmp_cases:
+            if label.endswith("sorted") and not is_max:
+                values = values.flip(0)
+            ids = torch.randint(0 if full else -1, k if full
+                                else max(k // 2, 1), (n,), dtype=torch.int32,
                                 device=dev, generator=gen)
-            got = kernel(data, ids, k)
-            want = plain(data, ids, k)
-            err = require_equal(f"{name} k={k}", [(got, want)])
+            got = kernel(values, ids, k)
+            want = plain(values, ids, k)
+            err = require_equal(f"{name} {label}", [(got, want)])
             idx = torch.where(ids >= 0, ids, k).to(torch.int64)
+            info = torch.iinfo(values.dtype)
 
-            def library(idx=idx, k=k, is_max=is_max):
-                torch.full((k + 1,), -(1 << 63) if is_max
-                           else (1 << 63) - 1, dtype=torch.int64,
-                           device=dev).scatter_reduce_(
-                    0, idx, data, "amax" if is_max else "amin")
-            b_ms, b_by = bound(n * (8 + 4) + k * 8, n)
-            case = {"k": k, "max_abs_err": err,
-                    "ms": cuda_ms(lambda ids=ids, k=k: kernel(data, ids, k)),
-                    "plain_ms": cuda_ms(lambda ids=ids, k=k:
-                                        plain(data, ids, k)),
+            def library(values=values, idx=idx, k=k, is_max=is_max,
+                        info=info):
+                torch.full((k + 1,), info.min if is_max else info.max,
+                           dtype=values.dtype, device=dev).scatter_reduce_(
+                    0, idx, values, "amax" if is_max else "amin")
+            b_ms, b_by = bound(n * (values.element_size() + 4) + k * 8, n)
+            case = {"case": label, "k": k, "max_abs_err": err,
+                    "ms": cuda_ms(lambda values=values, ids=ids, k=k:
+                                  kernel(values, ids, k)),
+                    "plain_ms": cuda_ms(lambda values=values, ids=ids, k=k:
+                                        plain(values, ids, k)),
                     "library_ms": cuda_ms(library),
                     "bound_ms": b_ms, "bound_by": b_by}
             log("kernel " + json.dumps({"name": name, **case}))
             cases.append(case)
             del ids, idx
         out[name] = {**cases[0], "cases": cases}
+    del data32, ascending
     del data
 
     # build_table on an orders-sized build (15M unique keys of a 60M
@@ -397,6 +420,24 @@ def kernel_phase(dev, seed: int) -> dict:
         idx = torch.nonzero(live).squeeze(1)[:cap]
         return {k: a.index_select(0, idx) for k, a in arrays.items()}
     c_ms, c_by = bound(width + rows * row_bytes + cap * row_bytes, width)
+    # the gather floor: the same live rows gathered at indices found
+    # beforehand (index_select of every column, each live row's sectors
+    # read as the kernel reads them) and the rows past them zeroed: the
+    # kernel's reads and writes without its scan
+    live_idx = torch.nonzero(live).squeeze(1)[:cap]
+
+    def rows_of(a):
+        # one element a row: index_select moves a [n, 2] row as two
+        # elements, several times slower than one 16-byte element
+        return a.view(torch.complex128).squeeze(1) if a.ndim == 2 else a
+    columns = [(rows_of(a), rows_of(torch.empty(
+        (cap,) + tuple(a.shape[1:]), dtype=a.dtype, device=dev)))
+        for a in arrays.values()]
+
+    def gather_floor():
+        for a, o in columns:
+            torch.index_select(a, 0, live_idx, out=o[:rows])
+            o[rows:].zero_()
     out["filter_compact"] = {
         "max_abs_err": err, "live_rows": nlive, "capacity": cap,
         "ms": cuda_ms(lambda: CP.filter_compact_cuda(live, arrays, cap)),
@@ -404,10 +445,11 @@ def kernel_phase(dev, seed: int) -> dict:
                                                             cap)),
         "library_ms": cuda_ms(library), "library_note":
             "torch.nonzero + index_select (nonzero syncs with the host)",
-        "bound_ms": c_ms, "bound_by": c_by}
+        "bound_ms": c_ms, "bound_by": c_by,
+        "gather_floor_ms": cuda_ms(gather_floor)}
     log("kernel " + json.dumps({"name": "filter_compact",
                                 **out["filter_compact"]}))
-    del live, arrays, got, want
+    del live, arrays, got, want, live_idx, columns
     torch.cuda.empty_cache()
     return out
 
@@ -528,6 +570,7 @@ def query_phase(scale: float, seed: int) -> tuple[dict, dict]:
         for q, sql in QUERIES.items():
             passes0 = HS.SYNCS.by_site.get("ok-ladder", 0)
             syncs0 = HS.SYNCS.total()
+            uploads0 = HS.UPLOADS.total()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
@@ -539,6 +582,8 @@ def query_phase(scale: float, seed: int) -> tuple[dict, dict]:
                                    engine.last_kernel_notes.values()
                                    for tag in tags}),
                 "host_syncs": HS.SYNCS.total() - syncs0,
+                # pinned, non-blocking host-to-device copies
+                "uploads": HS.UPLOADS.total() - uploads0,
                 "ok_ladder_syncs": HS.SYNCS.by_site.get("ok-ladder", 0)
                 - passes0,
                 # resident scan columns included
@@ -617,6 +662,7 @@ def main() -> int:
                         "library_ms": k["library_ms"],
                         "random_read_floor_ms":
                             k.get("random_read_floor_ms"),
+                        "gather_floor_ms": k.get("gather_floor_ms"),
                         "redesigned_in": REDESIGNED_IN[name]})
     print(card, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

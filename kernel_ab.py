@@ -27,6 +27,14 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 
 
+def case_key(name: str, case: dict) -> str:
+    """The key of one timed case: the kernel's name, then the case's
+    label (or its k, or nothing for a kernel timed at one shape)."""
+    if "case" in case:
+        return f"{name} {case['case']}"
+    return name + (f" k={case['k']}" if "k" in case else "")
+
+
 def one(tree: Path, seed: int) -> int:
     """Run the kernel phase against ``tree``'s package; print it as one
     ``result`` JSON line."""
@@ -44,11 +52,9 @@ def one(tree: Path, seed: int) -> int:
     spec.loader.exec_module(smoke)
     B.LIBRARY.get()
     out = smoke.kernel_phase(torch.device("cuda"), seed)
-    times = {}
-    for name, res in out.items():
-        for case in res.get("cases", [res]):
-            key = name + (f" k={case['k']}" if "k" in case else "")
-            times[key] = case["ms"]
+    times = {case_key(name, case): case["ms"]
+             for name, res in out.items()
+             for case in res.get("cases", [res])}
     print("result " + json.dumps(times), flush=True)
     return 0
 

@@ -19,6 +19,7 @@ import torch
 from presto_tpu_torch import types as T
 from presto_tpu_torch.block import Table, _decode_column
 from presto_tpu_torch.connectors.base import Connector
+from presto_tpu_torch.exec import hostsync as HS
 from presto_tpu_torch.session import SYSTEM_SESSION_PROPERTIES, Session
 
 
@@ -72,10 +73,9 @@ class Engine:
             raise NotImplementedError(
                 "object-dtype host columns are not ported to "
                 "presto_tpu_torch yet")
-        host = np.ascontiguousarray(host)
         if not host.flags.writeable:
             host = host.copy()
-        dev = torch.from_numpy(host).to(self.device)
+        dev = HS.upload(host, self.device, "scan-column")
         self._dev_cache[id(a)] = (a, dev)
         return dev
 

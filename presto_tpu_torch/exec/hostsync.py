@@ -1,5 +1,5 @@
-"""The designated device-to-host synchronization boundary — the port
-of ``presto_tpu/exec/hostsync.py``.
+"""The designated host/device transfer boundary — the port of
+``presto_tpu/exec/hostsync.py``.
 
 Every deliberate device->host read on the execute path goes through
 this module: ``fetch``, one batched copy of an arbitrary tree of
@@ -7,17 +7,23 @@ tensors. Each call counts
 one sync against its call site in :data:`SYNCS`, so a run can show
 that a query syncs a bounded, constant number of times. No operator
 reads a tensor on the host.
+
+Every host->device copy of host data on the execute path goes through
+``upload``: it pins the array and copies it without blocking, so the
+host does not wait for the stream to drain (a copy from pageable
+memory does), and counts it against its call site in :data:`UPLOADS`.
 """
 
 from __future__ import annotations
 
 import threading
 
+import numpy as np
 import torch
 
 
 class SyncCounter:
-    """Host syncs per call site."""
+    """Transfers per call site."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -33,6 +39,7 @@ class SyncCounter:
 
 
 SYNCS = SyncCounter()
+UPLOADS = SyncCounter()  # host->device copies, none of them a sync
 
 
 def _to_host(tree):
@@ -51,3 +58,15 @@ def fetch(tree, site: str):
     SYNCS.inc(site)
     return _to_host(tree)
 
+
+def upload(array, device, site: str) -> torch.Tensor:
+    """A device tensor holding the host ``array``: on a CUDA device a
+    pinned, non-blocking copy (the pinned buffer is held by PyTorch's
+    host allocator until the copy has run); on the CPU the array itself
+    as a tensor. Counts one upload against ``site``."""
+    UPLOADS.inc(site)
+    host = torch.from_numpy(np.ascontiguousarray(array))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)

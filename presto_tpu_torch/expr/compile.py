@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import types as T
+from presto_tpu_torch.exec import hostsync as HS
 from presto_tpu_torch.expr import ir
 
 
@@ -106,7 +107,7 @@ def _bool(data, valid=None) -> Val:
 
 
 def _lut(values: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(values)).to(like.device)
+    return HS.upload(values, like.device, "dictionary-lut")
 
 
 # --- dictionary helpers (host side) ----------------------------------------
@@ -199,7 +200,7 @@ class ExprCompiler:
         return method(expr)
 
     def _tensor(self, value: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(value)).to(self.device)
+        return HS.upload(value, self.device, "literal")
 
     # -- leaves
 
@@ -276,8 +277,8 @@ def _rescale128(d, from_scale: int, to_scale: int):
     if to_scale >= from_scale:
         return I.rescale_up(d, to_scale - from_scale)
     k = from_scale - to_scale
-    f = I.from_i64(torch.tensor(10 ** min(k, 18), dtype=torch.int64,
-                                device=d.device))
+    f = I.from_i64(torch.full((), 10 ** min(k, 18), dtype=torch.int64,
+                              device=d.device))
     if k > 18:
         f = I.rescale_up(f, k - 18)
     return I.div_round_half_up(d, f.expand(d.shape))

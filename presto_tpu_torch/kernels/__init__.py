@@ -14,11 +14,13 @@ multijoin       fused star-chain probe walk          the inline walk of
                 (kernels/multijoin.py)               apply_multi_join
 agg_sum         shared-memory / atomic segment sum   ``index_add_`` on int64
                 (kernels/segagg.py)
-agg_max,        warp / shared-memory / atomic        ``scatter_reduce_``
-agg_min         segment max and min                  onto the identity
+agg_max,        register / lane-column / shared /    ``scatter_reduce_``
+agg_min         global segment max and min, each     onto the identity
+                atomic behind a read
                 (kernels/segagg.py)
-compact         count, scan, stable scatter          cumsum positions +
-                (kernels/compact.py)                 ``index_copy_``
+compact         single-pass look-back scan, then     cumsum positions +
+                staged, coalesced row copies         ``index_copy_``
+                (kernels/compact.py)
 ==============  ===================================  ====================
 
 Selection is the ``kernel_backend`` session property:

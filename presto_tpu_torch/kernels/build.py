@@ -61,6 +61,34 @@ class MjDesc(ctypes.Structure):
     _fields_ = [("steps", MjStep * MJ_MAX_STEPS)]
 
 
+# filter_compact's column descriptors (csrc/compact.cu; checked against
+# the library at load), passed by value like MjDesc: at most
+# COMPACT_MAX_COLS columns a launch.
+COMPACT_MAX_COLS = 32
+
+
+class CompactCol(ctypes.Structure):
+    """One column: the device addresses of its rows and of its output
+    rows, and the bytes of one row."""
+    _fields_ = [("src", _P), ("dst", _P), ("row_bytes", _L)]
+
+
+class CompactDesc(ctypes.Structure):
+    """The compaction's kernel parameter: COMPACT_MAX_COLS columns, 776
+    bytes."""
+    _fields_ = [("ncols", _L), ("cols", CompactCol * COMPACT_MAX_COLS)]
+
+
+def compact_layout() -> tuple[int, ...]:
+    """The layout ``pt_compact_layout`` reports for the structs above:
+    the column limit, then CompactDesc's size and field offsets,
+    CompactCol's size and field offsets."""
+    return (COMPACT_MAX_COLS, ctypes.sizeof(CompactDesc),
+            CompactDesc.ncols.offset, CompactDesc.cols.offset,
+            ctypes.sizeof(CompactCol), CompactCol.src.offset,
+            CompactCol.dst.offset, CompactCol.row_bytes.offset)
+
+
 def mj_layout() -> tuple[int, ...]:
     """The layout ``pt_multijoin_layout`` reports for the structs above:
     the limits, then MjDesc's size, MjStep's size and field offsets,
@@ -73,9 +101,10 @@ def mj_layout() -> tuple[int, ...]:
 
 _SIGNATURES = {
     "pt_segment_sum": [_P, _I, _P, _L, _I, _L, _L, _P, _P],
-    "pt_segment_cmp": [_P, _I, _P, _L, _I, _I, _P, _P],
-    "pt_filter_compact": [_P, _L, _P, _I, _L, _P, _P, _P],
+    "pt_segment_cmp": [_P, _I, _P, _L, _I, _I, _L, _L, _P, _P],
+    "pt_filter_compact": [_P, _L, _P, _L, _P, _I, _P],
     "pt_compact_tile_rows": [],
+    "pt_compact_layout": [_P, _I],
     "pt_build_part_counters": [],
     "pt_build_table": [_P, _P, _L, _P, _L, _I, _P, _P, _P, _P, _P],
     "pt_probe_table": [_P, _L, _P, _P, _L, _I, _P, _P, _P, _P],
@@ -173,6 +202,16 @@ def build_library() -> Path:
     return target
 
 
+def _check_layout(report, want: tuple[int, ...], what: str) -> None:
+    """Raise unless the library's ``report`` of a descriptor layout is
+    the host's ``want``."""
+    got = (ctypes.c_longlong * len(want))()
+    count = report(got, len(want))
+    if count != len(want) or tuple(got) != want:
+        raise RuntimeError(f"{what} descriptor layout mismatch: library "
+                           f"{tuple(got)[:count]}, host {want}")
+
+
 class KernelLibrary:
     """The loaded shared library; builds it on first use."""
 
@@ -194,13 +233,10 @@ class KernelLibrary:
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
-                want = mj_layout()
-                got = (ctypes.c_longlong * len(want))()
-                count = lib.pt_multijoin_layout(got, len(want))
-                if count != len(want) or tuple(got) != want:
-                    raise RuntimeError(
-                        "multijoin descriptor layout mismatch: library "
-                        f"{tuple(got)[:count]}, host {want}")
+                _check_layout(lib.pt_multijoin_layout, mj_layout(),
+                              "multijoin")
+                _check_layout(lib.pt_compact_layout, compact_layout(),
+                              "compact")
                 self.compact_tile_rows = lib.pt_compact_tile_rows()
                 self.build_part_counters = lib.pt_build_part_counters()
                 self._lib = lib

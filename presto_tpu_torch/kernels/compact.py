@@ -2,7 +2,9 @@
 
 Port of ``filter_compact_pallas`` (presto_tpu/kernels/compact.py:84).
 The kernel is ``csrc/compact.cu``, whose header says what bounds it on
-the card and how the scan replaces the TPU kernel's running count.
+the card and how a single-pass scan replaces the TPU kernel's running
+count. The wrapper copies nothing to the device: the column
+descriptors go to the kernel by value.
 
 Contract (the reference's): ``arrays`` (1-D [n] or 2-D [n, m] columns
 of any dtype) compact to ``capacity`` rows keeping the rows where
@@ -15,6 +17,8 @@ memory goes through the kernel.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -43,6 +47,27 @@ def filter_compact_torch(live, arrays: dict, capacity: int) -> dict:
     return out
 
 
+def descriptors(arrays: dict, out: dict) -> list:
+    """Pack the columns into :class:`build.CompactDesc` structs of at
+    most ``build.COMPACT_MAX_COLS`` columns each: per column its source
+    and output addresses and the bytes of one row. Host memory only:
+    each struct is passed to the kernel by value."""
+    descs = []
+    names = list(arrays)
+    for at in range(0, len(names), B.COMPACT_MAX_COLS):
+        desc = B.CompactDesc()
+        group = names[at:at + B.COMPACT_MAX_COLS]
+        desc.ncols = len(group)
+        for col, arg in zip(desc.cols, group):
+            a = arrays[arg]
+            col.src = a.data_ptr()
+            col.dst = out[arg].data_ptr()
+            col.row_bytes = a.element_size() * (a.shape[1] if a.ndim == 2
+                                                else 1)
+        descs.append(desc)
+    return descs
+
+
 def filter_compact_cuda(live, arrays: dict, capacity: int) -> dict:
     """The ``filter_compact`` kernel on CUDA tensors; the plain version
     for a mask on the CPU."""
@@ -61,23 +86,21 @@ def filter_compact_cuda(live, arrays: dict, capacity: int) -> dict:
             raise ValueError(f"{name}: {arg} has shape {tuple(a.shape)}; "
                              f"expected [{n}] or [{n}, m]")
     K.note("cuda:compact")
-    out = {arg: _zeros_like_rows(a, cap) for arg, a in arrays.items()}
     if n == 0 or cap == 0 or not arrays:
-        return out
-    # one descriptor per column: source, destination, bytes per row
-    desc = torch.tensor(
-        [w for arg, a in arrays.items()
-         for w in (a.data_ptr(), out[arg].data_ptr(),
-                   a.element_size() * (a.shape[1] if a.ndim == 2 else 1))],
-        dtype=torch.int64).to(live.device)
+        return {arg: _zeros_like_rows(a, cap) for arg, a in arrays.items()}
+    # the kernel writes every output row: the live ones, then zeros
+    out = {arg: torch.empty((cap,) + tuple(a.shape[1:]), dtype=a.dtype,
+                            device=a.device)
+           for arg, a in arrays.items()}
     lib = B.LIBRARY.get()
-    ntiles = -(-n // B.LIBRARY.compact_tile_rows)
-    counts = torch.empty(ntiles, dtype=torch.int32, device=live.device)
-    offsets = torch.empty(ntiles, dtype=torch.int64, device=live.device)
-    rc = lib.pt_filter_compact(live.data_ptr(), n, desc.data_ptr(),
-                               len(arrays), cap, counts.data_ptr(),
-                               offsets.data_ptr(),
-                               B.stream_handle(live.device))
-    B.check(rc, name)
+    # the tile counter, the live total and one status word per tile
+    scratch = torch.zeros(n // B.LIBRARY.compact_tile_rows + 4,
+                          dtype=torch.int64, device=live.device)
+    stream = B.stream_handle(live.device)
+    for group, desc in enumerate(descriptors(arrays, out)):
+        rc = lib.pt_filter_compact(live.data_ptr(), n, ctypes.addressof(desc),
+                                   cap, scratch.data_ptr(), int(group == 0),
+                                   stream)
+        B.check(rc, name)
     B.LAUNCHES.add(name)
     return out

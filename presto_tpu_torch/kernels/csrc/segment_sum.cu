@@ -16,13 +16,8 @@
 // Design: Hopper has native 64-bit atomics, so the limb planes go.
 // Integer addition mod 2^64 is order-free, so the result is
 // bit-identical to the reference in any accumulation order. Every path
-// reads four rows a thread with vector loads (the ids as one int4, the
-// values as one 4-, 8- or 16-byte word, int64 as two longlong2), two
-// groups in flight, over a grid-stride loop whose grid fills the SMs
-// as deep as the kernel's occupancy allows. The wrapper
-// (kernels/segagg.py) picks the aligned span [vbeg, vbeg + 4 * nvec);
-// rows outside it, and every row when the data and the ids are not
-// aligned alike, take scalar loads. Then, by k:
+// reads its rows as segrows.cuh says (four a thread by vector loads,
+// an occupancy-sized grid-stride grid). Then, by k:
 // - k <= 8 (Q1's k = 6, every global fold's k = 1, Q4, Q12): each
 //   thread keeps KP accumulators in registers, KP = k rounded up to a
 //   power of two, and adds each row with a fully unrolled
@@ -47,7 +42,7 @@
 //   atomic per block and nonzero segment.
 // - k > 6144: global atomics straight to the output.
 // Zero values add nothing and skip their atomic.
-#include "common.cuh"
+#include "segrows.cuh"
 
 namespace {
 
@@ -77,91 +72,6 @@ __device__ __forceinline__ u64 widen<uint8_t>(uint8_t v) {
   return static_cast<u64>(v);
 }
 
-// The word that holds four values of a type of B bytes (8-byte types
-// take two of them).
-template <int B>
-struct Word;
-template <>
-struct Word<1> {
-  using type = unsigned int;
-};
-template <>
-struct Word<2> {
-  using type = uint2;
-};
-template <>
-struct Word<4> {
-  using type = uint4;
-};
-template <>
-struct Word<8> {
-  using type = uint4;
-};
-
-// Four consecutive values from p (aligned to 4 * sizeof(T), at most
-// 16), widened.
-template <typename T>
-__device__ __forceinline__ void load4(const T* __restrict__ p, u64 (&v)[4]) {
-  using W = typename Word<sizeof(T)>::type;
-  constexpr int kWords = sizeof(T) == 8 ? 2 : 1;
-  union {
-    W w[kWords];
-    T t[4];
-  } u;
-  const W* q = reinterpret_cast<const W*>(p);
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) u.w[j] = __ldg(q + j);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = widen<T>(u.t[j]);
-}
-
-// Calls add(segment id, widened value) once for every row this thread
-// owns: groups of four rows by vector loads in [vbeg, vbeg + 4 * nvec),
-// two groups in flight, and single rows outside that span, all over a
-// grid-stride loop.
-template <typename T, typename Add>
-__device__ __forceinline__ void for_rows(const T* __restrict__ data,
-                                         const int* __restrict__ seg,
-                                         long long n, long long vbeg,
-                                         long long nvec, Add&& add) {
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const int4* seg4 = reinterpret_cast<const int4*>(seg + vbeg);
-  const T* data4 = data + vbeg;
-  long long g = tid;
-  for (; g + stride < nvec; g += 2 * stride) {
-    const int4 sa = __ldg(seg4 + g);
-    const int4 sb = __ldg(seg4 + g + stride);
-    u64 va[4], vb[4];
-    load4<T>(data4 + 4 * g, va);
-    load4<T>(data4 + 4 * (g + stride), vb);
-    add(sa.x, va[0]);
-    add(sa.y, va[1]);
-    add(sa.z, va[2]);
-    add(sa.w, va[3]);
-    add(sb.x, vb[0]);
-    add(sb.y, vb[1]);
-    add(sb.z, vb[2]);
-    add(sb.w, vb[3]);
-  }
-  if (g < nvec) {
-    const int4 sa = __ldg(seg4 + g);
-    u64 va[4];
-    load4<T>(data4 + 4 * g, va);
-    add(sa.x, va[0]);
-    add(sa.y, va[1]);
-    add(sa.z, va[2]);
-    add(sa.w, va[3]);
-  }
-  for (long long i = tid; i < vbeg; i += stride) {
-    add(__ldg(seg + i), widen<T>(data[i]));
-  }
-  for (long long i = vbeg + 4 * nvec + tid; i < n; i += stride) {
-    add(__ldg(seg + i), widen<T>(data[i]));
-  }
-}
-
 template <typename T, int KP>
 __global__ void __launch_bounds__(kThreads)
     seg_sum_reg(const T* __restrict__ data, const int* __restrict__ seg,
@@ -170,7 +80,8 @@ __global__ void __launch_bounds__(kThreads)
   u64 acc[KP];
 #pragma unroll
   for (int j = 0; j < KP; ++j) acc[j] = 0ull;
-  for_rows<T>(data, seg, n, vbeg, nvec, [&](int s, u64 v) {
+  pt::for_rows<T>(data, seg, n, vbeg, nvec, [&](int s, T t) {
+    const u64 v = widen<T>(t);
 #pragma unroll
     for (int j = 0; j < KP; ++j) acc[j] += s == j ? v : 0ull;
   });
@@ -207,9 +118,9 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   u64* mine = acc + (threadIdx.x >> 5) * KP * 32 + (threadIdx.x & 31);
-  for_rows<T>(data, seg, n, vbeg, nvec, [&](int s, u64 v) {
+  pt::for_rows<T>(data, seg, n, vbeg, nvec, [&](int s, T t) {
     if (static_cast<unsigned>(s) < static_cast<unsigned>(KP)) {
-      mine[s * 32] += v;
+      mine[s * 32] += widen<T>(t);
     }
   });
   __syncthreads();
@@ -233,7 +144,8 @@ __global__ void __launch_bounds__(kThreads)
   // copies is a power of two dividing kWarps
   u64* mine = part + ((threadIdx.x >> 5) & (copies - 1)) * k;
   const unsigned uk = static_cast<unsigned>(k);
-  for_rows<T>(data, seg, n, vbeg, nvec, [&](int s, u64 v) {
+  pt::for_rows<T>(data, seg, n, vbeg, nvec, [&](int s, T t) {
+    const u64 v = widen<T>(t);
     if (static_cast<unsigned>(s) < uk && v != 0ull) atomicAdd(&mine[s], v);
   });
   __syncthreads();
@@ -250,32 +162,19 @@ __global__ void __launch_bounds__(kThreads)
                    long long n, long long vbeg, long long nvec, int k,
                    u64* __restrict__ out) {
   const unsigned uk = static_cast<unsigned>(k);
-  for_rows<T>(data, seg, n, vbeg, nvec, [&](int s, u64 v) {
+  pt::for_rows<T>(data, seg, n, vbeg, nvec, [&](int s, T t) {
+    const u64 v = widen<T>(t);
     if (static_cast<unsigned>(s) < uk && v != 0ull) atomicAdd(&out[s], v);
   });
-}
-
-// Blocks for n rows (four a thread) on a card of sms SMs holding
-// per_sm blocks of the kernel each.
-int blocks_for(long long n, int sms, int per_sm) {
-  const long long groups = (n + 3) / 4;
-  return pt::grid_for(groups, kThreads, sms * (per_sm < 1 ? 1 : per_sm));
-}
-
-template <typename K>
-int resident(K kernel, int smem) {
-  int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                smem);
-  return per_sm;
 }
 
 template <typename T, int KP>
 void launch_reg(const T* d, const int* seg, long long n, long long vbeg,
                 long long nvec, int k, u64* out, int sms, cudaStream_t s) {
-  static const int per_sm = resident(seg_sum_reg<T, KP>, 0);
-  seg_sum_reg<T, KP><<<blocks_for(n, sms, per_sm), kThreads, 0, s>>>(
-      d, seg, n, vbeg, nvec, k, out);
+  static const int per_sm = pt::resident(seg_sum_reg<T, KP>, kThreads, 0);
+  const int blocks = pt::row_blocks(n, kThreads, sms, per_sm);
+  seg_sum_reg<T, KP><<<blocks, kThreads, 0, s>>>(d, seg, n, vbeg, nvec, k,
+                                                out);
 }
 
 template <typename T, int KP>
@@ -285,20 +184,18 @@ void launch_lanes(const T* d, const int* seg, long long n, long long vbeg,
   static const int per_sm = [] {
     cudaFuncSetAttribute(seg_sum_lanes<T, KP>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    return resident(seg_sum_lanes<T, KP>, kSmem);
+    return pt::resident(seg_sum_lanes<T, KP>, kThreads, kSmem);
   }();
-  seg_sum_lanes<T, KP><<<blocks_for(n, sms, per_sm), kThreads, kSmem, s>>>(
-      d, seg, n, vbeg, nvec, k, out);
+  const int blocks = pt::row_blocks(n, kThreads, sms, per_sm);
+  seg_sum_lanes<T, KP><<<blocks, kThreads, kSmem, s>>>(d, seg, n, vbeg, nvec,
+                                                      k, out);
 }
 
 template <typename T>
 void launch(const void* data, const int* seg, long long n, int k,
             long long vbeg, long long nvec, u64* out, cudaStream_t s) {
   const T* d = static_cast<const T*>(data);
-  int dev = 0;
-  int sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int sms = pt::sm_count();
   if (k <= kLaneMaxK) {
     if (k == 1) {
       launch_reg<T, 1>(d, seg, n, vbeg, nvec, k, out, sms, s);
@@ -317,13 +214,15 @@ void launch(const void* data, const int* seg, long long n, int k,
     int copies = kWarps;
     while (copies > 1 && k * 8 * copies > kSharedBytes) copies >>= 1;
     const int smem = k * 8 * copies;
-    seg_sum_shared<T>
-        <<<blocks_for(n, sms, resident(seg_sum_shared<T>, smem)), kThreads,
-           smem, s>>>(d, seg, n, vbeg, nvec, k, copies, out);
+    const int blocks = pt::row_blocks(
+        n, kThreads, sms, pt::resident(seg_sum_shared<T>, kThreads, smem));
+    seg_sum_shared<T><<<blocks, kThreads, smem, s>>>(d, seg, n, vbeg, nvec, k,
+                                                     copies, out);
   } else {
-    static const int per_sm = resident(seg_sum_global<T>, 0);
-    seg_sum_global<T><<<blocks_for(n, sms, per_sm), kThreads, 0, s>>>(
-        d, seg, n, vbeg, nvec, k, out);
+    static const int per_sm = pt::resident(seg_sum_global<T>, kThreads, 0);
+    const int blocks = pt::row_blocks(n, kThreads, sms, per_sm);
+    seg_sum_global<T><<<blocks, kThreads, 0, s>>>(d, seg, n, vbeg, nvec, k,
+                                                  out);
   }
 }
 

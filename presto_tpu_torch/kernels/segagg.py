@@ -50,7 +50,8 @@ def segment_sum_torch(data, segment_ids, num_segments: int):
 
 
 def vector_span(data, segment_ids) -> tuple[int, int]:
-    """The rows the ``segment_sum`` kernel reads four at a time:
+    """The rows the ``segment_sum`` and ``segment_max``/``min`` kernels
+    read four at a time:
     (vbeg, nvec) for rows [vbeg, vbeg + 4 * nvec). vbeg skips the rows
     before the first 16-byte boundary of the ids; the data must then be
     aligned at row vbeg to its four-row word (4 * itemsize bytes, at
@@ -138,9 +139,10 @@ def _segment_cmp_cuda(data, segment_ids, num_segments: int,
     n = data.shape[0]
     if n and k:
         lib = B.LIBRARY.get()
+        vbeg, nvec = vector_span(data, segment_ids)
         rc = lib.pt_segment_cmp(data.data_ptr(), _DTYPE_CODES[data.dtype],
                                 segment_ids.data_ptr(), n, k,
-                                int(is_max), out.data_ptr(),
+                                int(is_max), vbeg, nvec, out.data_ptr(),
                                 B.stream_handle(data.device))
         B.check(rc, name)
         B.LAUNCHES.add(name)

@@ -26,6 +26,7 @@ import hashlib
 import numpy as np
 import torch
 
+from presto_tpu_torch.exec import hostsync as HS
 from presto_tpu_torch.ops.sizes import next_pow2  # noqa: F401 (re-export)
 
 INT64_MIN = -(1 << 63)
@@ -126,8 +127,8 @@ class DictionaryHashes:
         hit = self._dev.get(key)
         if hit is not None and hit[0] is dictionary:
             return hit[1]
-        lut = torch.from_numpy(
-            self.host(dictionary).view(np.int64).copy()).to(device)
+        lut = HS.upload(self.host(dictionary).view(np.int64), device,
+                        "dictionary-hashes")
         if len(self._dev) > self.limit:
             self._dev.clear()
         self._dev[key] = (dictionary, lut)

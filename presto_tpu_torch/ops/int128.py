@@ -121,7 +121,7 @@ def mul(a, b):
 
 
 def _const(k: int, like: torch.Tensor):
-    return torch.tensor(k, dtype=torch.int64, device=like.device)
+    return torch.full((), k, dtype=torch.int64, device=like.device)
 
 
 def mul_small(a, k: int):

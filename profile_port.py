@@ -34,14 +34,19 @@ from chip_smoke import QUERIES
 _KERNEL_FUNCTIONS = {
     "seg_sum_reg": "segment_sum", "seg_sum_lanes": "segment_sum",
     "seg_sum_shared": "segment_sum",
-    "seg_sum_global": "segment_sum", "seg_cmp_one": "segment_cmp",
+    "seg_sum_global": "segment_sum", "seg_cmp_reg": "segment_cmp",
+    "seg_cmp_lanes": "segment_cmp",
     "seg_cmp_shared": "segment_cmp", "seg_cmp_global": "segment_cmp",
     "build_table_kernel": "build_table", "part_count_kernel": "build_table",
     "part_scatter_kernel": "build_table", "build_part_kernel": "build_table",
     "probe_table_kernel": "probe_table",
     "multijoin_walk_kernel": "multijoin_walk",
-    "count_kernel": "filter_compact", "scan_kernel": "filter_compact",
-    "scatter_kernel": "filter_compact"}
+    "compact_kernel": "filter_compact",
+    "zero_tail_kernel": "filter_compact",
+    # the first design's functions, so that this script still charges
+    # them when it profiles an older checkout's package
+    "seg_cmp_one": "segment_cmp", "count_kernel": "filter_compact",
+    "scan_kernel": "filter_compact", "scatter_kernel": "filter_compact"}
 _FUNCTION = re.compile(r"\(anonymous namespace\)::(\w+)")
 
 

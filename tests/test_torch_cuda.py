@@ -25,6 +25,8 @@ from presto_tpu_torch.kernels import multijoin as MJ
 from presto_tpu_torch.kernels import segagg as SA
 from presto_tpu_torch.ops import hash as H
 
+import torch_kernel_cases as KC
+
 pytestmark = pytest.mark.cuda
 
 
@@ -132,6 +134,54 @@ def test_segment_max_min_match_plain(cuda, dtype, k, is_max):
     assert got.dtype == want.dtype and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("view", ["aligned", "offset"])
+@pytest.mark.parametrize("is_max", [True, False])
+@pytest.mark.parametrize("k", KC.CMP_BOUNDARY_KS)
+@pytest.mark.parametrize("dname", list(KC.CMP_DTYPES))
+def test_segment_cmp_at_kernel_boundaries(cuda, dname, k, is_max, view):
+    # the inputs of the CPU test that holds the plain version to the
+    # Pallas kernel, at an odd 200 001 rows; "offset" views data and
+    # ids one row in (a scalar head, then vector loads)
+    x, ids = KC.cmp_boundary_inputs(KC.CMP_DTYPES[dname], 200_001, k,
+                                    seed=k + 7 * is_max)
+    tx, tids = _t(x, cuda), _t(ids, cuda)
+    if view == "offset":
+        tx, tids = tx[1:], tids[1:]
+        assert SA.vector_span(tx, tids)[0] > 0
+    plain = SA.segment_max_torch if is_max else SA.segment_min_torch
+    kernel = SA.segment_max_cuda if is_max else SA.segment_min_cuda
+    want = plain(tx, tids, k)
+    got = kernel(tx, tids, k)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("is_max", [True, False])
+@pytest.mark.parametrize("order", ["ascending", "descending"])
+def test_segment_cmp_ordered_values(cuda, order, is_max):
+    # k = 1 << 20 by global atomics: rows whose values rise (or fall)
+    # beat every partial before them, so no read skips an atomic; the
+    # values reach +-2^63 at the two ends
+    n, k = 3_000_001, 1 << 20
+    rng = np.random.default_rng(17)
+    # evenly spaced over the whole int64 range (the sign bit flipped
+    # maps the unsigned order onto the signed one)
+    step = np.uint64(((1 << 64) - 1) // (n - 1))
+    x = ((np.arange(n, dtype=np.uint64) * step)
+         ^ np.uint64(1 << 63)).view(np.int64)
+    x[-1] = (1 << 63) - 1
+    if order == "descending":
+        x = x[::-1].copy()
+    ids = rng.integers(-1, k + 1, n).astype(np.int32)
+    tx, tids = _t(x, cuda), _t(ids, cuda)
+    plain = SA.segment_max_torch if is_max else SA.segment_min_torch
+    kernel = SA.segment_max_cuda if is_max else SA.segment_min_cuda
+    want = plain(tx, tids, k)
+    got = kernel(tx, tids, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("capacity", [1 << 12, 1 << 17])
 def test_filter_compact_matches_plain(cuda, capacity):
     # 1-D int64, float64 and bool columns and a [n, 2] long-decimal
@@ -153,6 +203,120 @@ def test_filter_compact_matches_plain(cuda, capacity):
     for name in arrays:
         assert got[name].shape == want[name].shape
         assert torch.equal(got[name][:live_rows], want[name][:live_rows])
+
+
+@pytest.mark.parametrize("view", ["aligned", "offset"])
+@pytest.mark.parametrize("case", KC.COMPACT_EDGES)
+def test_filter_compact_at_the_edges(cuda, case, view):
+    # the CPU test's edges at 300 007 rows (19 tiles of 16 384); "offset"
+    # views the mask and the columns one row in (the mask's first tile
+    # then starts before it)
+    live, arrays, capacity = KC.compact_edge_inputs(case, 300_007, seed=5)
+    tl = _t(live, cuda)
+    ta = {k: _t(v, cuda) for k, v in arrays.items()}
+    if view == "offset":
+        tl = tl[1:]
+        ta = {k: a[1:] for k, a in ta.items()}
+    want = CP.filter_compact_torch(tl, ta, capacity)
+    before = B.LAUNCHES.snapshot()["filter_compact"]
+    got = CP.filter_compact_cuda(tl, ta, capacity)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES.snapshot()["filter_compact"] == before + 1
+    rows = min(int(tl.sum()), capacity)
+    for k in ta:
+        assert got[k].shape == want[k].shape and got[k].dtype == ta[k].dtype
+        assert torch.equal(got[k][:rows], want[k][:rows])
+        assert not got[k][rows:].any()  # the tail zeroed
+
+
+@pytest.mark.parametrize("view", ["aligned", "offset"])
+def test_filter_compact_across_many_tiles(cuda, view):
+    # 9 000 011 rows are 550 tiles, so a tile's look-back can pass
+    # several rounds of 32 status words; runs of dead, sparse, dense and
+    # all-live tiles; the capacity cuts the live rows short
+    rng = np.random.default_rng(23)
+    n = 9_000_011
+    density = np.repeat(rng.choice([0.0, 0.01, 0.5, 1.0], n // 50_000 + 1),
+                        50_000)[:n]
+    live = _t(rng.random(n) < density, cuda)
+    arrays = {"i": _t(rng.integers(-(1 << 62), 1 << 62, n), cuda),
+              "s": _t(rng.integers(0, 1 << 15, n).astype(np.int16), cuda),
+              "d": _t(rng.integers(-(1 << 62), 1 << 62, (n, 2)), cuda)}
+    if view == "offset":
+        live = live[1:]
+        arrays = {k: a[1:] for k, a in arrays.items()}
+    nlive = int(live.sum())
+    for capacity in (nlive, nlive - 12_345):
+        want = CP.filter_compact_torch(live, arrays, capacity)
+        got = CP.filter_compact_cuda(live, arrays, capacity)
+        torch.cuda.synchronize()
+        rows = min(nlive, capacity)
+        for k in arrays:
+            assert torch.equal(got[k][:rows], want[k][:rows])
+            assert not got[k][rows:].any()
+
+
+_NO_SYNC_CASES = ["compact", "compact_many_columns", "dictionary_predicate",
+                  "dictionary_hashes", "literal", "decimal_rescale",
+                  "int128_constant"]
+
+
+def _no_sync_case(case: str, device):
+    """A closure that runs one upload site (or the compaction) on the
+    card, and the hostsync.UPLOADS site it counts against (None: it
+    uploads nothing)."""
+    from presto_tpu_torch.expr import compile as C
+    from presto_tpu_torch.expr import ir
+    from presto_tpu_torch.ops import int128 as I
+    if case.startswith("compact"):
+        live, arrays, cap = KC.compact_edge_inputs(
+            "many_columns" if case.endswith("columns") else
+            "live_past_capacity", 100_003, seed=2)
+        tl = _t(live, device)
+        ta = {k: _t(v, device) for k, v in arrays.items()}
+        return (lambda: CP.filter_compact_cuda(tl, ta, cap)), None
+    codes = _t(np.array([0, 3, 1, 4, 2, 3], dtype=np.int32), device)
+    if case == "dictionary_predicate":
+        v = Val(T.VARCHAR, codes, None, np.array(
+            ["AIR", "MAIL", "RAIL", "REG AIR", "SHIP"], dtype=object))
+        return (lambda: C._dict_predicate(
+            v, lambda s: np.char.find(s, "AIR") >= 0)), "dictionary-lut"
+    if case == "dictionary_hashes":
+        # a fresh dictionary each call: nothing of it is cached
+        return (lambda: H.hash_string_column(codes, np.array(
+            ["a", "b", "c", "d", "e"], dtype=object))), "dictionary-hashes"
+    if case == "literal":
+        comp = C.ExprCompiler({}, device)
+        return (lambda: comp.compile(ir.Literal(T.BIGINT, 42))), "literal"
+    d = I.from_i64(_t(np.arange(-500, 500, 7, dtype=np.int64) * 10 ** 12,
+                      device))
+    if case == "decimal_rescale":
+        return (lambda: C._rescale128(d, 25, 3)), None
+    return (lambda: I.mul_small(d, 10 ** 9)), None
+
+
+@pytest.mark.parametrize("case", _NO_SYNC_CASES)
+def test_uploads_add_no_stream_sync(cuda, case):
+    # the compaction (its descriptors by value, its outputs unzeroed)
+    # and every upload site of the execute path (pinned, non-blocking
+    # copies or device-side constants) never wait for the stream: torch
+    # raises on a synchronizing call in this mode
+    from presto_tpu_torch.exec import hostsync as HS
+    run, site = _no_sync_case(case, cuda)
+    run()  # the kernel build and the pinned allocator's first block
+    torch.cuda.synchronize()
+    before = HS.UPLOADS.by_site.get(site, 0)
+    total = HS.UPLOADS.total()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if site is None:
+        assert HS.UPLOADS.total() == total
+    else:
+        assert HS.UPLOADS.by_site[site] == before + 1
 
 
 def _lookup_inputs(device, nb, npr, key_range, seed=0):

@@ -166,3 +166,91 @@ def test_unported_features_raise(port):
         port.execute("select stddev(l_quantity) from lineitem")
     with pytest.raises(NotImplementedError, match="not ported"):
         port.execute("select upper(r_name) from region")
+
+
+# -- host-to-device uploads --------------------------------------------------
+
+
+def _run_upload_site(site: str):
+    """Drives one upload site of the port on CPU tensors; returns what
+    it made and the value the reference's counterpart makes."""
+    import jax.numpy as jnp
+
+    from presto_tpu.expr import compile as RC
+    from presto_tpu.ops import hash as RH
+    from presto_tpu_torch import types as PT
+    from presto_tpu_torch.expr import compile as PC
+    from presto_tpu_torch.expr import ir
+    from presto_tpu_torch.ops import hash as PH
+    # a fresh dictionary object, so no table of it is cached yet
+    dictionary = np.array(["AIR", "MAIL", "RAIL", "REG AIR", "SHIP"],
+                          dtype=object)
+    codes = np.array([0, 3, 1, 4, 2, 3], dtype=np.int32)
+    if site == "dictionary-lut":
+        def pred(s):
+            return np.char.find(s, "AIR") >= 0
+        got = PC._dict_predicate(
+            PC.Val(PT.VARCHAR, torch.from_numpy(codes), None, dictionary),
+            pred).data.numpy()
+        want = RC._dict_predicate(
+            RC.Val(RC.T.VARCHAR, jnp.asarray(codes), None, dictionary),
+            pred).data
+    elif site == "literal":
+        lit = ir.Literal(PT.DecimalType(12, 2), 123456)
+        got = PC.ExprCompiler({}, "cpu").compile(lit).data.numpy()
+        want = np.int64(123456)
+    elif site == "dictionary-hashes":
+        got = PH.hash_string_column(torch.from_numpy(codes),
+                                    dictionary).numpy()
+        want = np.asarray(RH.hash_string_column(jnp.asarray(codes),
+                                                dictionary)).view(np.int64)
+    else:  # scan-column
+        host = np.arange(7, dtype=np.int64) * 3
+        got = TorchEngine(device="cpu").device_array(host).numpy()
+        want = host
+    return got, np.asarray(want)
+
+
+@pytest.mark.parametrize("site", ["dictionary-lut", "literal",
+                                  "dictionary-hashes", "scan-column"])
+def test_upload_sites_go_through_hostsync(site):
+    # each host-to-device copy of the execute path is one counted
+    # hostsync.upload (pinned and non-blocking on the card), and gives
+    # the reference's values
+    from presto_tpu_torch.exec import hostsync as HS
+    before = dict(HS.UPLOADS.by_site)
+    syncs = HS.SYNCS.total()
+    got, want = _run_upload_site(site)
+    np.testing.assert_array_equal(got, want)
+    assert HS.UPLOADS.by_site.get(site, 0) == before.get(site, 0) + 1
+    assert {s: c for s, c in HS.UPLOADS.by_site.items()
+            if s != site} == {s: c for s, c in before.items() if s != site}
+    assert HS.SYNCS.total() == syncs
+
+
+@pytest.mark.parametrize("case", ["decimal_rescale", "int128_constant"])
+def test_scalar_constants_upload_nothing(case):
+    # the decimal rescale's divisor and int128's small multiplier are
+    # made on the tensor's device (torch.full): no upload, no copy
+    from presto_tpu_torch.exec import hostsync as HS
+    from presto_tpu_torch.expr import compile as PC
+    from presto_tpu_torch.ops import int128 as I
+    vals = [123456789012345678901234567, -98765432109876543210987,
+            5, -5, 0]
+    # the low limb's bits as int64, the signed high limb
+    low = np.array([v & ((1 << 64) - 1) for v in vals], dtype=np.uint64)
+    limbs = I.pack(torch.from_numpy(low.view(np.int64)),
+                   torch.tensor([v >> 64 for v in vals], dtype=torch.int64))
+    before = HS.UPLOADS.total()
+    if case == "decimal_rescale":
+        got = PC._rescale128(limbs, 25, 3)
+        # HALF_UP: half away from zero
+        want = [(abs(v) + 5 * 10 ** 21) // 10 ** 22 * (1 if v >= 0 else -1)
+                for v in vals]
+    else:
+        got = I.mul_small(limbs, 10 ** 9)
+        want = [v * 10 ** 9 for v in vals]
+    assert HS.UPLOADS.total() == before
+    lo = got[:, 0].numpy().astype(np.uint64).astype(object)
+    hi = got[:, 1].numpy().astype(object)
+    assert [int(h) * (1 << 64) + int(low) for low, h in zip(lo, hi)] == want

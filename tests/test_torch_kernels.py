@@ -33,6 +33,8 @@ from presto_tpu_torch.kernels import hashjoin as PHJ
 from presto_tpu_torch.kernels import segagg as PSA
 from presto_tpu_torch.ops import hash as PH
 
+import torch_kernel_cases as KC
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -261,6 +263,29 @@ def test_segment_max_min_float_columns_stay_plain():
     np.testing.assert_array_equal(got, want)  # -inf in empty segments
 
 
+@pytest.mark.parametrize("is_max", [True, False])
+@pytest.mark.parametrize("k", KC.CMP_BOUNDARY_KS)
+@pytest.mark.parametrize("dname", list(KC.CMP_DTYPES))
+def test_segment_max_min_plain_matches_pallas_at_kernel_boundaries(
+        dname, k, is_max):
+    # the segment_max/min kernel's routing edges (csrc/segment_cmp.cu):
+    # an odd row count, ids -1, k and KP - 1, an empty segment, and the
+    # same fold over an offset-1 view of the data and ids
+    x, ids = KC.cmp_boundary_inputs(KC.CMP_DTYPES[dname], 1001, k,
+                                    seed=k + 7 * is_max)
+    with RK.use_backend("pallas"):
+        pallas = np.asarray(RSA._cmp_pallas(
+            jnp.asarray(x), jnp.asarray(ids), k, is_max))
+        pallas_tail = np.asarray(RSA._cmp_pallas(
+            jnp.asarray(x[1:]), jnp.asarray(ids[1:]), k, is_max))
+    got = _plain_cmp(x, ids, k, is_max)
+    np.testing.assert_array_equal(got, pallas)
+    assert got.dtype == pallas.dtype == x.dtype
+    entry = PSA.segment_max_cuda if is_max else PSA.segment_min_cuda
+    tail = entry(_t(x)[1:], _t(ids)[1:], k).numpy()
+    np.testing.assert_array_equal(tail, pallas_tail)
+
+
 # -- filter compaction ------------------------------------------------------
 
 
@@ -299,6 +324,57 @@ def test_filter_compact_plain_matches_pallas_and_xla(capacity):
                                           np.asarray(other[k])[:rows], k)
         np.testing.assert_array_equal(entry[k].numpy(), got[k].numpy())
         assert not got[k].numpy()[rows:].any()  # pad rows zero
+
+
+@pytest.mark.parametrize("case", KC.COMPACT_EDGES)
+def test_filter_compact_plain_matches_pallas_at_the_edges(case):
+    # none live, all live, a live count at the capacity and one past
+    # it, rows of 1 to 24 bytes, and more columns than one launch of
+    # the kernel takes
+    live, arrays, capacity = KC.compact_edge_inputs(case, 1001, seed=5)
+    jl = jnp.asarray(live)
+    ja = {k: jnp.asarray(v) for k, v in arrays.items()}
+    with RK.use_backend("pallas"):
+        pallas = RCP.filter_compact_pallas(jl, ja, capacity)
+    xla = RCP.filter_compact_xla(jl, ja, capacity)
+    ta = {k: _t(v) for k, v in arrays.items()}
+    got = PCP.filter_compact_torch(_t(live), ta, capacity)
+    entry = PCP.filter_compact_cuda(_t(live), ta, capacity)
+    rows = min(int(live.sum()), capacity)
+    for k in arrays:
+        assert got[k].shape == tuple(np.asarray(xla[k]).shape)
+        assert got[k].dtype == ta[k].dtype
+        for other in (pallas, xla):  # live rows only (R3)
+            np.testing.assert_array_equal(got[k].numpy()[:rows],
+                                          np.asarray(other[k])[:rows], k)
+        np.testing.assert_array_equal(entry[k].numpy(), got[k].numpy())
+        assert not got[k].numpy()[rows:].any()  # pad rows zero
+
+
+def test_compact_descriptor_layout():
+    # the compaction's kernel parameter, packed on the host with no
+    # library loaded: the kernel's struct layout (776 bytes, three words
+    # a column), at most 32 columns a struct, a source and an output
+    # address and the row bytes per column
+    from presto_tpu_torch.kernels import build as B
+    assert B.compact_layout() == (32, 776, 0, 8, 24, 0, 8, 16)
+    assert [f for f, _t in B.CompactCol._fields_] == ["src", "dst",
+                                                       "row_bytes"]
+    live, arrays, cap = KC.compact_edge_inputs("many_columns", 64, seed=1)
+    ta = {k: _t(v) for k, v in arrays.items()}
+    out = {k: torch.empty((cap,) + tuple(a.shape[1:]), dtype=a.dtype)
+           for k, a in ta.items()}
+    descs = PCP.descriptors(ta, out)
+    assert [d.ncols for d in descs] == [32, 8]
+    cols = [c for d in descs for c in d.cols[:d.ncols]]
+    assert len(cols) == len(ta) == 40
+    for c, (k, a) in zip(cols, ta.items()):
+        assert c.src == a.data_ptr() and c.dst == out[k].data_ptr()
+        assert c.row_bytes == a.element_size() * (a.shape[1] if a.ndim == 2
+                                                  else 1)
+    assert {c.row_bytes for c in cols} == {1, 2, 4, 8, 16, 24}
+    assert all(c.src is None for c in descs[1].cols[8:])
+    assert B.LIBRARY._lib is None
 
 
 def test_compact_dtable_matches_reference():

@@ -1,6 +1,7 @@
 """The port's measurement scripts, on the CPU: which hand-written kernel
 ``profile_port.py --kernels`` charges a profiled CUDA function to, the
-names templated kernels included, and its per-wrapper share."""
+names templated kernels included, and its per-wrapper share; and the
+keys ``kernel_ab.py`` gives each timed case."""
 
 import sys
 from pathlib import Path
@@ -39,6 +40,24 @@ def profile_port():
     ("void (anonymous namespace)::seg_cmp_global<int, false>(int const*)",
      "segment_min"),
     ("void (anonymous namespace)::scatter_kernel(int)", "filter_compact"),
+    ("void (anonymous namespace)::seg_cmp_reg<long long, 8, true>(long "
+     "long const*, int const*, long long, long long, long long, int, long "
+     "long, long long*)", "segment_max"),
+    ("void (anonymous namespace)::seg_cmp_reg<int, 1, false>(int const*)",
+     "segment_min"),
+    ("void (anonymous namespace)::seg_cmp_lanes<short, 32, true>(short "
+     "const*)", "segment_max"),
+    ("void (anonymous namespace)::seg_cmp_lanes<int, 16, false>(int const*)",
+     "segment_min"),
+    ("void (anonymous namespace)::seg_cmp_shared<long long, false>(long "
+     "long const*)", "segment_min"),
+    ("void (anonymous namespace)::compact_kernel<true>(bool const*, long "
+     "long, pt::CompactDesc, long long, long long, unsigned long long*)",
+     "filter_compact"),
+    ("void (anonymous namespace)::compact_kernel<false>(bool const*)",
+     "filter_compact"),
+    ("void (anonymous namespace)::zero_tail_kernel(pt::CompactDesc, long "
+     "long, unsigned long long const*)", "filter_compact"),
     ("void at::native::vectorized_elementwise_kernel<4>(int)", None),
 ])
 def test_profile_port_charges_each_kernel(profile_port, event, wrapper):
@@ -73,3 +92,23 @@ def test_profile_port_kernel_share_charges_each_wrapper(profile_port):
         "multijoin_walk_kernel": 2.0}
     assert share["probe_table"]["ms"] == 0.0
     assert set(share) == {"multijoin_walk", "build_table", "probe_table"}
+
+
+@pytest.mark.parametrize("name,case,key", [
+    ("segment_max", {"case": "k=6 int32", "k": 6, "ms": 1.0},
+     "segment_max k=6 int32"),
+    ("segment_min", {"case": "k=1048576 sorted", "k": 1 << 20},
+     "segment_min k=1048576 sorted"),
+    ("segment_sum", {"k": 32, "ms": 1.0}, "segment_sum k=32"),
+    ("filter_compact", {"ms": 1.0, "gather_floor_ms": 0.5},
+     "filter_compact"),
+])
+def test_kernel_ab_case_keys(name, case, key):
+    # every timed case of the kernel phase has a key of its own, so the
+    # int32 and sorted cases of one k do not overwrite each other
+    sys.path.insert(0, str(REPO))
+    try:
+        import kernel_ab
+    finally:
+        sys.path.remove(str(REPO))
+    assert kernel_ab.case_key(name, case) == key
