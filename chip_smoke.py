@@ -36,10 +36,27 @@ Phases (any failure exits non-zero before the result line):
    rows must be identical, and Q1/Q6 (and Q11's row count, which is
    0 at SF10) are checked against an independent numpy computation
    over the generator's arrays.
+4. TPC-DS: the TPC-H engine and its resident columns are let go, then
+   the port's TPC-DS generator makes scale 10 (28.8M store_sales rows,
+   about 66M in all) and the 101 queries of tests/test_tpcds.py run as
+   in phase 3: a first cuda pass that uploads the columns, a timed
+   cuda pass between a reset and a read of the launch counts, then
+   kernel_backend=torch; rows identical, the kernel pinned for a query
+   in ``TPCDS_QUERY_KERNELS`` run, no query empty unless numpy finds no
+   row that could answer it (``EMPTY_CHECKS``), and Q96's count and
+   Q55's brand sums equal a numpy computation over the generator's
+   arrays. A query that does not fit the card (``TPCDS_OVER_MEMORY``,
+   with its blocker) runs last and must run out of memory.
 
-The queries are the repository's TPC-H texts (tests/tpch_queries.py).
-The last lines are the card, a JSON summary of the kernels (each with
-the PR that last redesigned it, ``redesigned_in``) and
+    python3 chip_smoke.py --phases kernels,tpch,tpcds   # the default
+
+runs the named phases only (a shorter call while a phase is worked on;
+the summary line needs all three).
+
+The queries are the repository's TPC-H texts (tests/tpch_queries.py)
+and TPC-DS texts (tests/test_tpcds.py). The last lines are the card, a
+JSON summary of the kernels (each with the PR that last redesigned it,
+``redesigned_in``, and its launches summed over phases 3 and 4) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -47,6 +64,7 @@ from __future__ import annotations
 
 import argparse
 import decimal
+import gc
 import json
 import subprocess
 import sys
@@ -93,6 +111,26 @@ QUERY_KERNELS = {"q01": "cuda:agg_sum", "q06": "cuda:agg_sum",
                  "lineitem_partsupp": "cuda:join_lookup",
                  "lineitem_extrema": "cuda:agg_min",
                  "cross_join": "cuda:compact"}
+
+
+# the kernel each TPC-DS query must run on the card at scale 10 (one
+# query, at least, for each kernel the sweep launches; no query of the
+# sweep reaches segment_min or filter_compact)
+TPCDS_QUERY_KERNELS = {"q96": "cuda:agg_sum", "q42": "cuda:join_lookup",
+                       "q07": "cuda:multijoin", "q23": "cuda:agg_max"}
+# queries whose answer does not fit the card at scale 10, each with its
+# blocker (ROADMAP Queue 3): the phase runs them on both backends last
+# and requires the out-of-memory error, so that one that starts to fit
+# is moved back into the sweep
+TPCDS_OVER_MEMORY = {
+    "q72": "its WHERE conjuncts on the dimensions stay above the LEFT "
+           "joins, so catalog_sales (14.4M rows) expands through "
+           "inventory on the item alone, about 626M rows (14.4M x 7.83M "
+           "inventory rows / 180k items), before any "
+           "filter (needs segmented execution, ROADMAP item 3f)",
+}
+TPCDS_SCALE = 10.0
+TPCDS_SEED = 20030527  # the connector's default, as tests/test_tpcds.py
 
 
 def log(msg: str) -> None:
@@ -547,13 +585,60 @@ def check_q11(conn, got) -> None:
         raise AssertionError(f"Q11 rows {len(got)} != numpy {over}")
 
 
-def query_phase(scale: float, seed: int) -> tuple[dict, dict]:
+def sweep(engine, queries: dict[str, str]):
+    """The cuda pass that uploads the columns (uncounted), the timed
+    cuda pass between a reset and a read of the launch counts, and the
+    plain pass: (rows, secs, notes, launches, plain rows, plain secs,
+    plain notes)."""
+    from presto_tpu_torch.kernels import build as B
+    t = time.perf_counter()
+    run_queries(engine, queries, "cuda")
+    log(f"first pass (column upload included): "
+        f"{time.perf_counter() - t:.1f} s")
+    B.LAUNCHES.reset()
+    rows, secs, notes = run_queries(engine, queries, "cuda")
+    launches = B.LAUNCHES.snapshot()
+    return (rows, secs, notes, launches,
+            *run_queries(engine, queries, "torch"))
+
+
+def run_queries(engine, queries: dict[str, str],
+                backend: str) -> tuple[dict, dict, dict]:
+    """Each query once on ``backend``: rows, wall seconds (a device
+    synchronize on either side) and notes (kernels, host syncs,
+    uploads, capacity rungs, peak device memory)."""
     import torch
 
+    from presto_tpu_torch.exec import hostsync as HS
+    engine.session.set("kernel_backend", backend)
+    rows, secs, notes = {}, {}, {}
+    for q, sql in queries.items():
+        passes0 = HS.SYNCS.by_site.get("ok-ladder", 0)
+        syncs0 = HS.SYNCS.total()
+        uploads0 = HS.UPLOADS.total()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        rows[q] = engine.execute(sql)
+        torch.cuda.synchronize()
+        secs[q] = time.perf_counter() - t
+        notes[q] = {
+            "kernels": sorted({tag for tags in
+                               engine.last_kernel_notes.values()
+                               for tag in tags}),
+            "host_syncs": HS.SYNCS.total() - syncs0,
+            # pinned, non-blocking host-to-device copies
+            "uploads": HS.UPLOADS.total() - uploads0,
+            "ok_ladder_syncs": HS.SYNCS.by_site.get("ok-ladder", 0)
+            - passes0,
+            # resident scan columns included
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return rows, secs, notes
+
+
+def query_phase(scale: float, seed: int) -> tuple[dict, dict]:
     from presto_tpu_torch import Engine
     from presto_tpu_torch.connectors.tpch import TpchConnector
-    from presto_tpu_torch.exec import hostsync as HS
-    from presto_tpu_torch.kernels import build as B
 
     t0 = time.perf_counter()
     conn = TpchConnector(scale=scale, seed=seed)
@@ -563,41 +648,8 @@ def query_phase(scale: float, seed: int) -> tuple[dict, dict]:
         f"{time.perf_counter() - t0:.1f} s")
     engine = Engine()
     engine.register_catalog("tpch", conn)
-
-    def run(backend: str) -> tuple[dict, dict, dict]:
-        engine.session.set("kernel_backend", backend)
-        rows, secs, notes = {}, {}, {}
-        for q, sql in QUERIES.items():
-            passes0 = HS.SYNCS.by_site.get("ok-ladder", 0)
-            syncs0 = HS.SYNCS.total()
-            uploads0 = HS.UPLOADS.total()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t = time.perf_counter()
-            rows[q] = engine.execute(sql)
-            torch.cuda.synchronize()
-            secs[q] = time.perf_counter() - t
-            notes[q] = {
-                "kernels": sorted({tag for tags in
-                                   engine.last_kernel_notes.values()
-                                   for tag in tags}),
-                "host_syncs": HS.SYNCS.total() - syncs0,
-                # pinned, non-blocking host-to-device copies
-                "uploads": HS.UPLOADS.total() - uploads0,
-                "ok_ladder_syncs": HS.SYNCS.by_site.get("ok-ladder", 0)
-                - passes0,
-                # resident scan columns included
-                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-        return rows, secs, notes
-
-    t = time.perf_counter()
-    run("cuda")  # uploads the scan columns once; not counted
-    log(f"first pass (column upload included): "
-        f"{time.perf_counter() - t:.1f} s")
-    B.LAUNCHES.reset()
-    rows, secs, notes = run("cuda")
-    launches = B.LAUNCHES.snapshot()
-    plain_rows, plain_secs, plain_notes = run("torch")
+    (rows, secs, notes, launches, plain_rows, plain_secs,
+     plain_notes) = sweep(engine, QUERIES)
     lineitem_rows = conn.table("lineitem").nrows
     queries = {}
     for q in QUERIES:
@@ -624,11 +676,324 @@ def query_phase(scale: float, seed: int) -> tuple[dict, dict]:
     return launches, queries
 
 
+# -- phase 4: TPC-DS at scale 10 ---------------------------------------------
+
+
+def tpcds_queries() -> dict[str, str]:
+    """The 101 texts of tests/test_tpcds.py, read from its ``QUERIES``
+    literal: the module itself imports presto_tpu, which the port's
+    runs must not."""
+    import ast
+    path = Path(__file__).resolve().parent / "tests" / "test_tpcds.py"
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "QUERIES"
+                for t in node.targets):
+            return dict(sorted(ast.literal_eval(node.value).items()))
+    raise RuntimeError(f"no QUERIES literal in {path}")
+
+
+def _host(conn, table: str, column: str):
+    """A generator column's values (strings decoded) and validity."""
+    col = conn.table(table).columns[column]
+    data = np.asarray(col.data)
+    if col.dictionary is not None:
+        data = np.asarray(col.dictionary, dtype=object)[data]
+    valid = (np.ones(len(data), bool) if col.valid is None
+             else np.asarray(col.valid))
+    return data, valid
+
+
+def _dim(conn, table: str, key: str, fk: np.ndarray, fk_valid, column):
+    """``column`` of dimension ``table`` at each foreign key (by its
+    unique surrogate ``key``), and whether the key was found."""
+    keys, kvalid = _host(conn, table, key)
+    order = np.argsort(keys, kind="stable")
+    pos = np.clip(np.searchsorted(keys[order], fk), 0, len(keys) - 1)
+    row = order[pos]
+    found = fk_valid & (keys[row] == fk) & kvalid[row]
+    vals, vvalid = _host(conn, table, column)
+    return vals[row], found & vvalid[row]
+
+
+def check_q96(conn, got) -> None:
+    """Q96's count recomputed with numpy over the generator's arrays."""
+    sold_time, tv = _host(conn, "store_sales", "ss_sold_time_sk")
+    hdemo, hv = _host(conn, "store_sales", "ss_hdemo_sk")
+    store, sv = _host(conn, "store_sales", "ss_store_sk")
+    hour, h_ok = _dim(conn, "time_dim", "t_time_sk", sold_time, tv,
+                      "t_hour")
+    minute, m_ok = _dim(conn, "time_dim", "t_time_sk", sold_time, tv,
+                        "t_minute")
+    dep, d_ok = _dim(conn, "household_demographics", "hd_demo_sk", hdemo,
+                     hv, "hd_dep_count")
+    name, n_ok = _dim(conn, "store", "s_store_sk", store, sv,
+                      "s_store_name")
+    m = (h_ok & m_ok & d_ok & n_ok & (hour == 20) & (minute >= 30)
+         & (dep == 7) & (name == "ese"))
+    if got != [(int(m.sum()),)]:
+        raise AssertionError(f"Q96 {got} != numpy {int(m.sum())}")
+
+
+def check_q55(conn, got) -> None:
+    """Q55's per-brand revenue of one month, recomputed with numpy:
+    the top 100 brands by revenue (ties by brand id), each with its
+    id, name and exact decimal sum."""
+    date, dv = _host(conn, "store_sales", "ss_sold_date_sk")
+    item, iv = _host(conn, "store_sales", "ss_item_sk")
+    price, pv = _host(conn, "store_sales", "ss_ext_sales_price")
+    moy, moy_ok = _dim(conn, "date_dim", "d_date_sk", date, dv, "d_moy")
+    year, y_ok = _dim(conn, "date_dim", "d_date_sk", date, dv, "d_year")
+    mgr, g_ok = _dim(conn, "item", "i_item_sk", item, iv, "i_manager_id")
+    bid, b_ok = _dim(conn, "item", "i_item_sk", item, iv, "i_brand_id")
+    brand, n_ok = _dim(conn, "item", "i_item_sk", item, iv, "i_brand")
+    m = (moy_ok & y_ok & g_ok & (moy == 11) & (year == 1999)
+         & (mgr == 28))
+    sums: dict[tuple, list] = {}
+    for k_id, k_ok, name, name_ok, cents, c_ok in zip(
+            bid[m], b_ok[m], brand[m], n_ok[m], price[m], pv[m]):
+        key = (int(k_id) if k_ok else None, name if name_ok else None)
+        acc = sums.setdefault(key, [0, 0])
+        if c_ok:
+            acc[0] += int(cents)
+            acc[1] += 1
+    want = sorted(
+        ((k[0], k[1], v[0] if v[1] else None) for k, v in sums.items()),
+        key=lambda r: (r[2] is None, -(r[2] or 0),
+                       r[0] is None, r[0] or 0))[:100]
+    # the revenue in cents, whether the engine returns it as a Decimal
+    # or a float
+    have = [(r[0], r[1], None if r[2] is None
+             else int(decimal.Decimal(str(r[2])).scaleb(2))) for r in got]
+    if have != want:
+        raise AssertionError(f"Q55 rows differ from numpy: {have[:3]} vs "
+                             f"{want[:3]}")
+    if not want:
+        raise AssertionError("Q55's month has no sales: pick another")
+
+
+# -- why a TPC-DS query may be empty: each function counts, with numpy over
+# the generator's arrays, the rows that could still produce an output row
+# (a superset); an empty answer is right only when the count is 0
+
+
+def _isin(conn, table: str, column: str, values) -> int:
+    data, valid = _host(conn, table, column)
+    return int((valid & np.isin(data, values)).sum())
+
+
+def _nulls(conn, table: str, column: str, where=None) -> int:
+    _data, valid = _host(conn, table, column)
+    return int((~valid if where is None else (~valid & where)).sum())
+
+
+def _date_parts(conn, table: str, column: str):
+    sk, ok = _host(conn, table, column)
+    year, y_ok = _dim(conn, "date_dim", "d_date_sk", sk, ok, "d_year")
+    moy, m_ok = _dim(conn, "date_dim", "d_date_sk", sk, ok, "d_moy")
+    return year, moy, y_ok & m_ok
+
+
+def _store_cs_chain(conn, ss_when, sr_when, cs_when) -> int:
+    """Q25/Q29's chain: store_sales rows (by sale date) returned (by
+    return date, matched on ticket, item and customer) by a customer who
+    bought the item from the catalog (by catalog sale date)."""
+    def triples(table, ticket, item, cust, when):
+        t, tv = _host(conn, table, ticket)
+        i, iv = _host(conn, table, item)
+        c, cv = _host(conn, table, cust)
+        ok = tv & iv & cv & when
+        return ((t[ok].astype(np.int64) << 38)
+                | (i[ok].astype(np.int64) << 20) | c[ok].astype(np.int64))
+    sold = triples("store_sales", "ss_ticket_number", "ss_item_sk",
+                   "ss_customer_sk", ss_when)
+    returned = triples("store_returns", "sr_ticket_number", "sr_item_sk",
+                       "sr_customer_sk", sr_when)
+    returned = returned[np.isin(returned, sold)]
+    pairs = returned & ((1 << 38) - 1)  # (item, customer)
+    i, iv = _host(conn, "catalog_sales", "cs_item_sk")
+    c, cv = _host(conn, "catalog_sales", "cs_bill_customer_sk")
+    ok = iv & cv & cs_when
+    bought = (i[ok].astype(np.int64) << 20) | c[ok].astype(np.int64)
+    return int(np.isin(pairs, bought).sum())
+
+
+def _q25(conn) -> int:
+    y1, m1, ok1 = _date_parts(conn, "store_sales", "ss_sold_date_sk")
+    y2, m2, ok2 = _date_parts(conn, "store_returns", "sr_returned_date_sk")
+    y3, m3, ok3 = _date_parts(conn, "catalog_sales", "cs_sold_date_sk")
+    return _store_cs_chain(
+        conn, ok1 & (m1 == 4) & (y1 == 2000),
+        ok2 & (m2 >= 4) & (m2 <= 10) & (y2 == 2000),
+        ok3 & (m3 >= 4) & (m3 <= 10) & (y3 == 2000))
+
+
+def _q29(conn) -> int:
+    y1, m1, ok1 = _date_parts(conn, "store_sales", "ss_sold_date_sk")
+    y2, m2, ok2 = _date_parts(conn, "store_returns", "sr_returned_date_sk")
+    y3, _m3, ok3 = _date_parts(conn, "catalog_sales", "cs_sold_date_sk")
+    return _store_cs_chain(
+        conn, ok1 & (m1 == 4) & (y1 == 1999),
+        ok2 & (m2 >= 4) & (m2 <= 7) & (y2 == 1999),
+        ok3 & np.isin(y3, [1999, 2000, 2001]))
+
+
+def _q34(conn) -> int:
+    # a (ticket, customer) group of 15 to 20 store_sales rows
+    t, tv = _host(conn, "store_sales", "ss_ticket_number")
+    c, cv = _host(conn, "store_sales", "ss_customer_sk")
+    ok = tv & cv
+    _keys, counts = np.unique((t[ok].astype(np.int64) << 21)
+                              | c[ok].astype(np.int64), return_counts=True)
+    return int(((counts >= 15) & (counts <= 20)).sum())
+
+
+def _q39(conn) -> int:
+    # a January (warehouse, item) group of 2001 whose quantity has a
+    # coefficient of variation over 1.5
+    year, moy, ok = _date_parts(conn, "inventory", "inv_date_sk")
+    w, wv = _host(conn, "inventory", "inv_warehouse_sk")
+    i, iv = _host(conn, "inventory", "inv_item_sk")
+    q, qv = _host(conn, "inventory", "inv_quantity_on_hand")
+    m = ok & wv & iv & qv & (year == 2001) & (moy == 1)
+    _keys, group = np.unique((w[m].astype(np.int64) << 32)
+                             | i[m].astype(np.int64), return_inverse=True)
+    x = q[m].astype(np.float64)
+    n = np.bincount(group)
+    mean = np.bincount(group, x) / n
+    var = (np.bincount(group, x * x) - n * mean * mean) / np.maximum(n - 1, 1)
+    cov = np.sqrt(np.maximum(var, 0)) / np.where(mean == 0, np.inf, mean)
+    return int(((n > 1) & (cov > 1.5)).sum())
+
+
+def _q44(conn) -> int:
+    # the HAVING threshold averages store 4's rows with a NULL address
+    store, sv = _host(conn, "store_sales", "ss_store_sk")
+    return _nulls(conn, "store_sales", "ss_addr_sk", sv & (store == 4))
+
+
+def _q49(conn) -> int:
+    # every branch keeps returns of more than 10000.00 only
+    return sum(int(((_host(conn, t, c)[0] > 1_000_000)
+                    & _host(conn, t, c)[1]).sum())
+               for t, c in (("web_returns", "wr_return_amt"),
+                            ("catalog_returns", "cr_return_amount"),
+                            ("store_returns", "sr_return_amt")))
+
+
+EMPTY_CHECKS = {
+    "q10": lambda conn: _isin(conn, "customer_address", "ca_county", [
+        "Rush County", "Toole County", "Jefferson County",
+        "Dona Ana County", "La Porte County"]),
+    "q24": lambda conn: _isin(conn, "item", "i_color", ["pale"]),
+    "q25": _q25,
+    "q29": _q29,
+    "q34": _q34,
+    "q39": _q39,
+    "q44": _q44,
+    "q49": _q49,
+    "q73": lambda conn: _isin(conn, "store", "s_county", [
+        "Williamson County", "Franklin Parish", "Bronx County",
+        "Orange County"]),
+    # every branch keeps rows with a NULL foreign key only
+    "q76": lambda conn: (_nulls(conn, "store_sales", "ss_store_sk")
+                         + _nulls(conn, "web_sales", "ws_ship_customer_sk")
+                         + _nulls(conn, "catalog_sales", "cs_ship_addr_sk")),
+}
+
+
+def tpcds_phase(scale: float, seed: int) -> dict:
+    """The 101 TPC-DS queries on both backends at ``scale``."""
+    from presto_tpu_torch import Engine
+    from presto_tpu_torch.connectors.tpcds import TpcdsConnector
+
+    queries = tpcds_queries()
+    t0 = time.perf_counter()
+    conn = TpcdsConnector(scale=scale, seed=seed)
+    for name in conn.table_names():
+        conn.table(name)
+    log(f"tpcds datagen scale={scale:g} seed={seed}: "
+        f"{time.perf_counter() - t0:.1f} s, store_sales "
+        f"{conn.table('store_sales').nrows} rows, "
+        f"{sum(conn.table(n).nrows for n in conn.table_names())} in all")
+    engine = Engine()
+    engine.register_catalog("tpcds", conn)
+    engine.session.catalog = "tpcds"
+    fits = {q: sql for q, sql in queries.items()
+            if q not in TPCDS_OVER_MEMORY}
+    (rows, secs, notes, launches, plain_rows, plain_secs,
+     plain_notes) = sweep(engine, fits)
+    # every query's faults, collected, then raised together
+    faults = []
+    for q in fits:
+        if rows[q] != plain_rows[q]:
+            faults.append(f"{q}: cuda and torch backends differ")
+        if not rows[q]:
+            if q not in EMPTY_CHECKS:
+                faults.append(f"{q}: no rows, and no numpy check of why")
+            elif EMPTY_CHECKS[q](conn):
+                faults.append(f"{q}: no rows, but numpy finds "
+                              f"{EMPTY_CHECKS[q](conn)} that could make one")
+            else:
+                log(f"tpcds {q}: no rows, and numpy finds none that could "
+                    "make one")
+        if q in TPCDS_QUERY_KERNELS and TPCDS_QUERY_KERNELS[q] not in \
+                notes[q]["kernels"]:
+            faults.append(f"{q} did not run {TPCDS_QUERY_KERNELS[q]}: "
+                          f"{notes[q]['kernels']}")
+        log("tpcds " + json.dumps({
+            "query": q, "rows": len(rows[q]), "s": secs[q],
+            "plain_s": plain_secs[q], **notes[q],
+            "plain_kernels": plain_notes[q]["kernels"]}))
+    log(f"tpcds cuda pass: {sum(secs.values()):.2f} s, plain pass: "
+        f"{sum(plain_secs.values()):.2f} s, peak "
+        f"{max(n['peak_gb'] for n in notes.values()):.2f} GB")
+    log("tpcds launches " + json.dumps(launches))
+    if faults:
+        raise AssertionError("TPC-DS faults:\n" + "\n".join(faults))
+    check_q96(conn, rows["q96"])
+    check_q55(conn, rows["q55"])
+    log("independent numpy checks of Q96 and Q55: ok")
+    for q, blocker in TPCDS_OVER_MEMORY.items():
+        require_over_memory(engine, q, queries[q], blocker)
+    return launches
+
+
+def require_over_memory(engine, q: str, sql: str, blocker: str) -> None:
+    """Run ``q`` on both backends and require the card's out-of-memory
+    error; the memory it held is released before the next run."""
+    import torch
+    for backend in ("cuda", "torch"):
+        engine.session.set("kernel_backend", backend)
+        torch.cuda.reset_peak_memory_stats()
+        fitted = True
+        try:
+            engine.execute(sql)
+        except torch.OutOfMemoryError:
+            fitted = False
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        gc.collect()
+        torch.cuda.empty_cache()
+        if fitted:
+            raise AssertionError(
+                f"{q} now fits on the card ({backend}, peak {peak:.2f} "
+                "GB): run it with the others, drop it from "
+                "TPCDS_OVER_MEMORY")
+        log("tpcds " + json.dumps({"query": q, "backend": backend,
+                                   "out_of_memory_at_gb": peak,
+                                   "blocker": blocker}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=10.0)
     ap.add_argument("--seed", type=int, default=19920101)
+    ap.add_argument("--phases", default="kernels,tpch,tpcds",
+                    help="comma-separated subset of kernels,tpch,tpcds")
     args = ap.parse_args()
+    phases = set(args.phases.split(","))
+    if not phases <= {"kernels", "tpch", "tpcds"}:
+        ap.error(f"unknown phase in {args.phases!r}")
 
     import torch
     if not torch.cuda.is_available():
@@ -644,12 +1009,28 @@ def main() -> int:
     log(f"kernel build: {B.LIBRARY.build_seconds:.1f} s ({B.LIBRARY.path})")
     dev = torch.device("cuda")
 
-    t = time.perf_counter()
-    kernels = kernel_phase(dev, args.seed)
-    log(f"kernel phase: {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    launches, _queries = query_phase(args.scale, args.seed)
-    log(f"query phase: {time.perf_counter() - t:.1f} s")
+    kernels, launches = {}, {}
+    if "kernels" in phases:
+        t = time.perf_counter()
+        kernels = kernel_phase(dev, args.seed)
+        log(f"kernel phase: {time.perf_counter() - t:.1f} s")
+    if "tpch" in phases:
+        t = time.perf_counter()
+        launches, _queries = query_phase(args.scale, args.seed)
+        del _queries
+        log(f"query phase: {time.perf_counter() - t:.1f} s")
+    if "tpcds" in phases:
+        # the TPC-H engine and its resident columns are gone by now
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        ds_launches = tpcds_phase(TPCDS_SCALE, TPCDS_SEED)
+        launches = {name: launches.get(name, 0) + ds_launches.get(name, 0)
+                    for name in KERNELS}
+        log(f"tpcds phase: {time.perf_counter() - t:.1f} s")
+    if phases != {"kernels", "tpch", "tpcds"}:
+        log(f"phases {sorted(phases)} passed; no summary without all three")
+        return 1
 
     summary = []
     for name, (source, replaces) in KERNELS.items():

@@ -8,6 +8,8 @@ columnar ``Table`` objects ready for device upload.
 
 from presto_tpu_torch.connectors.base import Connector, TableStats
 from presto_tpu_torch.connectors.tpch import TpchConnector
+from presto_tpu_torch.connectors.tpcds import TpcdsConnector
 from presto_tpu_torch.connectors.memory import MemoryConnector
 
-__all__ = ["Connector", "TableStats", "TpchConnector", "MemoryConnector"]
+__all__ = ["Connector", "TableStats", "TpchConnector", "TpcdsConnector",
+           "MemoryConnector"]

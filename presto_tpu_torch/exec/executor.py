@@ -14,9 +14,9 @@ and runs the plan again (the capacity retry ladder).
 Left out so far (ROADMAP): the AOT program cache, plan templates,
 block streaming, spill, grouped and segmented execution, dynamic
 filtering, per-node row statistics, and every plan node outside
-TableScan, Filter, Project, Aggregate, Join, MultiJoin, SemiJoin,
-CrossJoin, Distinct, Sort, TopN, Limit, Exchange and Output (each
-raises NotImplementedError).
+TableScan, Values, Filter, Project, Aggregate, Join, MultiJoin,
+SemiJoin, CrossJoin, Union, Window, MarkDistinct, Distinct, Sort,
+TopN, Limit, Exchange and Output (each raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -133,9 +133,16 @@ class PlanInterpreter:
         return (self.node_order.get(id(node), id(node)), kind)
 
     def _capacity(self, node, default: int, kind: str = "table",
-                  override: int | None = None) -> int:
+                  override: int | None = None,
+                  most: int | None = None) -> int:
         """Host retry override > session override > planner hint >
-        default, normalized to pow2."""
+        default, normalized to pow2. A planner hint is cut to ``most``:
+        the largest capacity the node's inputs can need (a hash or group
+        table twice its input rows), or for an expanding join's output
+        its first rung, twice its inputs' rows. The planner's estimates
+        compound over chained joins (output hints of 2^30 to 2^44 rows
+        and a 2^42-slot table for TPC-DS q57, q72 and q95 at scale 10);
+        a capacity that proves too small grows on the retry ladder."""
         cap = self.capacities.get(self._node_key(node, kind))
         if cap is None:
             if override:
@@ -144,6 +151,8 @@ class PlanInterpreter:
                 hint = getattr(node, "capacity" if kind == "table"
                                else "output_capacity", None)
                 cap = next_pow2(hint) if hint else default
+                if most is not None:
+                    cap = min(cap, most)
             else:
                 cap = default
         self.used_capacity[self._node_key(node, kind)] = cap
@@ -161,6 +170,23 @@ class PlanInterpreter:
                 for sym in node.assignments}
         return DTable(cols, scan.live, scan.nrows, self.device)
 
+    def _r_values(self, node: N.Values) -> DTable:
+        """Inline rows, put on the device through ``hostsync.upload``."""
+        from presto_tpu_torch.block import dictionary_encode
+        cols = {}
+        for i, sym in enumerate(node.symbols):
+            dtype = node.types[sym]
+            vals = [r[i] for r in node.rows]
+            if isinstance(dtype, T.VarcharType):
+                codes, d = dictionary_encode(np.array(vals, object))
+                cols[sym] = Val(dtype, HS.upload(codes, self.device,
+                                                 "values"), None, d)
+            else:
+                cols[sym] = Val(dtype, HS.upload(
+                    np.asarray(vals, dtype=dtype.physical_dtype),
+                    self.device, "values"))
+        return DTable(cols, None, len(node.rows), self.device)
+
     def _r_filter(self, node: N.Filter) -> DTable:
         return OP.apply_filter(self.run(node.source), node.predicate)
 
@@ -174,7 +200,8 @@ class PlanInterpreter:
         else:
             cap = self._capacity(
                 node, next_pow2(min(2 * src.n, 1 << 22)),
-                override=int(self.session.get("groupby_table_size") or 0))
+                override=int(self.session.get("groupby_table_size") or 0),
+                most=next_pow2(2 * src.n))
         out, ok = OP.apply_aggregate(src, node, cap)
         if node.group_keys:
             self._note_ok(node, ok)
@@ -183,13 +210,14 @@ class PlanInterpreter:
     def _r_join(self, node: N.Join) -> DTable:
         right = self.run(node.right)
         left = self.run(node.left)
-        cap = self._capacity(node, next_pow2(2 * right.n))
+        cap = self._capacity(node, next_pow2(2 * right.n),
+                             most=next_pow2(2 * right.n))
         if node.build_unique and node.join_type != N.JoinType.FULL:
             out, ok = OP.apply_join(left, right, node, cap)
             self._note_ok(node, ok)
             return out
-        out_cap = self._capacity(node, next_pow2(2 * (left.n + right.n)),
-                                 "out")
+        out_default = next_pow2(2 * (left.n + right.n))
+        out_cap = self._capacity(node, out_default, "out", most=out_default)
         out, o_ok = OP.apply_expand_join(left, right, node, out_cap)
         self._note_ok(node, o_ok, "out")
         return out
@@ -199,7 +227,7 @@ class PlanInterpreter:
         spine = self.run(node.spine)
         default = next_pow2(
             2 * max(max((b.n for b in builds), default=1), 1))
-        cap = self._capacity(node, default)
+        cap = self._capacity(node, default, most=default)
         out, ok = OP.apply_multi_join(spine, builds, node,
                                       growth=max(1, cap // default))
         self._note_ok(node, ok)
@@ -208,7 +236,8 @@ class PlanInterpreter:
     def _r_semijoin(self, node: N.SemiJoin) -> DTable:
         src = self.run(node.source)
         filt = self.run(node.filter_source)
-        cap = self._capacity(node, next_pow2(2 * filt.n))
+        cap = self._capacity(node, next_pow2(2 * filt.n),
+                             most=next_pow2(2 * filt.n))
         out, ok = OP.apply_semijoin(src, filt, node, cap)
         self._note_ok(node, ok)
         return out
@@ -240,9 +269,19 @@ class PlanInterpreter:
             self._note_ok(node, rok, "right")
         return OP.apply_cross_general(left, right)
 
+    def _r_union(self, node: N.Union) -> DTable:
+        return OP.apply_union([self.run(s) for s in node.inputs], node)
+
+    def _r_window(self, node: N.Window) -> DTable:
+        return OP.apply_window(self.run(node.source), node)
+
+    def _r_markdistinct(self, node: N.MarkDistinct) -> DTable:
+        return OP.apply_mark_distinct(self.run(node.source), node)
+
     def _r_distinct(self, node: N.Distinct) -> DTable:
         src = self.run(node.source)
-        cap = self._capacity(node, next_pow2(min(2 * src.n, 1 << 22)))
+        cap = self._capacity(node, next_pow2(min(2 * src.n, 1 << 22)),
+                             most=next_pow2(2 * src.n))
         out, ok = OP.apply_distinct(src, cap)
         self._note_ok(node, ok)
         return out

@@ -63,9 +63,11 @@ def upload(array, device, site: str) -> torch.Tensor:
     """A device tensor holding the host ``array``: on a CUDA device a
     pinned, non-blocking copy (the pinned buffer is held by PyTorch's
     host allocator until the copy has run); on the CPU the array itself
-    as a tensor. Counts one upload against ``site``."""
+    as a tensor. Counts one upload against ``site``. The tensor keeps
+    the array's shape: a 0-d array (a scalar literal) stays 0-d, so the
+    operators' scalar broadcasts see it as a scalar."""
     UPLOADS.inc(site)
-    host = torch.from_numpy(np.ascontiguousarray(array))
+    host = torch.from_numpy(np.require(array, requirements="C"))
     device = torch.device(device)
     if device.type != "cuda":
         return host

@@ -27,13 +27,15 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from presto_tpu_torch import kernels as K
 from presto_tpu_torch import types as T
+from presto_tpu_torch.exec import hostsync as HS
 from presto_tpu_torch.expr import aggregates as A
 from presto_tpu_torch.expr import ir
-from presto_tpu_torch.expr.compile import ExprCompiler, Val
+from presto_tpu_torch.expr.compile import ExprCompiler, Val, cast_val
 from presto_tpu_torch.kernels.multijoin import multijoin_torch, take
 from presto_tpu_torch.ops import hash as H
 from presto_tpu_torch.ops import segred
@@ -168,8 +170,12 @@ def _agg_call_inputs(c: ExprCompiler, dt: DTable, call, live):
     if call.arg is not None:
         av = c.compile(call.arg)
         weight = live if av.valid is None else (live & av.valid)
-        data = A.prepare_arg(call.fn, av.data, av.dtype)
         long = A.is_long_decimal(av.dtype)
+        if long and call.fn in A.VAR_FNS:
+            raise NotImplementedError(
+                f"{call.fn} over long decimals (precision > 18) is not "
+                "supported yet")
+        data = A.prepare_arg(call.fn, av.data, av.dtype)
         if long and data.ndim == 1:  # scalar long-decimal literal
             data = data.expand(dt.n, 2)
         if long and data.ndim == 2:
@@ -512,11 +518,24 @@ def apply_multi_join(spine: DTable, builds: list[DTable],
     """Fused multi-way INNER equi-join: one probe walk over the spine's
     static width (kernels/multijoin.py). Every build is unique (FK->PK)
     and residual-free by construction. ``growth`` scales every table
-    capacity (the retry ladder's knob on chain overflow). Returns
-    (DTable, ok)."""
+    capacity (the retry ladder's knob on chain overflow). A chain
+    longer than the walk kernel's MJ_MAX_STEPS walks in pieces, each
+    piece's output the next one's spine (a later step's key may name
+    an earlier build's column). Returns (DTable, ok)."""
+    from presto_tpu_torch.kernels.build import MJ_MAX_STEPS
+    ok = None
+    for i in range(0, len(builds), MJ_MAX_STEPS):
+        spine, piece_ok = _walk(spine, builds[i:i + MJ_MAX_STEPS],
+                                node.criteria[i:i + MJ_MAX_STEPS], growth)
+        ok = piece_ok if ok is None else (ok & piece_ok)
+    return spine, ok
+
+
+def _walk(spine: DTable, builds: list[DTable], criteria,
+          growth: int) -> tuple:
     args = (spine.cols, spine.live_mask(), spine.n,
             [(b.cols, b.live_mask(), b.n) for b in builds],
-            node.criteria, growth)
+            criteria, growth)
     fused = K.dispatch("multijoin")(*args)
     if fused is None:  # not kernel-shaped: the plain walk
         fused = multijoin_torch(*args)
@@ -532,15 +551,18 @@ def apply_multi_join(spine: DTable, builds: list[DTable],
 
 def apply_expand_join(left: DTable, right: DTable, node: N.Join,
                       out_capacity: int) -> tuple:
-    """Expanding (many-to-many) INNER or LEFT hash join: every (probe,
-    build) match becomes one output row, and under LEFT each probe row
-    with no surviving match one row with NULL build columns, through
-    the sorted lookup (sort_build_side + probe_runs + expand_matches —
-    the reference has no Pallas kernel here). A residual filter applies
-    to the matched pairs. Output has static capacity ``out_capacity``;
-    overflow is reported for the retry ladder. Returns (DTable
-    [out_capacity], out_ok)."""
-    if node.join_type not in (N.JoinType.INNER, N.JoinType.LEFT):
+    """Expanding (many-to-many) INNER, LEFT or FULL hash join: every
+    (probe, build) match becomes one output row, and under LEFT and
+    FULL each probe row with no surviving match one row with NULL build
+    columns, through the sorted lookup (sort_build_side + probe_runs +
+    expand_matches — the reference has no Pallas kernel here). A
+    residual filter applies to the matched pairs. FULL appends a
+    build-sized tail holding the build rows no probe row matched, with
+    NULL probe columns. Output has static capacity ``out_capacity``
+    (plus the build side's under FULL); overflow is reported for the
+    retry ladder. Returns (DTable, out_ok)."""
+    if node.join_type not in (N.JoinType.INNER, N.JoinType.LEFT,
+                              N.JoinType.FULL):
         raise NotImplementedError(
             f"expanding {node.join_type} joins are not ported to "
             "presto_tpu_torch yet")
@@ -548,7 +570,8 @@ def apply_expand_join(left: DTable, right: DTable, node: N.Join,
     rkeys = [rk for _, rk in node.criteria]
     build_live = _and_key_valid(right, rkeys, right.live_mask())
     probe_live = _and_key_valid(left, lkeys, left.live_mask())
-    left_join = node.join_type == N.JoinType.LEFT
+    full_join = node.join_type == N.JoinType.FULL
+    left_join = node.join_type == N.JoinType.LEFT or full_join
     # a LEFT join keeps probe rows with NULL keys: they match nothing
     probe_rows_live = left.live_mask() if left_join else probe_live
     rh = _row_hash(right, rkeys)
@@ -586,6 +609,7 @@ def apply_expand_join(left: DTable, right: DTable, node: N.Join,
             valid = gv
         out[sym] = Val(v.dtype, take(v.data, gather), valid, v.dictionary)
 
+    keep = matched
     f_ok = None
     if node.filter is not None:
         fv = ExprCompiler(out, left.device).compile(node.filter)
@@ -615,7 +639,60 @@ def apply_expand_join(left: DTable, right: DTable, node: N.Join,
             valid = keep if v.valid is None \
                 else (keep & take(v.valid, gather))
             out[sym] = Val(v.dtype, out[sym].data, valid, v.dictionary)
-    return DTable(out, out_live, out_capacity, left.device), ok
+    joined = DTable(out, out_live, out_capacity, left.device)
+    if full_join:
+        joined = concat_dtables(
+            [joined, _unmatched_build_rows(left, right, keep & out_live,
+                                           build_row)])
+    return joined, ok
+
+
+def _unmatched_build_rows(left: DTable, right: DTable, kept, build_row):
+    """FULL join's tail: the build rows no kept pair matched, with NULL
+    probe columns (reference LookupOuterOperator's unvisited-positions
+    pass)."""
+    nb, dev = right.n, right.device
+    matched = torch.zeros(nb + 1, dtype=torch.bool, device=dev)
+    slot = torch.where(kept, torch.clamp(build_row.to(torch.int64), 0, nb),
+                       torch.full_like(build_row, nb, dtype=torch.int64))
+    matched.index_put_((slot,), torch.ones((), dtype=torch.bool,
+                                           device=dev))
+    zero = torch.zeros(nb, dtype=torch.int64, device=dev)
+    cols = {sym: Val(v.dtype, take(v.data, zero),
+                     torch.zeros(nb, dtype=torch.bool, device=dev),
+                     v.dictionary)
+            for sym, v in left.cols.items()}
+    cols.update(right.cols)
+    return DTable(cols, right.live_mask() & ~matched[:nb], nb, dev)
+
+
+def concat_dtables(parts: list[DTable]) -> DTable:
+    """Row-concatenate DTables with identical column sets (key order of
+    the first). Validity materializes where any part carries one; a
+    scalar column broadcasts to its part's rows."""
+    first = parts[0]
+    cols: dict[str, Val] = {}
+    for sym, v0 in first.cols.items():
+        vs = [p.cols[sym] for p in parts]
+        long = isinstance(v0.dtype, T.DecimalType) and v0.dtype.is_long
+        data = torch.cat([_rows(v.data, p.n, long) for v, p in zip(vs, parts)])
+        valid = None
+        if any(v.valid is not None for v in vs):
+            valid = torch.cat([
+                torch.ones(p.n, dtype=torch.bool, device=p.device)
+                if v.valid is None else v.valid.expand(p.n)
+                for v, p in zip(vs, parts)])
+        cols[sym] = Val(v0.dtype, data, valid, v0.dictionary)
+    live = torch.cat([p.live_mask() for p in parts])
+    return DTable(cols, live, sum(p.n for p in parts), first.device)
+
+
+def _rows(data, n: int, long: bool):
+    """``data`` as ``n`` rows: a scalar (a [2] limb pair when ``long``)
+    broadcasts."""
+    if long:
+        return data.expand(n, 2) if data.ndim == 1 else data
+    return data.expand(n) if data.ndim == 0 else data
 
 
 def apply_semijoin(dt: DTable, filt: DTable, node: N.SemiJoin,
@@ -730,6 +807,67 @@ def apply_cross_scalar(left: DTable, right: DTable) -> DTable:
         rv = any_live if v.valid is None else (any_live & v.valid[idx])
         out[sym] = Val(v.dtype, data, rv.expand(left.n), v.dictionary)
     return DTable(out, left.live, left.n, left.device)
+
+
+def _unify_string_vals(vals: list[Val]) -> list[Val]:
+    """Remap string Vals onto one shared sorted union dictionary."""
+    dicts = [v.dictionary for v in vals]
+    if all(d is dicts[0] for d in dicts):
+        return vals
+    union = np.unique(np.concatenate([d.astype("U") for d in dicts]))
+    uobj = union.astype(object)
+    out = []
+    for v in vals:
+        remap = HS.upload(np.searchsorted(union, v.dictionary.astype("U"))
+                          .astype(np.int32), v.data.device, "dictionary-lut")
+        codes = torch.clamp(v.data.to(torch.int64), 0,
+                            max(len(v.dictionary) - 1, 0))
+        out.append(Val(v.dtype, take(remap, codes), v.valid, uobj))
+    return out
+
+
+def apply_union(parts: list[DTable], node: N.Union) -> DTable:
+    """UNION ALL: each input's symbols renamed per ``node.mappings`` and
+    cast to the output types, string dictionaries merged, then the
+    rows concatenated (static capacity = the sum of the inputs')."""
+    renamed = [DTable({}, p.live, p.n, p.device) for p in parts]
+    for sym in node.symbols:
+        dtype = node.types[sym]
+        vals = []
+        for p, mapping in zip(parts, node.mappings):
+            v = p.cols[mapping[sym]]
+            vals.append(v if v.is_string else cast_val(v, dtype))
+        if isinstance(dtype, T.VarcharType):
+            vals = _unify_string_vals(vals)
+        for r, v in zip(renamed, vals):
+            r.cols[sym] = Val(dtype, v.data, v.valid,
+                              v.dictionary if v.is_string else None)
+    return concat_dtables(renamed)
+
+
+def apply_mark_distinct(dt: DTable, node: N.MarkDistinct) -> DTable:
+    """Adds ``node.mark_symbol``: true on the first live row of each
+    distinct key tuple (reference MarkDistinctOperator), from one
+    grouping sort whose run starts scatter back to row order."""
+    live = dt.live_mask()
+    rh = _row_hash(dt, node.keys)
+    key_ops = []
+    for k in node.keys:
+        v = dt.cols[k]
+        if v.data.ndim == 2:  # LONG decimal key
+            key_ops.extend(_long_key_operands(v))
+        else:
+            key_ops.append(_group_key_operand(v))
+        if v.valid is not None:
+            key_ops.append(v.valid)
+    sg = H.SortedGroups(rh, live, key_ops, len(key_ops))
+    # the stable sort puts each run's smallest row index first
+    mark = torch.zeros(dt.n, dtype=torch.bool, device=dt.device)
+    mark.scatter_(0, torch.clamp(sg.sidx.to(torch.int64), 0, dt.n - 1),
+                  sg.is_new)
+    cols = dict(dt.cols)
+    cols[node.mark_symbol] = Val(T.BOOLEAN, mark, None, None)
+    return DTable(cols, dt.live, dt.n, dt.device)
 
 
 def _nulls_last(o: N.Ordering) -> bool:
@@ -872,3 +1010,452 @@ def apply_distinct(dt: DTable, capacity: int) -> tuple:
             data = compacted[di]
         out[sym] = Val(v.dtype, data, valid, v.dictionary)
     return DTable(out, occupied, capacity, dt.device), ok
+
+
+# --- window functions --------------------------------------------------------
+
+
+def _first_false(n: int, dev) -> torch.Tensor:
+    return torch.zeros(1 if n else 0, dtype=torch.bool, device=dev)
+
+
+def _keys_equal_prev(vals: list[Val], perm) -> torch.Tensor:
+    """bool [n]: row i's key tuple equals row i-1's, in the sorted order
+    ``perm``, by exact value (not hash). Row 0 is always False."""
+    n = perm.shape[0]
+    dev = perm.device
+    head = _first_false(n, dev)
+    eq = torch.arange(n, device=dev) > 0
+    for v in vals:
+        d = v.data[perm]
+        pair_eq = d[1:] == d[:-1]
+        if pair_eq.ndim == 2:  # LONG decimal limbs: equal iff both are
+            pair_eq = pair_eq.all(dim=1)
+        same = torch.cat([head, pair_eq])
+        if v.valid is not None:
+            vv = v.valid[perm]
+            both_null = torch.cat([head, ~vv[1:] & ~vv[:-1]])
+            same_valid = torch.cat([head, vv[1:] == vv[:-1]])
+            same = (same | both_null) & same_valid
+        eq = eq & same
+    return eq
+
+
+def _run_starts(is_start):
+    """Per row, the position of its run's first row (0 before the first
+    run): the reference's running max over boundary positions, by a
+    scatter (ops/hash._run_starts says why not ``torch.cummax``)."""
+    return H._run_starts(is_start).to(torch.int64)
+
+
+def _run_ends(is_end):
+    """Per row, the position of its run's last row (``is_end`` marks
+    last rows and holds at the end): the reference's reverse running
+    min, as the run starts of the reversed rows."""
+    n = is_end.shape[0]
+    return (n - 1) - torch.flip(_run_starts(torch.flip(is_end, [0])), [0])
+
+
+def apply_window(dt: DTable, node: N.Window) -> DTable:
+    """Window functions: sort by (partition, order) keys, compute ranks
+    and running or framed aggregates with scans over the sorted layout,
+    scatter the results back to row order (reference WindowOperator +
+    PagesIndex, reformulated as prefix scans and segment reductions)."""
+    n, dev = dt.n, dt.device
+    live = dt.live_mask()
+    part_orderings = [N.Ordering(s) for s in node.partition_by]
+    perm = H.lexsort(_sort_keys(dt, part_orderings + list(node.orderings)))
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    inv = torch.zeros(n, dtype=torch.int64, device=dev).scatter_(
+        0, perm, idx)
+
+    pvals = [dt.cols[s] for s in node.partition_by]
+    ovals = [dt.cols[o.symbol] for o in node.orderings]
+    slive = live[perm]
+    same_part = (_keys_equal_prev(pvals, perm) & slive
+                 & torch.cat([_first_false(n, dev), slive[:-1]]))
+    same_peer = same_part & _keys_equal_prev(pvals + ovals, perm)
+
+    # each row's partition and peer-group start and end positions (a
+    # row ends its run where the next row starts one)
+    last = torch.ones(1 if n else 0, dtype=torch.bool, device=dev)
+    part_start = _run_starts(~same_part)
+    peer_start = _run_starts(~same_peer)
+    part_end = _run_ends(torch.cat([~same_part[1:], last]))
+    peer_end = _run_ends(torch.cat([~same_peer[1:], last]))
+
+    out = dict(dt.cols)
+    c = ExprCompiler({s: Val(v.dtype, v.data[perm],
+                             None if v.valid is None else v.valid[perm],
+                             v.dictionary)
+                      for s, v in dt.cols.items()}, dev)
+    key_val = (c.columns.get(node.orderings[0].symbol)
+               if len(node.orderings) == 1 else None)
+    fctx = {"orderings": node.orderings, "same_peer": same_peer,
+            "same_part": same_part, "peer_start": peer_start,
+            "peer_end": peer_end, "key": key_val}
+    for sym, call in node.functions.items():
+        data, valid, dictionary = _window_fn(
+            call, c, idx, part_start, peer_start, part_end, peer_end,
+            same_part, slive, n, fctx)
+        if data.ndim == 0:
+            data = data.expand(n)
+        out[sym] = Val(call.dtype, data[inv],
+                       None if valid is None else valid[inv], dictionary)
+    return DTable(out, dt.live, n, dev)
+
+
+def _window_fn(call: N.WindowCall, c: ExprCompiler, idx, part_start,
+               peer_start, part_end, peer_end, same_part, slive, n,
+               fctx):
+    """One window function over the sorted rows: (data, valid,
+    dictionary) in sorted order."""
+    fn = call.fn
+    if fn == "row_number":
+        return idx - part_start + 1, None, None
+    if fn == "rank":
+        return peer_start - part_start + 1, None, None
+    if fn == "dense_rank":
+        new_peer = torch.cat([torch.ones(1, dtype=torch.bool,
+                                         device=idx.device),
+                              peer_start[1:] != peer_start[:-1]])
+        peer_ord = torch.cumsum(new_peer.to(torch.int64), 0)
+        at_start = peer_ord[torch.clamp(part_start, 0, n - 1)]
+        return peer_ord - at_start + 1, None, None
+    if fn == "percent_rank":
+        rank = (peer_start - part_start).to(torch.float64)
+        rows = (part_end - part_start).to(torch.float64)
+        return (torch.where(rows > 0, rank / torch.clamp(rows, min=1),
+                            torch.zeros_like(rank)), None, None)
+    if fn == "cume_dist":
+        rows = (part_end - part_start + 1).to(torch.float64)
+        return ((peer_end - part_start + 1).to(torch.float64) / rows,
+                None, None)
+    if fn == "ntile":
+        buckets = int(call.args[0].value)
+        pos = idx - part_start
+        rows = part_end - part_start + 1
+        q, r = rows // buckets, rows % buckets
+        # the first r buckets get q + 1 rows
+        big_span = (q + 1) * r
+        bucket = torch.where(
+            pos < big_span, pos // torch.clamp(q + 1, min=1),
+            r + (pos - big_span) // torch.clamp(q, min=1))
+        return torch.clamp(bucket, 0, buckets - 1) + 1, None, None
+    if fn in ("first_value", "last_value", "nth_value"):
+        v = c.compile(call.args[0])
+        lo, hi = _frame_bounds(call, idx, part_start, part_end, peer_end,
+                               fctx)
+        if fn == "first_value":
+            at = lo
+        elif fn == "last_value":
+            at = hi
+        else:
+            at = lo + (int(call.args[1].value) - 1)
+        in_frame = (at >= lo) & (at <= hi) & (hi >= lo)
+        src = torch.clamp(at, 0, n - 1)
+        valid = in_frame if v.valid is None else (in_frame & v.valid[src])
+        return v.data[src], valid, v.dictionary
+    if fn in ("lag", "lead"):
+        v = c.compile(call.args[0])
+        offset = int(call.args[1].value) if len(call.args) > 1 else 1
+        shift = -offset if fn == "lag" else offset
+        src = torch.clamp(idx + shift, 0, n - 1)
+        in_part = (part_start[src] == part_start) & (src == idx + shift)
+        valid = in_part if v.valid is None else (in_part & v.valid[src])
+        return v.data[src], valid, v.dictionary
+    if fn in ("sum", "count", "avg", "min", "max"):
+        return _window_agg(call, fn, c, idx, part_start, peer_end,
+                           part_end, same_part, slive, n, fctx)
+    raise NotImplementedError(f"window function {fn}")
+
+
+def _window_agg(call, fn, c, idx, part_start, peer_end, part_end,
+                same_part, slive, n, fctx):
+    if call.args:
+        v = c.compile(call.args[0])
+        if v.data.ndim == 2:
+            raise NotImplementedError(
+                "window aggregates over long decimals (precision > 18) "
+                "are not supported yet")
+        w = slive if v.valid is None else (slive & v.valid)
+        vals = v.data
+    else:
+        v = None
+        w = slive
+        vals = torch.ones(n, dtype=torch.int64, device=idx.device)
+    restart = ~same_part  # a partition begins (row 0 included)
+    if fn == "count":
+        vals = torch.ones(n, dtype=torch.int64, device=idx.device)
+    if not vals.dtype.is_floating_point and vals.dtype != torch.bool:
+        vals = vals.to(torch.int64)
+    dictionary = v.dictionary if v is not None else None
+
+    if (call.range_frame is not None or call.groups_frame is not None
+            or (call.rows_frame is not None
+                and (call.rows_frame[0] is not None
+                     or call.rows_frame[1] is not None))):
+        return _frame_agg(call, fn, v, vals, w, idx, part_start,
+                          part_end, restart, n, fctx)
+
+    if call.rows_frame == (None, None) or call.frame == "full_partition":
+        frame_at = part_end  # the whole partition
+    elif call.frame == "rows_unbounded_current":
+        frame_at = idx  # ROWS: ends at the current row, peers excluded
+    else:
+        # RANGE default: the running value at the END of the peer group
+        frame_at = peer_end
+    frame_at = torch.clamp(frame_at, 0, n - 1)
+
+    def run_scan(masked, op):
+        return _segmented_scan(masked, restart, op)[frame_at]
+
+    cnt = run_scan(w.to(torch.int64), torch.add)
+    if fn == "count":
+        return cnt, None, None
+    if fn in ("sum", "avg"):
+        total = run_scan(torch.where(w, vals, torch.zeros_like(vals)),
+                         torch.add)
+        if fn == "avg":
+            return _avg(total, cnt, v), cnt > 0, None
+        return total, cnt > 0, None
+    is_max = fn == "max"
+    ident = segred.identity(vals.dtype, is_max)
+    run = run_scan(torch.where(w, vals, torch.full_like(vals, ident)),
+                   torch.maximum if is_max else torch.minimum)
+    return run, cnt > 0, dictionary
+
+
+def _avg(total, cnt, v):
+    sf = total.to(torch.float64)
+    if v is not None and isinstance(v.dtype, T.DecimalType):
+        sf = sf / v.dtype.unscale_factor
+    return sf / torch.clamp(cnt, min=1)
+
+
+def _frame_bounds(call: N.WindowCall, idx, part_start, part_end,
+                  peer_end, fctx):
+    """Inclusive sorted-position frame [lo, hi] of a value function.
+    With no explicit frame: RANGE UNBOUNDED PRECEDING..CURRENT ROW =
+    partition start .. peer-group end."""
+    if call.range_frame is not None or call.groups_frame is not None:
+        return _dynamic_frame_bounds(call, fctx, idx, part_start,
+                                     part_end)
+    if call.rows_frame is not None:
+        return _rows_frame_bounds(call.rows_frame, idx, part_start,
+                                  part_end)
+    if call.frame == "full_partition":
+        return part_start, part_end
+    if call.frame == "rows_unbounded_current":
+        return part_start, idx
+    return part_start, peer_end
+
+
+def _rows_frame_bounds(rows_frame, idx, part_start, part_end):
+    p, f = rows_frame
+    lo = part_start if p is None else torch.maximum(idx - p, part_start)
+    hi = part_end if f is None else torch.minimum(idx + f, part_end)
+    return lo, hi
+
+
+def _bounded_bsearch(vals, targets, lo0, hi0, left: bool, n: int):
+    """Per-row binary search: the insertion position of ``targets[i]``
+    in ascending ``vals`` restricted to [lo0[i], hi0[i]) (log2(n)
+    gather rounds; the partition-respecting searchsorted behind RANGE
+    frames)."""
+    lo, hi = lo0.to(torch.int64), hi0.to(torch.int64)
+    for _ in range(max(int(n - 1).bit_length(), 1) + 1):
+        mid = (lo + hi) >> 1
+        v = vals[torch.clamp(mid, 0, n - 1)]
+        go = (v < targets) if left else (v <= targets)
+        active = lo < hi
+        lo, hi = (torch.where(active & go, mid + 1, lo),
+                  torch.where(active & ~go, mid, hi))
+    return lo
+
+
+def _dynamic_frame_bounds(call: N.WindowCall, fctx, idx, part_start,
+                          part_end):
+    """Inclusive [lo, hi] of a value-based RANGE or a GROUPS frame.
+
+    GROUPS: peer groups carry a globally ascending dense id, so each
+    bound is one searchsorted, clamped into the partition. RANGE: the
+    sort key ascends within each partition's non-null span, so bounds
+    come from a partition-bounded binary search over [key - preceding,
+    key + following]; a null-key row frames over its peer group, and an
+    UNBOUNDED side keeps the whole-partition bound."""
+    n = idx.shape[0]
+    peer_start, peer_end = fctx["peer_start"], fctx["peer_end"]
+    if call.groups_frame is not None:
+        p, f = call.groups_frame
+        gg = torch.cumsum((~fctx["same_peer"]).to(torch.int64), 0)
+        lo = part_start if p is None else torch.maximum(
+            torch.searchsorted(gg, gg - p), part_start)
+        hi = part_end if f is None else torch.minimum(
+            torch.searchsorted(gg, gg + f, right=True) - 1, part_end)
+        return lo, hi
+
+    p, f = call.range_frame
+    o = fctx["orderings"][0]
+    kv = fctx["key"]
+    if kv.data.dtype.is_floating_point:
+        key = kv.data.to(torch.float64)
+    else:
+        key = kv.data.to(torch.int64)
+    pv, fv = (0 if p is None else p), (0 if f is None else f)
+    if not o.ascending:
+        # descending keys negate into an ascending search
+        key = -key
+    isnull = None
+    nn_start, nn_end = part_start, part_end
+    if kv.valid is not None:
+        isnull = ~kv.valid
+        npref = _segmented_scan(isnull.to(torch.int64), ~fctx["same_part"],
+                                torch.add)
+        tot = npref[torch.clamp(part_end, 0, n - 1)]
+        if _nulls_last(o):
+            nn_end = part_end - tot
+        else:
+            nn_start = part_start + tot
+    lo = part_start if p is None else torch.maximum(
+        _bounded_bsearch(key, key - pv, nn_start, nn_end + 1, True, n),
+        part_start)
+    hi = part_end if f is None else torch.minimum(
+        _bounded_bsearch(key, key + fv, nn_start, nn_end + 1, False, n) - 1,
+        part_end)
+    if isnull is not None:
+        # a null-key row's offset frame is its peer group (all nulls)
+        if p is not None:
+            lo = torch.where(isnull, peer_start, lo)
+        if f is not None:
+            hi = torch.where(isnull, peer_end, hi)
+    return lo, hi
+
+
+def _sparse_minmax(masked, lo, hi, op, ident, n: int):
+    """min/max over arbitrary inclusive [lo, hi] spans by a doubling
+    sparse table: level k covers [i, i + 2^k), and a query is op of two
+    overlapping level-k entries, k = floor(log2(width))."""
+    if n > (1 << 23):
+        raise NotImplementedError(
+            "doubly-bounded RANGE/GROUPS min/max frames over >8M "
+            "sorted rows")
+    levels = [masked]
+    t = masked
+    k = 1
+    while (1 << k) <= n:
+        sh = 1 << (k - 1)
+        t = op(t, torch.cat([t[sh:], torch.full((sh,), ident,
+                                                 dtype=t.dtype,
+                                                 device=t.device)]))
+        levels.append(t)
+        k += 1
+    table = torch.stack(levels)
+    width = torch.clamp(hi - lo + 1, min=1)
+    kq = torch.clamp(torch.floor(torch.log2(width.to(torch.float64)))
+                     .to(torch.int64), 0, len(levels) - 1)
+    a = table[kq, torch.clamp(lo, 0, n - 1)]
+    b = table[kq, torch.clamp(hi - (1 << kq) + 1, 0, n - 1)]
+    return op(a, b)
+
+
+def _frame_agg(call: N.WindowCall, fn: str, v, vals, w, idx,
+               part_start, part_end, restart, n, fctx):
+    """An aggregate over a general ROWS, RANGE or GROUPS frame.
+    sum/count/avg difference two points of the segmented prefix scan;
+    one-side-unbounded min/max take a (possibly reversed) running scan;
+    doubly-bounded min/max take one shift-and-select pass per ROWS
+    offset, or a sparse table for RANGE and GROUPS frames, whose width
+    depends on the data."""
+    if call.rows_frame is not None:
+        p, f = call.rows_frame
+        lo, hi = _rows_frame_bounds(call.rows_frame, idx, part_start,
+                                    part_end)
+        rows_static = True
+    else:
+        p, f = (call.range_frame if call.range_frame is not None
+                else call.groups_frame)
+        lo, hi = _dynamic_frame_bounds(call, fctx, idx, part_start,
+                                       part_end)
+        rows_static = False
+    empty = hi < lo
+    hi_c = torch.clamp(hi, 0, n - 1)
+    lo_c = torch.clamp(lo, 0, n - 1)
+
+    def span_sum(masked):
+        s = _segmented_scan(masked, restart, torch.add)
+        prev = torch.where(lo > part_start,
+                           s[torch.clamp(lo_c - 1, 0, n - 1)],
+                           torch.zeros_like(s))
+        return torch.where(empty, torch.zeros_like(s), s[hi_c] - prev)
+
+    cnt = span_sum(w.to(torch.int64))
+    if fn == "count":
+        return cnt, None, None
+    if fn in ("sum", "avg"):
+        total = span_sum(torch.where(w, vals, torch.zeros_like(vals)))
+        if fn == "avg":
+            return _avg(total, cnt, v), cnt > 0, None
+        return total, cnt > 0, None
+
+    is_max = fn == "max"
+    ident = segred.identity(vals.dtype, is_max)
+    op = torch.maximum if is_max else torch.minimum
+    masked = torch.where(w, vals, torch.full_like(vals, ident))
+    dictionary = v.dictionary if v is not None else None
+
+    def result(res):
+        return (torch.where(empty, torch.full_like(res, ident), res),
+                cnt > 0, dictionary)
+
+    if p is None:  # unbounded preceding: the running scan at hi
+        return result(_segmented_scan(masked, restart, op)[hi_c])
+    if f is None:  # unbounded following: the reverse scan at lo
+        rrestart = torch.cat([restart[1:], torch.ones(
+            1, dtype=torch.bool, device=restart.device)])
+        return result(_rsegmented_scan(masked, rrestart, op)[lo_c])
+    if not rows_static:
+        return result(_sparse_minmax(masked, lo, hi, op, ident, n))
+    # a bounded ROWS frame: one static shift-and-select per offset
+    width = int(p) + int(f) + 1
+    if width > 1024:
+        raise NotImplementedError(
+            f"ROWS frame of width {width} (bounded min/max frames "
+            "support width <= 1024)")
+    res = torch.full_like(masked, ident)
+    for d in range(-int(p), int(f) + 1):
+        if d < 0:
+            shifted = torch.cat([torch.full((-d,), ident, dtype=masked.dtype,
+                                            device=masked.device),
+                                 masked[:d]])
+        elif d > 0:
+            shifted = torch.cat([masked[d:],
+                                 torch.full((d,), ident, dtype=masked.dtype,
+                                            device=masked.device)])
+        else:
+            shifted = masked
+        pos = idx + d
+        inside = (pos >= lo) & (pos <= hi)
+        res = op(res, torch.where(inside, shifted,
+                                  torch.full_like(shifted, ident)))
+    return result(res)
+
+
+def _rsegmented_scan(vals, restart_rev, op):
+    """Reverse segmented inclusive scan (``restart_rev`` marks segment
+    ENDS)."""
+    return torch.flip(_segmented_scan(torch.flip(vals, [0]),
+                                      torch.flip(restart_rev, [0]), op),
+                      [0])
+
+
+def _segmented_scan(vals, restart, op):
+    """Inclusive scan that restarts wherever ``restart`` is True:
+    integer sums as a prefix sum less the prefix before each segment
+    (exact, wrapping like the reference's); float sums, max and min as
+    a doubling scan gated by each row's segment start."""
+    from presto_tpu_torch.ops import segscan as S
+    runs = S.Runs(_run_starts(restart))
+    if op is torch.add and not vals.dtype.is_floating_point:
+        return S.seg_sum(vals, runs)
+    return S.seg_scan(lambda a, b: (op(a[0], b[0]),), (vals,), runs)[0]

@@ -1,6 +1,7 @@
 """Aggregate fold, merge and finalize on tensors — the port of
-``presto_tpu/expr/aggregates.py`` for count, sum, avg, min, max and
-arbitrary.
+``presto_tpu/expr/aggregates.py`` for count, sum, avg, min, max,
+arbitrary and the variance family (variance, var_samp, var_pop,
+stddev, stddev_samp, stddev_pop).
 
 ``fold`` reduces rows into per-slot states with segment sums
 (ops/segred.py, the ``agg_sum`` kernel for integer states);
@@ -12,7 +13,11 @@ low limb split into two 32-bit halves that each sum exactly in int64,
 the high limb summing mod 2^64). LONG-decimal min/max/arbitrary
 states are the extremum's two limbs vlo/vhi, found in two passes:
 the signed high-limb extremum, then the low limb (in an
-order-preserving signed view) among the high-limb winners.
+order-preserving signed view) among the high-limb winners. The
+variance family folds float64 (count, sum, m2) states: m2 is the
+second moment about the group mean, taken in a second pass (the
+sum-of-squares form cancels when the mean dwarfs the spread), and
+partial states merge by Chan's parallel combination.
 
 The call metadata (AggCall, output and state types) lives in
 :mod:`presto_tpu_torch.expr.aggmeta` and is re-exported here. Every
@@ -32,7 +37,7 @@ from presto_tpu_torch.ops import segred
 from presto_tpu_torch.ops.hash import srl
 
 PORTED_FNS = frozenset({"count", "count_star", "sum", "avg", "min", "max",
-                        "arbitrary"})
+                        "arbitrary"}) | VAR_FNS
 # max and arbitrary reduce with segment max, min with segment min
 _MAX_FNS = ("max", "arbitrary")
 _I64_MIN = -(1 << 63)
@@ -101,10 +106,24 @@ def _normalize_limbs(states: dict) -> dict:
 
 
 def prepare_arg(fn: str, data, arg_type: T.DataType | None):
-    """Argument pre-conversion; count, sum and avg fold the raw value."""
+    """Argument pre-conversion: the variance family folds float64
+    values (decimals unscaled); the others fold the raw value."""
     if fn not in PORTED_FNS:
         raise _unported(fn)
-    return data
+    if fn not in VAR_FNS:
+        return data
+    x = data.to(torch.float64)
+    if isinstance(arg_type, T.DecimalType):
+        x = x / arg_type.unscale_factor
+    return x
+
+
+def _var_states(c, s, m2) -> dict:
+    return {"count": c, "sum": s, "m2": m2}
+
+
+def _mean(s, c):
+    return s / torch.clamp(c, min=1).to(torch.float64)
 
 
 def fold(fn: str, data, weight, slots, capacity: int, *,
@@ -139,6 +158,15 @@ def fold(fn: str, data, weight, slots, capacity: int, *,
                                      data, data2, is_max), "count": c}
         return {"val": ext(_masked(w, data, is_max), slots, capacity),
                 "count": c}
+    if fn in VAR_FNS:
+        # data is float64 (prepare_arg); m2 about the group mean
+        c = segred.segment_sum(w.to(torch.int64), slots, capacity)
+        s = segred.segment_sum(torch.where(w, data, _zero(data)), slots,
+                               capacity)
+        gather = slots.to(torch.int64).clamp(0, max(capacity - 1, 0))
+        d = data - _mean(s, c)[gather]
+        return _var_states(c, s, segred.segment_sum(
+            torch.where(w, d * d, _zero(d)), slots, capacity))
     raise _unported(fn)
 
 
@@ -172,6 +200,12 @@ def scan_fold(fn: str, data, weight, sg, *, data2=None, data_valid=None,
                                      lambda b: S.broadcast_last(b, sg), w,
                                      data, data2, is_max), "count": c}
         return {"val": ext(_masked(w, data, is_max), sg), "count": c}
+    if fn in VAR_FNS:
+        c = S.seg_sum(w.to(torch.int64), sg)
+        s = S.seg_sum(torch.where(w, data, _zero(data)), sg)
+        d = data - _mean(S.broadcast_last(s, sg), S.broadcast_last(c, sg))
+        return _var_states(c, s, S.seg_sum(torch.where(w, d * d, _zero(d)),
+                                           sg))
     raise _unported(fn)
 
 
@@ -203,7 +237,20 @@ def scan_merge(fn: str, states: dict, live, sg):
                 is_max), "count": c}
         return {"val": ext(_masked(w, states["val"], is_max), sg),
                 "count": c}
+    if fn in VAR_FNS:
+        n_i, s_i, m2_i = _var_parts(states, w)
+        n, s = S.seg_sum(n_i, sg), S.seg_sum(s_i, sg)
+        dev = _mean(s_i, n_i) - _mean(S.broadcast_last(s, sg),
+                                      S.broadcast_last(n, sg))
+        return _var_states(n, s, S.seg_sum(
+            m2_i + n_i.to(torch.float64) * dev * dev, sg))
     raise _unported(fn)
+
+
+def _var_parts(states: dict, w):
+    """Live partial (count, sum, m2) states; dead rows contribute 0."""
+    return tuple(torch.where(w, states[f], _zero(states[f]))
+                 for f in ("count", "sum", "m2"))
 
 
 def merge(fn: str, states: dict, slots, capacity: int, live):
@@ -235,6 +282,15 @@ def merge(fn: str, states: dict, slots, capacity: int, live):
         return {"val": ext(_masked(w, states["val"], is_max), slots,
                            capacity),
                 "count": c}
+    if fn in VAR_FNS:
+        # Chan et al.: M2 = sum(M2_i) + sum(n_i * (mean_i - mean)^2)
+        n_i, s_i, m2_i = _var_parts(states, w)
+        n = segred.segment_sum(n_i, slots, capacity)
+        s = segred.segment_sum(s_i, slots, capacity)
+        gather = slots.to(torch.int64).clamp(0, max(capacity - 1, 0))
+        dev = _mean(s_i, n_i) - _mean(s, n)[gather]
+        return _var_states(n, s, segred.segment_sum(
+            m2_i + n_i.to(torch.float64) * dev * dev, slots, capacity))
     raise _unported(fn)
 
 
@@ -272,4 +328,14 @@ def finalize(fn: str, states: dict, out_type: T.DataType,
         if isinstance(arg_type, T.DecimalType):
             sf = sf / arg_type.unscale_factor
         return sf / safe.to(torch.float64), c > 0
+    if fn in VAR_FNS:
+        c = states["count"]
+        safe = torch.clamp(c, min=1).to(torch.float64)
+        if fn.endswith("_pop"):
+            var, ok = states["m2"] / safe, c > 0
+        else:
+            # sample variance M2 / (n - 1), undefined for n < 2
+            var = states["m2"] / torch.clamp(safe - 1.0, min=1.0)
+            ok = c > 1
+        return (torch.sqrt(var) if fn.startswith("stddev") else var), ok
     raise _unported(fn)

@@ -13,12 +13,14 @@ their device. Value model (``Val``): (dtype, data, valid, dictionary)
   host (LIKE matches the pattern over the dictionary and gathers a
   boolean lookup table by code).
 
-The port covers what the 22 TPC-H queries use: column references,
-literals, IN lists, CASE, casts among numeric, decimal and date
-types, and the scalar functions add, subtract, multiply, divide,
-eq, neq, lt, lte, gt, gte, and, or, not, between, like, substring and
-year. Every other expression form and function raises
-``NotImplementedError`` naming itself.
+The port covers what the 22 TPC-H queries and the TPC-DS suite use:
+column references, literals, IS [NOT] NULL, IN lists, CASE, casts
+among numeric, decimal and date types and from varchar to date and
+timestamp, and the scalar functions add, subtract, multiply, divide,
+modulus (and mod), negate, abs, round, greatest, least, coalesce,
+nullif, row_index, eq, neq, lt, lte, gt, gte, and, or, not, between,
+like, substring, concat, upper, lower and year. Every other expression
+form and function raises ``NotImplementedError`` naming itself.
 """
 
 from __future__ import annotations
@@ -110,6 +112,12 @@ def _lut(values: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return HS.upload(values, like.device, "dictionary-lut")
 
 
+def _by_code(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """``lut`` at dictionary ``codes`` of any shape, a literal's 0-d code
+    included (indexing with a 0-d tensor would read it on the host)."""
+    return torch.take(lut, codes.to(torch.int64))
+
+
 # --- dictionary helpers (host side) ----------------------------------------
 
 
@@ -120,7 +128,7 @@ def _dict_transform(v: Val, fn: Callable[[np.ndarray], np.ndarray]) -> Val:
     new_dict, inverse = np.unique(new_strings.astype("U"),
                                   return_inverse=True)
     remap = _lut(inverse.astype(np.int32), v.data)
-    return Val(T.VARCHAR, remap[v.data.to(torch.int64)], v.valid,
+    return Val(T.VARCHAR, _by_code(remap, v.data), v.valid,
                new_dict.astype(object))
 
 
@@ -135,15 +143,15 @@ def _merge_dicts(a: Val, b: Val) -> tuple[Val, Val]:
     rb = _lut(np.searchsorted(union, b.dictionary.astype("U"))
               .astype(np.int32), b.data)
     u = union.astype(object)
-    return (Val(a.dtype, ra[a.data.to(torch.int64)], a.valid, u),
-            Val(b.dtype, rb[b.data.to(torch.int64)], b.valid, u))
+    return (Val(a.dtype, _by_code(ra, a.data), a.valid, u),
+            Val(b.dtype, _by_code(rb, b.data), b.valid, u))
 
 
 def _dict_predicate(v: Val, pred: Callable[[np.ndarray], np.ndarray]) -> Val:
     """Host-evaluate a string predicate over the dictionary, gather by
     code."""
     lut = _lut(pred(v.dictionary.astype("U")).astype(np.bool_), v.data)
-    return _bool(lut[v.data.to(torch.int64)], v.valid)
+    return _bool(_by_code(lut, v.data), v.valid)
 
 
 def _like_regex(pattern: str, escape: str | None = None) -> re.Pattern:
@@ -177,7 +185,7 @@ def _align_strings(a: Val, b: Val) -> tuple[object, object]:
     ok = (b.dictionary.astype("U")[idx] == a.dictionary.astype("U")) if len(
         b.dictionary) else np.zeros(len(a.dictionary), bool)
     mapping = np.where(ok, idx, -1).astype(np.int32)
-    return _lut(mapping, a.data)[a.data.to(torch.int64)], b.data
+    return _by_code(_lut(mapping, a.data), a.data), b.data
 
 
 # --- the compiler ----------------------------------------------------------
@@ -227,6 +235,12 @@ class ExprCompiler:
 
     def _c_cast(self, e: ir.Cast) -> Val:
         return cast_val(self.compile(e.arg), e.dtype)
+
+    def _c_isnull(self, e: ir.IsNull) -> Val:
+        v = self.compile(e.arg)
+        isnull = (torch.zeros((), dtype=torch.bool, device=self.device)
+                  if v.valid is None else ~v.valid)
+        return _bool(~isnull if e.negated else isnull)
 
     def _c_inlist(self, e: ir.InList) -> Val:
         v = self.compile(e.arg)
@@ -348,8 +362,45 @@ def cast_val(v: Val, to: T.DataType) -> Val:
     if isinstance(to, T.DateType) and isinstance(v.dtype, T.TimestampType):
         return Val(to, torch.div(d, T.US_PER_DAY, rounding_mode="floor")
                    .to(torch.int32), v.valid)
+    if isinstance(to, T.TimestampType) and v.is_string:
+        return _parse_dictionary(v, to, "us", np.int64)
+    if isinstance(to, T.DateType) and v.is_string:
+        return _parse_dictionary(v, to, "D", np.int32)
     raise NotImplementedError(f"cast {v.dtype} -> {to} is not ported to "
                               "presto_tpu_torch yet")
+
+
+def _gather_lut(values: np.ndarray, ok: np.ndarray, v: Val, to) -> Val:
+    """Rows of a per-dictionary-entry parse: each row gathers its
+    entry's value and parse flag by code (codes clamped); a failed
+    parse is NULL."""
+    if not len(values):  # an empty dictionary: every row fails
+        values, ok = np.zeros(1, values.dtype), np.zeros(1, bool)
+    codes = torch.clamp(v.data.to(torch.int64), 0, len(values) - 1)
+    return Val(to, _by_code(_lut(values, v.data), codes),
+               and_valid(v.valid, _by_code(_lut(ok, v.data), codes)))
+
+
+def _parse_dictionary(v: Val, to: T.DataType, unit: str,
+                      dtype) -> Val:
+    """varchar -> date (``unit="D"``) or timestamp (``"us"``): one ISO
+    parse per dictionary entry (a date reads the first ten characters,
+    a timestamp may use a space for the 'T'); malformed strings become
+    NULL (reference castToDate / _parse_datetime_dictionary)."""
+    epoch = np.datetime64("1970-01-01", unit)
+    values = np.zeros(len(v.dictionary), dtype=dtype)
+    ok = np.zeros(len(v.dictionary), dtype=bool)
+    for i, s in enumerate(v.dictionary):
+        text = str(s).strip()
+        text = text[:10] if unit == "D" else text.replace(" ", "T")
+        try:
+            d64 = np.datetime64(text, unit)
+        except (ValueError, OverflowError):
+            continue
+        if not np.isnat(d64):  # '' and 'NaT' parse to NaT
+            values[i] = int((d64 - epoch).astype(np.int64))
+            ok[i] = True
+    return _gather_lut(values, ok, v, to)
 
 
 # --- scalar function registry ---------------------------------------------
@@ -476,6 +527,180 @@ def _div(e, args):
     q = torch.abs(a.data) // torch.abs(safe)
     q = torch.where((a.data >= 0) == (safe >= 0), q, -q)
     return Val(e.dtype, q, and_valid(valid, b.data != 0))
+
+
+@scalar("modulus")
+@scalar("mod")
+def _mod(e, args):
+    """Remainder truncating toward zero (the dividend's sign), NULL
+    for a zero divisor."""
+    a, b = args
+    if isinstance(e.dtype, T.DoubleType):
+        a, b = cast_val(a, T.DOUBLE), cast_val(b, T.DOUBLE)
+    elif (is_long_dec(a.dtype) or is_long_dec(b.dtype)
+          or is_long_dec(e.dtype)):
+        from presto_tpu_torch.ops import int128 as I
+        sa, sb = _scale(a.dtype), _scale(b.dtype)
+        s = max(sa, sb)
+        pa = a.dtype.precision if isinstance(a.dtype, T.DecimalType) \
+            else 19
+        pb = b.dtype.precision if isinstance(b.dtype, T.DecimalType) \
+            else 19
+        need = max(pa + s - sa, pb + s - sb)
+        if need > 38:
+            raise NotImplementedError(
+                f"decimal remainder aligning {a.dtype} and {b.dtype} "
+                f"needs {need} digits, exceeding the maximum decimal "
+                f"precision 38")
+        x, y = torch.broadcast_tensors(as128(a, s), as128(b, s))
+        bz = I.eq(y, torch.zeros_like(y))
+        r = I.rem_trunc(x, y)
+        out = r if is_long_dec(e.dtype) else I.to_i64(r)
+        return Val(e.dtype, out, and_valid(a.valid, b.valid, ~bz))
+    elif isinstance(a.dtype, T.DecimalType) or \
+            isinstance(b.dtype, T.DecimalType):
+        # (a*f) mod (b*f) = f*(a mod b): already at the common scale
+        a, b, _ = _decimal_align(a, b)
+    safe = torch.where(b.data == 0, torch.ones_like(b.data), b.data)
+    out = torch.fmod(a.data, safe)
+    nz = b.data != 0
+    if nz.ndim == 0 and out.ndim > 0:
+        nz = nz.expand(out.shape)  # literal divisor
+    return Val(e.dtype, out, and_valid(a.valid, b.valid, nz))
+
+
+@scalar("negate")
+def _neg(e, args):
+    (a,) = args
+    if is_long_dec(e.dtype):
+        from presto_tpu_torch.ops import int128 as I
+        return Val(e.dtype, I.neg(a.data), a.valid)
+    return Val(e.dtype, -a.data, a.valid)
+
+
+@scalar("abs")
+def _abs(e, args):
+    (a,) = args
+    if is_long_dec(e.dtype):
+        from presto_tpu_torch.ops import int128 as I
+        return Val(e.dtype, I.abs_(a.data), a.valid)
+    return Val(e.dtype, torch.abs(a.data), a.valid)
+
+
+@scalar("round")
+def _round(e, args):
+    """round(x[, digits]): decimals round half up in the scaled domain
+    (through int128 for LONG decimals); doubles round half to even,
+    as the reference's ``jnp.round`` does."""
+    a = args[0]
+    digits = 0
+    if len(e.args) > 1:
+        if not isinstance(e.args[1], ir.Literal):
+            raise NotImplementedError("round with non-literal digits")
+        digits = int(e.args[1].value)
+    if not isinstance(a.dtype, T.DecimalType):
+        f = 10.0 ** digits
+        return Val(e.dtype, torch.round(a.data * f) / f, a.valid)
+    drop = a.dtype.scale - digits
+    if drop <= 0:
+        return Val(e.dtype, a.data, a.valid)
+    keep_scale = (isinstance(e.dtype, T.DecimalType)
+                  and e.dtype.scale == a.dtype.scale)
+    if is_long_dec(a.dtype) or is_long_dec(e.dtype):
+        from presto_tpu_torch.ops import int128 as I
+        d = a.data if is_long_dec(a.dtype) else I.from_i64(a.data)
+        if drop > 38:
+            # |x| < 10^38 <= 0.5 * 10^drop: every value rounds to zero
+            q = torch.zeros_like(d)
+        else:
+            q = _rescale128(d, drop, 0)
+            if keep_scale:
+                q = I.rescale_up(q, drop)
+            elif digits < 0:
+                # round(123.45, -1): 12 tens at scale 0 -> 120
+                q = I.rescale_up(q, -digits)
+        return Val(e.dtype, q if is_long_dec(e.dtype) else I.to_i64(q),
+                   a.valid)
+    if drop > 18:
+        # |x| < 10^18 <= 0.5 * 10^drop
+        return Val(e.dtype, torch.zeros_like(a.data), a.valid)
+    mult = ((10 ** drop) if keep_scale
+            else (10 ** -digits) if digits < 0 else 1)
+    return Val(e.dtype, _div_round(a.data, 10 ** drop) * mult, a.valid)
+
+
+@scalar("greatest")
+@scalar("least")
+def _greatest_least(e, args):
+    """NULL if any argument is NULL. Strings compare by code over
+    their merged (sorted) dictionary."""
+    op = torch.maximum if e.fn == "greatest" else torch.minimum
+    if any(a.is_string for a in args):
+        out = args[0]
+        valid = out.valid
+        for v in args[1:]:
+            v, out = _merge_dicts(v, out)
+            valid = and_valid(valid, v.valid)
+            out = Val(e.dtype, op(out.data, v.data), None, out.dictionary)
+        return Val(e.dtype, out.data, valid, out.dictionary)
+    out = cast_val(args[0], e.dtype)
+    valid = out.valid
+    for v in args[1:]:
+        v = cast_val(v, e.dtype)
+        if is_long_dec(e.dtype):
+            from presto_tpu_torch.ops import int128 as I
+            sel = I.lt(out.data, v.data)
+            pick_v = sel if e.fn == "greatest" else ~sel
+            out = Val(e.dtype, where_data(pick_v, v.data, out.data,
+                                          long=True))
+        else:
+            out = Val(e.dtype, op(out.data, v.data))
+        valid = and_valid(valid, v.valid)
+    return Val(e.dtype, out.data, valid)
+
+
+@scalar("coalesce")
+def _coalesce(e, args):
+    """The first non-NULL argument, row by row."""
+    long = is_long_dec(e.dtype)
+    if not any(a.is_string for a in args) \
+            and not isinstance(e.dtype, T.VarcharType):
+        # align to the result type (a DATE branch under a TIMESTAMP
+        # result must not mix days with micros)
+        args = [cast_val(a, e.dtype) for a in args]
+    out = args[-1]
+    for v in args[:-1][::-1]:
+        if v.valid is not None:
+            take = v.valid
+        else:
+            rows = () if (long and v.data.ndim == 1) else v.data.shape[:1]
+            take = torch.ones(rows, dtype=torch.bool, device=v.data.device)
+        if v.is_string or out.is_string:
+            v, out = _merge_dicts(v, out)
+        data = where_data(take, v.data, out.data, long=long)
+        valid = None if out.valid is None else (take | out.valid)
+        out = Val(e.dtype, data, valid, out.dictionary)
+    return out
+
+
+@scalar("row_index")
+def _row_index(e, args):
+    """A per-row identifier (planner-internal: it keys the residual
+    EXISTS decorrelation when the outer relation has no unique key).
+    One device, so the row position is unique."""
+    (a,) = args
+    return Val(e.dtype, torch.arange(a.data.shape[0], dtype=torch.int64,
+                                     device=a.data.device))
+
+
+@scalar("nullif")
+def _nullif(e, args):
+    a, b = args
+    eqv = _compare(ir.Call(T.BOOLEAN, "eq", e.args), args,
+                   lambda x, y: x == y, lambda x, y: x == y)
+    both = eqv.data if eqv.valid is None else (eqv.data & eqv.valid)
+    valid = (torch.ones_like(both) if a.valid is None else a.valid) & ~both
+    return Val(e.dtype, a.data, valid, a.dictionary)
 
 
 def _compare(e: ir.Call, args: list[Val], op, eq_only_op) -> Val:
@@ -676,3 +901,48 @@ def _substring(e, args):
         return np.array([s[s0 - 1:s0 - 1 + ln] for s in d], object)
 
     return _dict_transform(args[0], f)
+
+
+@scalar("lower")
+def _lower(e, args):
+    return _dict_transform(args[0], lambda d: np.char.lower(d).astype(object))
+
+
+@scalar("upper")
+def _upper(e, args):
+    return _dict_transform(args[0], lambda d: np.char.upper(d).astype(object))
+
+
+# the largest dictionary product a concat of two string columns builds
+_CONCAT_PRODUCT_MAX = 1 << 16
+
+
+@scalar("concat")
+def _concat(e, args):
+    """A literal side is a dictionary transform of the other side; two
+    columns take the sorted dictionary of every pair's concatenation,
+    gathered at ca * |db| + cb."""
+    a, b = args
+    valid = and_valid(a.valid, b.valid)
+    if len(a.dictionary) == 1:
+        s = str(a.dictionary[0])
+        out = _dict_transform(
+            b, lambda d: np.array([s + x for x in d], object))
+        return Val(e.dtype, out.data, valid, out.dictionary)
+    if len(b.dictionary) == 1:
+        s = str(b.dictionary[0])
+        out = _dict_transform(
+            a, lambda d: np.array([x + s for x in d], object))
+        return Val(e.dtype, out.data, valid, out.dictionary)
+    na, nb = len(a.dictionary), len(b.dictionary)
+    if na * nb > _CONCAT_PRODUCT_MAX:
+        raise NotImplementedError(
+            f"concat of string columns with {na}x{nb} dictionary product "
+            f"(> {_CONCAT_PRODUCT_MAX})")
+    product = np.array([str(x) + str(y) for x in a.dictionary
+                        for y in b.dictionary], dtype="U")
+    d, inverse = np.unique(product, return_inverse=True)
+    pair = (torch.clamp(a.data.to(torch.int64), 0, na - 1) * nb
+            + torch.clamp(b.data.to(torch.int64), 0, nb - 1))
+    remap = _lut(inverse.astype(np.int32), a.data)
+    return Val(e.dtype, _by_code(remap, pair), valid, d.astype(object))

@@ -10,7 +10,17 @@ touches a group table.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+
+@dataclasses.dataclass
+class Runs:
+    """Row runs given by each row's run start (the ``start`` field of
+    ``ops/hash.SortedGroups``, which every scan here reads)."""
+
+    start: torch.Tensor
 
 
 def _bcast(mask, ndim: int):

@@ -1,10 +1,13 @@
 """Where the time of a presto_tpu_torch query goes on the GPU.
 
     python3 profile_port.py [--scale 10] [--queries q03,q09]
-                            [--backend cuda] [--top 25] [--host]
-                            [--kernels]
+                            [--suite tpch] [--backend cuda] [--top 25]
+                            [--host] [--kernels]
 
-Generates TPC-H with the port's connector, runs each query once to
+Generates TPC-H (``--suite tpch``: the texts of chip_smoke.QUERIES)
+or TPC-DS (``--suite tpcds``: tests/test_tpcds.py's texts over the
+port's TPC-DS connector, seed 20030527 unless ``--seed`` names one)
+with the port's connector, runs each query once to
 upload its columns, then once more under ``torch.profiler`` (CPU and
 CUDA activities), and prints the query's wall time, the device-busy
 sum and the top operators by device time and by host time (with
@@ -26,7 +29,7 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import QUERIES
+from chip_smoke import QUERIES, TPCDS_SEED, tpcds_queries
 
 # the CUDA functions of each wrapper (kernels/csrc/*.cu, all in an
 # anonymous namespace; a template's arguments follow its name);
@@ -82,7 +85,10 @@ def kernel_share(events, launches: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=10.0)
-    ap.add_argument("--seed", type=int, default=19920101)
+    ap.add_argument("--seed", type=int, default=None,
+                    help="the generator's seed (19920101 for tpch, "
+                    f"{TPCDS_SEED} for tpcds)")
+    ap.add_argument("--suite", default="tpch", choices=("tpch", "tpcds"))
     ap.add_argument("--queries", default="q03,q09")
     ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"))
     ap.add_argument("--top", type=int, default=25)
@@ -103,6 +109,7 @@ def main() -> int:
         print("profile_port: no CUDA device", file=sys.stderr)
         return 2
     from presto_tpu_torch import Engine
+    from presto_tpu_torch.connectors.tpcds import TpcdsConnector
     from presto_tpu_torch.connectors.tpch import TpchConnector
     from presto_tpu_torch.kernels import build as B
 
@@ -111,18 +118,27 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip(), flush=True)
     engine = Engine()
-    engine.register_catalog("tpch", TpchConnector(scale=args.scale,
-                                                  seed=args.seed))
+    if args.suite == "tpcds":
+        queries = tpcds_queries()
+        engine.register_catalog("tpcds", TpcdsConnector(
+            scale=args.scale,
+            seed=TPCDS_SEED if args.seed is None else args.seed))
+        engine.session.catalog = "tpcds"
+    else:
+        queries = QUERIES
+        engine.register_catalog("tpch", TpchConnector(
+            scale=args.scale,
+            seed=19920101 if args.seed is None else args.seed))
     engine.session.set("kernel_backend", args.backend)
     total: dict = {}
     for q in args.queries.split(","):
-        engine.execute(QUERIES[q])  # uploads the scan columns
+        engine.execute(queries[q])  # uploads the scan columns
         torch.cuda.synchronize()
         B.LAUNCHES.reset()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            engine.execute(QUERIES[q])
+            engine.execute(queries[q])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         launches = B.LAUNCHES.snapshot()
@@ -160,7 +176,7 @@ def main() -> int:
             import pstats
             host = cProfile.Profile()
             host.enable()
-            engine.execute(QUERIES[q])
+            engine.execute(queries[q])
             torch.cuda.synchronize()
             host.disable()
             print(f"\n== {q} host (cProfile, cumulative)", flush=True)

@@ -1,7 +1,9 @@
 """On the card only (marker ``cuda``): each CUDA kernel of
 presto_tpu_torch against its plain PyTorch version, with exact
-equality (live rows for the compaction), and the 22 TPC-H queries and
-a general cross join end to end on both backends. Elsewhere
+equality (live rows for the compaction), the 22 TPC-H queries and a
+general cross join end to end on both backends, the projected
+constants of ROADMAP's P1 against the port on the CPU, and the 101
+TPC-DS queries at scale 0.1 on both backends. Elsewhere
 every test skips with its reason. This file imports neither jax nor
 presto_tpu, so it runs where only the port is installed:
 
@@ -709,3 +711,149 @@ def test_main_path_backends_agree(cuda, qname):
     if qname == "cross_join":
         notes = {t for tags in e.last_kernel_notes.values() for t in tags}
         assert "torch:compact" in notes
+
+
+# -- the TPC-DS slice --------------------------------------------------------
+
+# ROADMAP Queue 3, P1: projected constants (rows held against the
+# reference and sqlite on the CPU by tests/test_torch_expressions.py),
+# and the R6 divisions by a literal
+P1_SQL = [
+    "select 1 from region",
+    "select 'x' from region",
+    "select null from region",
+    "select r_name, 7 from region order by 1",
+    "select r_name, 2.50 from region order by 1",
+    "select count(*) from nation where n_nationkey in (select 3 from region)",
+    "select count(*) from nation where n_nationkey in "
+    "(select null from region)",
+    "select count(*) from nation where n_nationkey not in "
+    "(select null from region)",
+    "select count(*) from nation join (select 1 as k from region) t "
+    "on n_regionkey = t.k",
+    "select n_regionkey, sum(1) from nation group by 1",
+    "select count(*) from region where 1 = 0",
+    "select n_nationkey / 3 from nation",
+    "select cast(n_nationkey as double) / 2.0e0 from nation",
+    "select l_quantity / 2.00 from lineitem",
+]
+
+
+@pytest.fixture(scope="module")
+def tpch_pair():
+    """A card engine and a CPU engine over one SF0.01 connector."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on "
+                    "the card (this host has no CUDA device)")
+    conn = TpchConnector(scale=0.01)
+    card, host = Engine(), Engine(device="cpu")
+    card.register_catalog("tpch", conn)
+    host.register_catalog("tpch", conn)
+    return card, host
+
+
+@pytest.mark.parametrize("sql", P1_SQL)
+def test_projected_constants_on_the_card(tpch_pair, sql):
+    card, host = tpch_pair
+    want = host.execute(sql)
+    for backend in ("cuda", "torch"):
+        card.session.set("kernel_backend", backend)
+        assert card.execute(sql) == want, backend
+
+
+def _tpcds_queries() -> dict[str, str]:
+    """tests/test_tpcds.py's texts, read by chip_smoke's loader (that
+    module imports presto_tpu; this file does not)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import tpcds_queries
+    return tpcds_queries()
+
+
+@pytest.fixture(scope="module")
+def tpcds_card():
+    """The port on the card over its TPC-DS connector at scale 0.1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on "
+                    "the card (this host has no CUDA device)")
+    from presto_tpu_torch.connectors.tpcds import TpcdsConnector
+    e = Engine()
+    e.register_catalog("tpcds", TpcdsConnector(scale=0.1))
+    e.session.catalog = "tpcds"
+    return e, _tpcds_queries()
+
+
+@pytest.mark.parametrize("qname", sorted(_tpcds_queries()))
+def test_tpcds_backends_agree(tpcds_card, qname):
+    engine, queries = tpcds_card
+    rows = {}
+    for backend in ("cuda", "torch"):
+        engine.session.set("kernel_backend", backend)
+        rows[backend] = engine.execute(queries[qname])
+        notes = {t for tags in engine.last_kernel_notes.values()
+                 for t in tags}
+        assert all(t.startswith(backend + ":") for t in notes), notes
+    assert rows["cuda"] == rows["torch"]
+
+
+# one statement for each node and expression family the TPC-DS slice
+# ported
+NEW_PATH_SQL = {
+    "window": "select n_name, rank() over (partition by n_regionkey "
+              "order by n_name), sum(n_nationkey) over (order by n_regionkey "
+              "range between 1 preceding and 1 following) from nation",
+    "union_rollup": "select n_regionkey, n_name, count(*) from nation "
+                    "group by rollup(n_regionkey, n_name)",
+    "full_join": "select count(*), count(c_custkey), count(o_orderkey) "
+                 "from (select * from customer where c_custkey < 300) c "
+                 "full join (select * from orders where o_orderkey < 3000) o "
+                 "on c_custkey = o_custkey",
+    "mark_distinct": "select count(distinct l_suppkey), count(distinct "
+                     "l_partkey), count(*) from lineitem",
+    "values": "select x from (select 1 as x union all select 2)",
+    "expressions": "select coalesce(nullif(n_regionkey, 2), -n_nationkey), "
+                   "abs(n_nationkey - 12) % 5, upper(concat(n_name, '!')), "
+                   "n_comment is null, cast('1995-01-01' as date) "
+                   "from nation",
+    "variance": "select l_returnflag, stddev_samp(l_quantity), "
+                "var_pop(l_extendedprice) from lineitem group by 1",
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_PATH_SQL))
+def test_new_paths_add_no_stream_sync(tpch_pair, name, monkeypatch):
+    # between the executor's counted fetches (the ok ladder and the
+    # result), the statement's operators never wait for the stream:
+    # torch raises on a synchronizing call in this mode
+    from presto_tpu_torch.exec import hostsync as HS
+    card, host = tpch_pair
+    sql = NEW_PATH_SQL[name]
+    on_host = host.execute(sql)
+    card.session.set("kernel_backend", "cuda")
+    want = card.execute(sql)  # uploads the columns, builds the kernels
+    torch.cuda.synchronize()
+    fetch = HS.fetch
+
+    def counted_fetch(tree, site):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return fetch(tree, site)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(HS, "fetch", counted_fetch)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = card.execute(sql)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # float sums (the variance family's) may round apart between the
+    # card and the CPU, or between two runs of a float atomic
+    for rows in (want, on_host):
+        assert len(got) == len(rows)
+        for g, w in zip(got, rows):
+            assert all(x == y or (isinstance(x, float) and
+                                  abs(x - y) <= 1e-9 * max(abs(y), 1.0))
+                       for x, y in zip(g, w)), (g, w)

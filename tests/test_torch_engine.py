@@ -163,9 +163,9 @@ def test_table_to_host_matches_reference(engine, port):
 
 def test_unported_features_raise(port):
     with pytest.raises(NotImplementedError, match="not ported"):
-        port.execute("select stddev(l_quantity) from lineitem")
+        port.execute("select geometric_mean(l_quantity) from lineitem")
     with pytest.raises(NotImplementedError, match="not ported"):
-        port.execute("select upper(r_name) from region")
+        port.execute("select length(r_name) from region")
 
 
 # -- host-to-device uploads --------------------------------------------------

@@ -112,3 +112,46 @@ def test_kernel_ab_case_keys(name, case, key):
     finally:
         sys.path.remove(str(REPO))
     assert kernel_ab.case_key(name, case) == key
+
+
+def test_tpcds_texts_load_without_importing_presto_tpu():
+    # chip_smoke and profile_port read tests/test_tpcds.py's QUERIES
+    # literal by parsing it: importing the module would import the
+    # reference (and jax) into the port's runs
+    import json
+    import os
+    import subprocess
+    code = """
+import json, sys
+import chip_smoke
+texts = chip_smoke.tpcds_queries()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "presto_tpu"))
+print(json.dumps({"n": len(texts), "q96": "store_sales" in texts["q96"],
+                  "bad": bad}))
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "n": 101, "q96": True, "bad": []}
+    sys.path.insert(0, str(REPO / "tests"))
+    try:
+        from test_tpcds import QUERIES
+    finally:
+        sys.path.remove(str(REPO / "tests"))
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    assert chip_smoke.tpcds_queries() == dict(sorted(QUERIES.items()))
+
+
+def test_profile_port_takes_a_suite(profile_port):
+    import subprocess
+    out = subprocess.run([sys.executable, str(REPO / "profile_port.py"),
+                          "--help"], capture_output=True, text=True,
+                         timeout=120, cwd=REPO)
+    assert out.returncode == 0 and "--suite" in out.stdout
