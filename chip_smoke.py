@@ -30,12 +30,18 @@ Phases (any failure exits non-zero before the result line):
    the compaction beside its gather floor, ``index_select`` of every
    column at the live indices found beforehand plus the zeroed tail.
 3. Queries: data made by the port's own TPC-H generator from the seed;
-   every query runs with kernel_backend=cuda (the launch counts are
-   reset just before this pass and read just after, and each query's
-   peak device memory is read) and then with kernel_backend=torch;
-   rows must be identical, and Q1/Q6 (and Q11's row count, which is
-   0 at SF10) are checked against an independent numpy computation
-   over the generator's arrays.
+   every query runs through the executor's default route (block
+   streaming, segmented execution, dynamic filtering, at the session's
+   defaults) with kernel_backend=cuda (the launch counts are reset just
+   before this pass and read just after, and each query's peak device
+   memory, segments, streamed blocks, capacity rungs, host syncs and
+   uploads are read) and then with kernel_backend=torch; rows must be
+   identical, and Q1/Q6 (and Q11's row count, which is 0 at SF10) are
+   checked against an independent numpy computation over the
+   generator's arrays. The paths check: Q1 and Q6 stream in 4 blocks
+   and equal the same query unstreamed (``scan_block_rows=0``); Q5, Q9
+   and Q12 give the same rows with dynamic filtering off, and Q12's
+   orders scan keeps more live rows without it.
 4. TPC-DS: the TPC-H engine and its resident columns are let go, then
    the port's TPC-DS generator makes scale 10 (28.8M store_sales rows,
    about 66M in all) and the 101 queries of tests/test_tpcds.py run as
@@ -46,7 +52,8 @@ Phases (any failure exits non-zero before the result line):
    row that could answer it (``EMPTY_CHECKS``), and Q96's count and
    Q55's brand sums equal a numpy computation over the generator's
    arrays. A query that does not fit the card (``TPCDS_OVER_MEMORY``,
-   with its blocker) runs last and must run out of memory.
+   with its blocker) runs last and must run out of memory; q72's line
+   carries the rows of its expanding join, counted with numpy.
 
     python3 chip_smoke.py --phases kernels,tpch,tpcds   # the default
 
@@ -115,19 +122,22 @@ QUERY_KERNELS = {"q01": "cuda:agg_sum", "q06": "cuda:agg_sum",
 
 # the kernel each TPC-DS query must run on the card at scale 10 (one
 # query, at least, for each kernel the sweep launches; no query of the
-# sweep reaches segment_min or filter_compact)
+# sweep reaches segment_min): q58's segments compact their carriers
 TPCDS_QUERY_KERNELS = {"q96": "cuda:agg_sum", "q42": "cuda:join_lookup",
-                       "q07": "cuda:multijoin", "q23": "cuda:agg_max"}
+                       "q07": "cuda:multijoin", "q23": "cuda:agg_max",
+                       "q58": "cuda:compact"}
 # queries whose answer does not fit the card at scale 10, each with its
 # blocker (ROADMAP Queue 3): the phase runs them on both backends last
 # and requires the out-of-memory error, so that one that starts to fit
 # is moved back into the sweep
 TPCDS_OVER_MEMORY = {
     "q72": "its WHERE conjuncts on the dimensions stay above the LEFT "
-           "joins, so catalog_sales (14.4M rows) expands through "
-           "inventory on the item alone, about 626M rows (14.4M x 7.83M "
-           "inventory rows / 180k items), before any "
-           "filter (needs segmented execution, ROADMAP item 3f)",
+           "joins, so catalog_sales (14.4M rows) joins inventory on the "
+           "item alone, 626,407,591 rows, all live: a segment cannot "
+           "compact them, and the program that makes them runs out of "
+           "memory at 81.3 GB on both backends (needs the expanding join "
+           "streamed in blocks, ROADMAP item 4, or the dimension "
+           "predicates pushed below the LEFT joins)",
 }
 TPCDS_SCALE = 10.0
 TPCDS_SEED = 20030527  # the connector's default, as tests/test_tpcds.py
@@ -613,7 +623,6 @@ def run_queries(engine, queries: dict[str, str],
     engine.session.set("kernel_backend", backend)
     rows, secs, notes = {}, {}, {}
     for q, sql in queries.items():
-        passes0 = HS.SYNCS.by_site.get("ok-ladder", 0)
         syncs0 = HS.SYNCS.total()
         uploads0 = HS.UPLOADS.total()
         torch.cuda.synchronize()
@@ -629,8 +638,10 @@ def run_queries(engine, queries: dict[str, str],
             "host_syncs": HS.SYNCS.total() - syncs0,
             # pinned, non-blocking host-to-device copies
             "uploads": HS.UPLOADS.total() - uploads0,
-            "ok_ladder_syncs": HS.SYNCS.by_site.get("ok-ladder", 0)
-            - passes0,
+            "segments": sum(map(len, engine.last_run.segments)),
+            "blocks": engine.last_streamed_blocks,
+            # extra interpreter passes, summed over the query's programs
+            "rungs": engine.last_run.rungs,
             # resident scan columns included
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     return rows, secs, notes
@@ -672,8 +683,57 @@ def query_phase(scale: float, seed: int) -> tuple[dict, dict]:
                                  f"main path: {launches}")
     independent_checks(conn, rows)
     log("independent numpy checks of Q1, Q6 and Q11: ok")
+    paths_check(engine, rows, notes)
     log("launches " + json.dumps(launches))
     return launches, queries
+
+
+def paths_check(engine, rows: dict, notes: dict) -> None:
+    """The executor's default paths at SF10 on the cuda backend: Q1 and
+    Q6 streamed in 4 blocks equal the same queries unstreamed; Q5, Q9
+    and Q12 give the same rows without dynamic filtering, and the
+    filter prunes Q12's orders scan (the probe side of its join with the
+    filtered lineitem). At SF10 Q5's lineitem is the build side of its
+    expanding join with orders, which no filter reaches (at SF0.01 it is
+    a spine; tests/test_torch_dynamic_filter.py); Q9's lineitem spine
+    keeps every row in both packages, because its partsupp build
+    registers l_partkey again after the part build, unfiltered."""
+    from presto_tpu_torch.exec.executor import scan_live_rows
+    engine.session.set("kernel_backend", "cuda")
+    block = engine.session.get("scan_block_rows")
+    for q in ("q01", "q06"):
+        if notes[q]["blocks"] != 4:
+            raise AssertionError(f"{q} streamed in {notes[q]['blocks']} "
+                                 "blocks, not 4")
+        engine.session.set("scan_block_rows", 0)
+        try:
+            whole = engine.execute(QUERIES[q])
+        finally:
+            engine.session.set("scan_block_rows", block)
+        if whole != rows[q]:
+            raise AssertionError(f"{q}: streamed rows differ from the "
+                                 "whole-table run")
+    scanned = {}  # (query, table, filter on) -> live rows of its scans
+    for df in (True, False):
+        engine.session.set("enable_dynamic_filtering", df)
+        try:
+            for q in ("q05", "q09", "q12"):
+                got = engine.execute(QUERIES[q])
+                for table in ("lineitem", "orders"):
+                    scanned[f"{q} {table} {'on' if df else 'off'}"] = \
+                        scan_live_rows(engine, table)
+                if got != rows[q]:
+                    raise AssertionError(f"{q}: rows differ with dynamic "
+                                         f"filtering {df}")
+        finally:
+            engine.session.set("enable_dynamic_filtering", True)
+    on, off = scanned["q12 orders on"], scanned["q12 orders off"]
+    if not sum(on) < sum(off):
+        raise AssertionError(f"q12: the filter kept {on} of {off} "
+                             "orders rows")
+    log("paths " + json.dumps({
+        "streamed_blocks": {q: notes[q]["blocks"] for q in ("q01", "q06")},
+        "scan_live_rows": scanned}))
 
 
 # -- phase 4: TPC-DS at scale 10 ---------------------------------------------
@@ -955,11 +1015,26 @@ def tpcds_phase(scale: float, seed: int) -> dict:
     check_q55(conn, rows["q55"])
     log("independent numpy checks of Q96 and Q55: ok")
     for q, blocker in TPCDS_OVER_MEMORY.items():
-        require_over_memory(engine, q, queries[q], blocker)
+        require_over_memory(engine, q, queries[q], blocker,
+                            {"expanding_join_rows": q72_expansion(conn)}
+                            if q == "q72" else {})
     return launches
 
 
-def require_over_memory(engine, q: str, sql: str, blocker: str) -> None:
+def q72_expansion(conn) -> int:
+    """The rows of q72's join of catalog_sales with inventory on the
+    item alone (each sale meets every inventory row of its item),
+    counted with numpy over the generator's arrays."""
+    item, ok = _host(conn, "catalog_sales", "cs_item_sk")
+    inv, inv_ok = _host(conn, "inventory", "inv_item_sk")
+    per_item = np.bincount(inv[inv_ok].astype(np.int64))
+    sold = item[ok].astype(np.int64)
+    sold = sold[sold < len(per_item)]
+    return int(per_item[sold].sum())
+
+
+def require_over_memory(engine, q: str, sql: str, blocker: str,
+                        measured: dict) -> None:
     """Run ``q`` on both backends and require the card's out-of-memory
     error; the memory it held is released before the next run."""
     import torch
@@ -981,7 +1056,7 @@ def require_over_memory(engine, q: str, sql: str, blocker: str) -> None:
                 "TPCDS_OVER_MEMORY")
         log("tpcds " + json.dumps({"query": q, "backend": backend,
                                    "out_of_memory_at_gb": peak,
-                                   "blocker": blocker}))
+                                   **measured, "blocker": blocker}))
 
 
 def main() -> int:

@@ -56,18 +56,27 @@ class Engine:
         # the id so a recycled address cannot alias
         self._dev_cache: dict[int, tuple[np.ndarray, torch.Tensor]] = {}
         self.last_warnings: list = []
-        # per-node kernel notes and backend of the last query
+        # the last query: kernel notes by (program, node position), its
+        # backend, its programs (exec/executor.QueryRun) and the blocks
+        # it streamed (0 when it did not stream)
         self.last_kernel_notes: dict = {}
         self.last_backend: str | None = None
+        self.last_run = None
+        self.last_streamed_blocks = 0
 
     def register_catalog(self, name: str, connector: Connector) -> None:
         self.catalogs[name] = connector
 
+    def resident(self, a) -> torch.Tensor | None:
+        """The device copy of a host scan array if the engine holds one."""
+        hit = self._dev_cache.get(id(a))
+        return hit[1] if hit is not None and hit[0] is a else None
+
     def device_array(self, a) -> torch.Tensor:
         """The device copy of a host scan array, uploaded once."""
-        hit = self._dev_cache.get(id(a))
-        if hit is not None and hit[0] is a:
-            return hit[1]
+        dev = self.resident(a)
+        if dev is not None:
+            return dev
         host = np.asarray(a)
         if host.dtype == object:
             raise NotImplementedError(

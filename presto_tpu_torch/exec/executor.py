@@ -1,22 +1,41 @@
 """Plan executor: logical plan -> eager tensor operators -> host Table.
 
-The port of ``presto_tpu/exec/executor.py`` for the main path. The
-reference traces the whole plan into one XLA program; here the
-``PlanInterpreter`` walks the plan and runs each operator eagerly on
-the engine's device, in one pass over the whole plan.
+The port of ``presto_tpu/exec/executor.py``. The reference traces each
+program into one XLA computation; here the ``PlanInterpreter`` walks a
+program's plan and runs each operator eagerly on the engine's device.
+
+``execute_plan`` takes the reference's default route, in its order:
+
+1. Block streaming (``exec/streaming.py``): one scan of more than
+   ``scan_block_rows`` rows under a SINGLE aggregate runs as one
+   PARTIAL program per block, then a FINAL program over the partials.
+2. Segmented execution: a plan with more than ``MAX_JOINS_PER_PROGRAM``
+   joins, or a grouped aggregate above a join over at least
+   ``AGG_SPLIT_MIN_ROWS`` scan rows, runs as a sequence of programs.
+   Each segment materializes a subtree as a device-resident carrier
+   scan, pruned to the columns used above it and compacted to
+   pow2(live rows) when that at least halves it.
+3. The whole plan as one program.
 
 Hash-table capacities follow the reference: planner hints (pow2) or a
 2x-input default; every operator that can overflow returns a 0-d
-``ok`` tensor, the executor reads all of them in ONE host sync after
-the pass, and on overflow grows every failed capacity RETRY_GROWTH x
-and runs the plan again (the capacity retry ladder).
+``ok`` tensor. Each program runs its own capacity retry ladder: the ok
+flags and the live rows out of every plan node come back in ONE host
+sync after a pass, and on overflow every failed capacity grows
+RETRY_GROWTH x and the program (not the query) runs again.
 
-Left out so far (ROADMAP): the AOT program cache, plan templates,
-block streaming, spill, grouped and segmented execution, dynamic
-filtering, per-node row statistics, and every plan node outside
-TableScan, Values, Filter, Project, Aggregate, Join, MultiJoin,
-SemiJoin, CrossJoin, Union, Window, MarkDistinct, Distinct, Sort,
-TopN, Limit, Exchange and Output (each raises NotImplementedError).
+Dynamic filtering (session ``enable_dynamic_filtering``): a one-hash
+bloom of each inner join's build keys kills probe rows at the first
+node of the probe subtree that outputs the key.
+
+Left out so far (ROADMAP): the AOT program cache, plan templates
+(carrier widths take the reference's exact rule, ``cap_floor=None``),
+spill and grouped execution, the parallel segment pool (segments run
+in order on one stream), match-recognize, varlen aggregates, and every
+plan node outside TableScan, Values, Filter, Project, Aggregate, Join,
+MultiJoin, SemiJoin, CrossJoin, Union, Window, MarkDistinct, Distinct,
+Sort, TopN, Limit, Exchange and Output (each raises
+NotImplementedError).
 """
 
 from __future__ import annotations
@@ -32,12 +51,23 @@ from presto_tpu_torch.exec import hostsync as HS
 from presto_tpu_torch.exec import operators as OP
 from presto_tpu_torch.exec.operators import DTable
 from presto_tpu_torch.expr.compile import Val
+from presto_tpu_torch.ops import hash as H
 from presto_tpu_torch.ops.hash import HashChainOverflow, grow_overflowed
 from presto_tpu_torch.ops.sizes import next_pow2
 from presto_tpu_torch.plan import nodes as N
 
 RETRY_GROWTH = 4  # overshoot on overflow to bound re-runs at ~1
 MAX_ATTEMPTS = 6
+
+# The reference cuts plans with more joins than this into segments
+# because XLA compile time grows superlinearly with program size. Eager
+# torch compiles nothing, but the cut stays: it decides where carriers
+# are compacted and which program a failed capacity re-runs.
+MAX_JOINS_PER_PROGRAM = 2
+# minimum estimated scan rows under an aggregate before its input gets
+# its own compaction boundary
+AGG_SPLIT_MIN_ROWS = 1 << 21
+SEGMENT_CATALOG = "__segment__"
 
 
 @dataclasses.dataclass
@@ -52,49 +82,120 @@ class ScanInput:
     live: torch.Tensor | None = None
 
 
-def collect_scans(plan: N.PlanNode, engine) -> dict[int, ScanInput]:
-    """id(TableScan) -> its columns on the engine's device (uploaded
-    once per (table, column) and cached by the engine)."""
+@dataclasses.dataclass
+class QueryRun:
+    """What the engine's last query ran, over all its programs
+    (streamed blocks, segments, the final plan) in the order they ran."""
+
+    programs: list = dataclasses.field(default_factory=list)
+    # interpreter passes of each program: 1 + its capacity rungs
+    passes: list[int] = dataclasses.field(default_factory=list)
+    # (program, preorder position) -> live rows out of that node
+    node_rows: dict[tuple[int, int], int] = dataclasses.field(
+        default_factory=dict)
+    # the subtrees materialized as carriers, wave by wave
+    segments: list[list[N.PlanNode]] = dataclasses.field(
+        default_factory=list)
+
+    @property
+    def rungs(self) -> int:
+        return sum(self.passes) - len(self.passes)
+
+
+def scan_live_rows(engine, table: str) -> list[int]:
+    """Live rows out of every scan of ``table`` in the engine's last
+    query (after dynamic filtering), in program order."""
+    run = engine.last_run
+    return [run.node_rows[(i, pos)]
+            for i, plan in enumerate(run.programs)
+            for pos, node in enumerate(_preorder(plan))
+            if isinstance(node, N.TableScan) and node.table == table
+            and (i, pos) in run.node_rows]
+
+
+def _scan_input(node: N.TableScan, tbl, to_device, nrows: int
+                ) -> ScanInput:
+    """The scanned columns of connector table ``tbl``, each put on the
+    device by ``to_device`` (host array -> tensor of ``nrows`` rows)."""
+    arrays, dicts, types = {}, {}, {}
+    for sym, colname in node.assignments.items():
+        col = tbl.columns[colname]
+        if isinstance(col.dtype, T.ArrayType):
+            raise NotImplementedError(
+                "ARRAY columns are not ported to presto_tpu_torch yet")
+        arrays[sym] = to_device(col.data)
+        if col.valid is not None:
+            arrays[f"{sym}$valid"] = to_device(col.valid)
+        dicts[sym] = col.dictionary
+        types[sym] = col.dtype
+    live = None if tbl.mask is None else to_device(tbl.mask)
+    return ScanInput(node, arrays, dicts, types, nrows, live)
+
+
+def collect_scans(plan: N.PlanNode, engine,
+                  carriers: dict[str, ScanInput] | None = None
+                  ) -> dict[int, ScanInput]:
+    """id(TableScan) -> its input: a connector table's columns, or a
+    segment carrier of ``carriers`` found by its unique table name, so
+    that a scan node rebuilt by column pruning still finds it (the
+    reference's _collect_with_carriers). A table's columns go to the
+    device once per (table, column) and stay cached by the engine."""
     out: dict[int, ScanInput] = {}
 
     def visit(node):
         if isinstance(node, N.TableScan):
-            connector = engine.catalogs[node.catalog]
-            tbl = connector.table(node.table)
-            arrays, dicts, types = {}, {}, {}
-            for sym, colname in node.assignments.items():
-                col = tbl.columns[colname]
-                if isinstance(col.dtype, T.ArrayType):
-                    raise NotImplementedError(
-                        "ARRAY columns are not ported to presto_tpu_torch "
-                        "yet")
-                arrays[sym] = engine.device_array(col.data)
-                if col.valid is not None:
-                    arrays[f"{sym}$valid"] = engine.device_array(col.valid)
-                dicts[sym] = col.dictionary
-                types[sym] = col.dtype
-            live = (None if tbl.mask is None
-                    else engine.device_array(tbl.mask))
-            out[id(node)] = ScanInput(node, arrays, dicts, types,
-                                      tbl.nrows, live)
-        for s in node.sources():
-            visit(s)
+            if node.catalog == SEGMENT_CATALOG:
+                out[id(node)] = _rebind_carrier(carriers[node.table], node)
+            else:
+                tbl = engine.catalogs[node.catalog].table(node.table)
+                out[id(node)] = _scan_input(node, tbl, engine.device_array,
+                                            tbl.nrows)
+        else:
+            for s in node.sources():
+                visit(s)
 
     visit(plan)
     return out
 
 
+def _rebind_carrier(si: ScanInput, node: N.TableScan) -> ScanInput:
+    """A carrier re-pointed at a rebuilt (possibly column-narrowed)
+    copy of its scan node, arrays restricted to the surviving symbols
+    and their $valid companions."""
+    if node is si.node and set(node.assignments) == set(si.types):
+        return si
+    keep = set(node.assignments)
+
+    def base(k: str) -> str:
+        # partial-aggregate state symbols contain '$' too ("rev$sum"):
+        # only the companion suffix strips
+        b, sep, suffix = k.rpartition("$")
+        return b if sep and suffix == "valid" else k
+
+    return dataclasses.replace(
+        si, node=node,
+        arrays={k: v for k, v in si.arrays.items() if base(k) in keep},
+        dictionaries={s: si.dictionaries.get(s) for s in keep},
+        types={s: si.types[s] for s in keep})
+
+
+def _df_hash(v: Val) -> torch.Tensor:
+    """Content hash of a key column for dynamic-filter blooms (int64 bit
+    patterns of the reference's uint64 hashes)."""
+    if v.is_string:
+        return H.hash_string_column(v.data, v.dictionary, v.valid)
+    return H.hash_int_column(v.data, v.valid)
+
+
+def _preorder(node: N.PlanNode):
+    yield node
+    for s in node.sources():
+        yield from _preorder(s)
+
+
 def preorder_index(plan: N.PlanNode) -> dict[int, int]:
     """id(node) -> stable preorder position (capacity-override keys)."""
-    order: dict[int, int] = {}
-
-    def visit(node):
-        order[id(node)] = len(order)
-        for s in node.sources():
-            visit(s)
-
-    visit(plan)
-    return order
+    return {id(node): i for i, node in enumerate(_preorder(plan))}
 
 
 class PlanInterpreter:
@@ -114,6 +215,13 @@ class PlanInterpreter:
         # stable preorder position -> ["cuda:join_lookup", ...] noted
         # by the kernel entries while this node ran
         self.kernel_used: dict[object, list[str]] = {}
+        # live rows out of every node: (preorder position, 0-d count)
+        self.collect_rows = True
+        self.row_counts: list[tuple[object, torch.Tensor]] = []
+        # dynamic filtering: probe-key symbol -> bloom bits of the build
+        # side's keys, applied once, at the first node that outputs it
+        self.dyn_filters: dict[str, torch.Tensor] = {}
+        self._df_applied: set[str] = set()
 
     def run(self, node: N.PlanNode) -> DTable:
         from presto_tpu_torch import kernels as K
@@ -124,10 +232,49 @@ class PlanInterpreter:
                 "presto_tpu_torch yet")
         with K.collect() as used:
             dt = m(node)
+        key = self.node_order.get(id(node), id(node))
         if used:
-            self.kernel_used[
-                self.node_order.get(id(node), id(node))] = list(used)
+            self.kernel_used[key] = list(used)
+        if self.dyn_filters:
+            dt = self._apply_dyn_filters(dt)
+        if self.collect_rows:
+            self.row_counts.append((key, torch.sum(
+                dt.live_mask().to(torch.int64))))
         return dt
+
+    def _apply_dyn_filters(self, dt: DTable) -> DTable:
+        keep = None
+        for sym, bits in self.dyn_filters.items():
+            v = dt.cols.get(sym)
+            if v is None or sym in self._df_applied:
+                continue
+            self._df_applied.add(sym)
+            # the reference's h % m for a pow2 m; the mask bounds the
+            # gather's index to [0, m)
+            k = bits.index_select(0, _df_hash(v) & (bits.shape[0] - 1))
+            if v.valid is not None:
+                k = k & v.valid  # NULL keys never match an inner join
+            keep = k if keep is None else (keep & k)
+        if keep is None:
+            return dt
+        live = keep if dt.live is None else (dt.live & keep)
+        return DTable(dt.cols, live, dt.n, dt.device)
+
+    def _collect_dyn_filters(self, criteria: list[tuple[str, str]],
+                             build: DTable, max_bits: int = 1 << 22):
+        """Register a one-hash bloom of the build side's keys for each
+        equi-key before the probe subtree runs. A false positive only
+        costs pruning (the join re-verifies); a false negative cannot
+        happen."""
+        live = build.live_mask()
+        m = next_pow2(min(4 * max(build.n, 16), max_bits))
+        for lk, rk in criteria:
+            v = build.cols[rk]
+            w = live if v.valid is None else (live & v.valid)
+            # dead and NULL keys land in slot m, which is dropped
+            slots = (_df_hash(v) & (m - 1)).masked_fill(~w, m)
+            bits = torch.zeros(m + 1, dtype=torch.bool, device=self.device)
+            self.dyn_filters[lk] = bits.index_fill_(0, slots, True)[:m]
 
     def _node_key(self, node, kind: str) -> tuple:
         return (self.node_order.get(id(node), id(node)), kind)
@@ -208,7 +355,11 @@ class PlanInterpreter:
         return out
 
     def _r_join(self, node: N.Join) -> DTable:
+        # build side first, so its keys can prune the probe subtree
         right = self.run(node.right)
+        if (node.join_type == N.JoinType.INNER
+                and self.session.get("enable_dynamic_filtering")):
+            self._collect_dyn_filters(node.criteria, right)
         left = self.run(node.left)
         cap = self._capacity(node, next_pow2(2 * right.n),
                              most=next_pow2(2 * right.n))
@@ -223,7 +374,13 @@ class PlanInterpreter:
         return out
 
     def _r_multijoin(self, node: N.MultiJoin) -> DTable:
-        builds = [self.run(b) for b in node.builds]
+        # every build registers its keys, so the spine scan prunes
+        # against all of them at once
+        builds = []
+        for bnode, crit in zip(node.builds, node.criteria):
+            builds.append(self.run(bnode))
+            if self.session.get("enable_dynamic_filtering"):
+                self._collect_dyn_filters(crit, builds[-1])
         spine = self.run(node.spine)
         default = next_pow2(
             2 * max(max((b.n for b in builds), default=1), 1))
@@ -308,46 +465,338 @@ class PlanInterpreter:
 
 
 def execute_plan(engine, plan: N.PlanNode) -> Table:
-    """Run a logical plan on the engine's device."""
+    """Run a logical plan on the engine's device: block-streamed when
+    its one scan exceeds the session block size and its shape allows,
+    else segmented when it has a split, else whole."""
+    from presto_tpu_torch.exec.streaming import try_execute_streamed
+    engine.last_run = QueryRun()
+    engine.last_kernel_notes = {}
+    engine.last_streamed_blocks = 0
+    streamed = try_execute_streamed(engine, plan)
+    if streamed is not None:
+        return streamed
+    if _find_split(plan, engine) is not None:
+        return _execute_segmented(engine, plan)
     return run_plan(engine, plan, collect_scans(plan, engine))
 
 
-def run_plan(engine, plan: N.PlanNode,
-             scans: dict[int, ScanInput]) -> Table:
-    """One interpreter pass per capacity rung; the ok flags of a pass
-    come back in one host sync, and the result columns in one more."""
+@dataclasses.dataclass
+class Program:
+    """One program run to the end of its capacity ladder."""
+
+    out: DTable  # on the device
+    index: int  # position in engine.last_run.programs
+    row_keys: list
+    # the per-node live rows of the last pass: host values when they
+    # came back with the ok flags, else a device tensor (or None) for
+    # the caller's next hostsync.fetch
+    counts: object
+
+    def note_rows(self, engine, counts) -> None:
+        if counts is not None:
+            engine.last_run.node_rows.update(
+                {(self.index, k): int(c)
+                 for k, c in zip(self.row_keys, counts)})
+
+
+def prepare_plan(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
+                 capacities: dict[tuple, int] | None = None,
+                 site: str = "ok-ladder",
+                 collect_rows: bool = True) -> Program:
+    """One interpreter pass per capacity rung over ``scans``; a pass's
+    ok flags and node row counts come back in one host sync (a program
+    without ok flags takes none). ``capacities`` carries grown
+    capacities in and out (block streaming shares them across blocks).
+    Kernel notes, passes and rows add up on ``engine.last_run`` across
+    the programs of a query."""
     from presto_tpu_torch import kernels as K
     backend = K.resolve(engine.session, engine.device)
     order = preorder_index(plan)
-    capacities: dict[tuple, int] = {}
+    capacities = {} if capacities is None else capacities
+    run = engine.last_run
+    index = len(run.programs)
+    run.programs.append(plan)
+    run.passes.append(0)
     for _attempt in range(MAX_ATTEMPTS):
+        run.passes[index] += 1
         interp = PlanInterpreter(scans, capacities, engine.session,
                                  engine.device, order)
+        interp.collect_rows = collect_rows
         with K.use_backend(backend):
             out = interp.run(plan)
-        oks = (torch.stack([o.reshape(()) for o in interp.ok_flags])
-               if interp.ok_flags else None)
-        oks_np = (HS.fetch(oks, site="ok-ladder") if oks is not None
-                  else np.ones(0, dtype=bool))
+        counts = (torch.stack([c for _k, c in interp.row_counts])
+                  if interp.row_counts else None)
+        if not interp.ok_flags:
+            break
+        oks = torch.stack([o.reshape(()) for o in interp.ok_flags])
+        oks_np, counts = HS.fetch((oks, counts), site=site)
         if oks_np.all():
             break
         grow_overflowed(capacities, interp.ok_keys, oks_np,
                         interp.used_capacity, RETRY_GROWTH)
     else:
         raise HashChainOverflow("hash table capacity retry limit exceeded")
-    engine.last_kernel_notes = dict(interp.kernel_used)
+    engine.last_kernel_notes.update(
+        {(index, pos): tags for pos, tags in interp.kernel_used.items()})
     engine.last_backend = backend
+    return Program(out, index, [k for k, _c in interp.row_counts], counts)
 
+
+def run_plan(engine, plan: N.PlanNode,
+             scans: dict[int, ScanInput]) -> Table:
+    """Run a program and fetch its result columns (with its node rows)
+    in one more host sync."""
+    prog = prepare_plan(engine, plan, scans)
+    out = prog.out
     res = []
     for v in out.cols.values():
         res.append(v.data)
         res.append(v.valid)
-    live_np, res_np = HS.fetch((out.live_mask(), res), site="result-demux")
+    live_np, res_np, counts = HS.fetch(
+        (out.live_mask(), res, prog.counts), site="result-demux")
+    prog.note_rows(engine, counts)
     cols: dict[str, Column] = {}
     for i, (sym, v) in enumerate(out.cols.items()):
         data, valid = res_np[2 * i], res_np[2 * i + 1]
         cols[sym] = Column(v.dtype, data, valid, v.dictionary)
     return Table(_rename_outputs(plan, cols), len(live_np), live_np)
+
+
+def device_outputs(dt: DTable, counts=None) -> tuple:
+    """A program's output in segment-carrier form: (arrays incl.
+    $valid, dictionaries, types, n, live, counts). One counted fetch
+    reads the live count (and ``counts``, a program's node rows still
+    on the device). The outputs compact to pow2(live count), at least
+    128 rows, when that at least halves the buffer, so later segments
+    never churn through dead padding. A scalar column expands to its
+    rows first."""
+    cnt, counts = HS.fetch((torch.sum(dt.live_mask().to(torch.int64)),
+                            counts), site="segment-width")
+    cnt = int(cnt)
+    cols = {sym: Val(v.dtype, OP._rows(
+                v.data, dt.n, isinstance(v.dtype, T.DecimalType)
+                and v.dtype.is_long),
+                None if v.valid is None else v.valid.expand(dt.n),
+                v.dictionary)
+            for sym, v in dt.cols.items()}
+    live, n = dt.live, dt.n
+    cap = max(128, next_pow2(max(cnt, 1)))
+    if cap <= n // 2:
+        # the compaction's ok flag is cnt <= cap, true by construction:
+        # it is not fed to a ladder
+        assert cnt <= cap
+        compacted, _ok = OP.compact_dtable(DTable(cols, live, n, dt.device),
+                                           cap)
+        cols, live, n = compacted.cols, compacted.live, cap
+    arrays: dict[str, torch.Tensor] = {}
+    for sym, v in cols.items():
+        arrays[sym] = v.data
+        if v.valid is not None:
+            arrays[f"{sym}$valid"] = v.valid
+    return (arrays, {s: v.dictionary for s, v in cols.items()},
+            {s: v.dtype for s, v in cols.items()}, n, live, counts)
+
+
+def run_plan_device(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
+                    node: N.TableScan) -> ScanInput:
+    """Run a segment's program and keep its output on the device as the
+    carrier that ``node`` scans (see device_outputs). The compaction
+    runs on the program's kernel backend, and its kernel notes go under
+    (program, "carrier")."""
+    from presto_tpu_torch import kernels as K
+    prog = prepare_plan(engine, plan, scans)
+    with K.use_backend(engine.last_backend), K.collect() as used:
+        arrays, dicts, types, n, live, counts = device_outputs(
+            prog.out, prog.counts)
+    if used:
+        engine.last_kernel_notes[(prog.index, "carrier")] = list(used)
+    prog.note_rows(engine, counts)
+    return ScanInput(node, arrays, dicts, types, n, live)
+
+
+def _count_joins(node: N.PlanNode) -> int:
+    # a MultiJoin counts its fan-in, and whole: _find_split never cuts
+    # inside the fused operator
+    own = (len(node.builds) if isinstance(node, N.MultiJoin)
+           else int(isinstance(node, (N.Join, N.SemiJoin))))
+    return own + sum(_count_joins(s) for s in node.sources())
+
+
+def _find_split(node: N.PlanNode, engine=None):
+    """A subtree with <= MAX_JOINS_PER_PROGRAM joins (at least one) to
+    materialize first, or None when the plan runs as one program."""
+    if _count_joins(node) <= MAX_JOINS_PER_PROGRAM:
+        return _find_agg_input_split(node, engine)
+    if isinstance(node, N.MultiJoin):
+        # large inputs materialize the fused operator whole, so the
+        # aggregate above runs at compacted live width; small plans run
+        # it with everything above in one program
+        if engine is None or _subtree_scan_rows(node, engine) \
+                >= AGG_SPLIT_MIN_ROWS:
+            return node
+        return None
+    best = max(node.sources(), key=_count_joins)
+    c = _count_joins(best)
+    if c > MAX_JOINS_PER_PROGRAM:
+        return _find_split(best, engine)
+    if c < 1:
+        return None
+    # a grouped aggregate inside the chosen subtree still wants its own
+    # pre-compaction boundary (its group-by must not run at join width)
+    inner = _find_agg_input_split(best, engine)
+    return inner if inner is not None else best
+
+
+def _subtree_scan_rows(node: N.PlanNode, engine) -> int:
+    """Largest base-scan row estimate in a subtree. A carrier counts as
+    large: it exists because an earlier split materialized a big
+    intermediate."""
+    if isinstance(node, N.TableScan):
+        if node.catalog == SEGMENT_CATALOG:
+            return 1 << 62
+        conn = engine.catalogs.get(node.catalog)
+        return 0 if conn is None else int(conn.row_count_estimate(
+            node.table))
+    return max((_subtree_scan_rows(s, engine) for s in node.sources()),
+               default=0)
+
+
+def _find_agg_input_split(node: N.PlanNode, engine=None):
+    """Pre-aggregation compaction boundary: the input subtree of the
+    lowest grouped Aggregate that sits above at least one join (over at
+    least AGG_SPLIT_MIN_ROWS scan rows). Joins and selective filters
+    leave most of a static-width buffer dead; as a segment, the input is
+    compacted to pow2(live) before the group-by runs."""
+    for s in node.sources():
+        found = _find_agg_input_split(s, engine)
+        if found is not None:
+            return found
+    if isinstance(node, N.Aggregate) and node.group_keys \
+            and not isinstance(node.source, N.TableScan) \
+            and _count_joins(node.source) >= 1 \
+            and (engine is None or _subtree_scan_rows(
+                node.source, engine) >= AGG_SPLIT_MIN_ROWS):
+        return node.source
+    return None
+
+
+def _contains_carrier(node: N.PlanNode, names: set[str]) -> bool:
+    """Does a subtree scan any of the named carriers?"""
+    if isinstance(node, N.TableScan):
+        return node.catalog == SEGMENT_CATALOG and node.table in names
+    return any(_contains_carrier(s, names) for s in node.sources())
+
+
+def _needed_above(plan: N.PlanNode, sub: N.PlanNode):
+    """Symbols of ``sub``'s output that the rest of ``plan`` consumes,
+    or None when that cannot be determined: splice a placeholder scan
+    where ``sub`` stands, prune the outer plan, and read back which
+    placeholder columns survived."""
+    from presto_tpu_torch.exec.streaming import _replace_node
+    from presto_tpu_torch.plan.optimizer import prune_columns
+
+    tag = "__needed_probe__"
+    probe = N.TableScan(tag, tag, {s: s for s in sub.output_symbols},
+                        dict(sub.output_types()))
+    shadow = _replace_node(plan, sub, probe)
+    try:
+        pruned = prune_columns(shadow, None if isinstance(
+            shadow, N.Output) else set(shadow.output_symbols))
+    except NotImplementedError:
+        return None  # a node prune_columns does not know: keep all
+    found = [n for n in _preorder(pruned)
+             if isinstance(n, N.TableScan) and n.catalog == tag]
+    if len(found) != 1:
+        return None
+    return set(found[0].assignments)
+
+
+def _prune_subtree(sub: N.PlanNode, needed: set):
+    """Narrow a subtree to be materialized to its ``needed`` output
+    symbols (the unpruned subtree where pruning cannot). An identity
+    Project caps it, because joins cannot drop their own pass-through
+    columns."""
+    from presto_tpu_torch.expr import ir
+    from presto_tpu_torch.plan.optimizer import prune_columns
+    types = dict(sub.output_types())
+    cap = N.Project(sub, {s: ir.ColumnRef(types[s], s)
+                          for s in sub.output_symbols if s in needed})
+    try:
+        pruned = prune_columns(cap, set(needed))
+    except NotImplementedError:
+        return sub
+    if not needed <= set(pruned.output_symbols):
+        return sub
+    return pruned
+
+
+def _plan_segments(plan: N.PlanNode, engine) -> tuple:
+    """(the plan that remains, the segments: [[(subtree, carrier scan
+    node), ...] per wave]). A wave holds the successive splits that read
+    no carrier of the same wave; each split's subtree is narrowed to the
+    columns used above it and replaced by a carrier scan. Finding the
+    splits reads only the plan and the connectors' row estimates, so
+    it runs ahead of the programs."""
+    from presto_tpu_torch.exec.streaming import _replace_node
+    waves: list[list[tuple]] = []
+    seg = 0
+    while True:
+        wave: list[tuple] = []
+        names: set[str] = set()
+        probe = plan
+        while True:
+            sub = _find_split(probe, engine)
+            if sub is None or _contains_carrier(sub, names):
+                break
+            needed = _needed_above(probe, sub)
+            mat = sub
+            if needed is not None and needed < set(sub.output_symbols):
+                mat = _prune_subtree(sub, needed)
+            name = f"s{seg}"
+            seg += 1
+            cnode = N.TableScan(SEGMENT_CATALOG, name,
+                                {s: s for s in mat.output_symbols},
+                                dict(mat.output_types()))
+            # _replace_node rebuilds every interior node, so later
+            # splits of the wave are found in ``probe``
+            probe = _replace_node(probe, sub, cnode)
+            wave.append((mat, cnode))
+            names.add(name)
+        if not wave:
+            return plan, waves
+        waves.append(wave)
+        plan = probe
+
+
+def _segment_carriers(engine, plan: N.PlanNode) -> tuple:
+    """Materialize the segments in order, each as a device-resident
+    carrier. Returns (the plan that remains, carriers by name)."""
+    rest, waves = _plan_segments(plan, engine)
+    engine.last_run.segments = [[mat for mat, _c in w] for w in waves]
+    carriers: dict[str, ScanInput] = {}
+    for wave in waves:
+        for mat, cnode in wave:
+            carriers[cnode.table] = run_plan_device(
+                engine, mat, collect_scans(mat, engine, carriers), cnode)
+    return rest, carriers
+
+
+def _execute_segmented(engine, plan: N.PlanNode) -> Table:
+    """Run a plan as a sequence of segment programs whose outputs stay
+    on the device and feed the next program as carrier scans."""
+    plan, carriers = _segment_carriers(engine, plan)
+    return run_plan(engine, plan, collect_scans(plan, engine, carriers))
+
+
+def run_plan_live(engine, plan: N.PlanNode) -> torch.Tensor:
+    """Run a plan on the device (segmenting it as ``execute_plan``
+    would) and return only its final live mask, a device tensor: the
+    result's rows are not fetched."""
+    engine.last_run = QueryRun()
+    engine.last_kernel_notes = {}
+    plan, carriers = _segment_carriers(engine, plan)
+    return prepare_plan(engine, plan, collect_scans(
+        plan, engine, carriers)).out.live_mask()
 
 
 def _rename_outputs(plan: N.PlanNode,

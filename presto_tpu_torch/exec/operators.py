@@ -796,15 +796,17 @@ def apply_cross_scalar(left: DTable, right: DTable) -> DTable:
     """Cross join against a single-row relation (an uncorrelated scalar
     subquery): the scalar row's columns broadcast over the probe side.
     The live row's index is an argmax on the device (0 with no live
-    row; validity then makes every value NULL)."""
+    row; validity then makes every value NULL), gathered by
+    ``index_select``: indexing with a 0-d tensor reads it on the host."""
     rlive = right.live_mask()
-    idx = torch.argmax(rlive.to(torch.int32))
+    idx = torch.argmax(rlive.to(torch.int32)).reshape(1)
     any_live = torch.any(rlive)
     out = dict(left.cols)
     for sym, v in right.cols.items():
-        data = v.data[idx]
+        data = v.data.index_select(0, idx)[0]
         data = data.expand((left.n,) + tuple(data.shape))
-        rv = any_live if v.valid is None else (any_live & v.valid[idx])
+        rv = any_live if v.valid is None else (
+            any_live & v.valid.index_select(0, idx)[0])
         out[sym] = Val(v.dtype, data, rv.expand(left.n), v.dictionary)
     return DTable(out, left.live, left.n, left.device)
 

@@ -2,10 +2,13 @@
 presto_tpu_torch against its plain PyTorch version, with exact
 equality (live rows for the compaction), the 22 TPC-H queries and a
 general cross join end to end on both backends, the projected
-constants of ROADMAP's P1 against the port on the CPU, and the 101
-TPC-DS queries at scale 0.1 on both backends. Elsewhere
-every test skips with its reason. This file imports neither jax nor
-presto_tpu, so it runs where only the port is installed:
+constants of ROADMAP's P1 against the port on the CPU, the 101
+TPC-DS queries at scale 0.1 on both backends, and the executor's
+default paths: carrier compaction through the kernel, a block-streamed
+Q1 on both backends, and dynamic filtering and segmented plans without
+a synchronizing call. Elsewhere every test skips with its reason. This
+file imports neither jax nor presto_tpu, so it runs where only the port
+is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -16,6 +19,7 @@ import torch
 
 from presto_tpu_torch import Engine
 from presto_tpu_torch.connectors.tpch import TpchConnector
+from presto_tpu_torch.exec import executor as EX
 from presto_tpu_torch.exec import operators as OP
 from presto_tpu_torch import kernels as K
 from presto_tpu_torch import types as T
@@ -819,20 +823,27 @@ NEW_PATH_SQL = {
                    "from nation",
     "variance": "select l_returnflag, stddev_samp(l_quantity), "
                 "var_pop(l_extendedprice) from lineitem group by 1",
+    # the executor's paths: a bloom of the part keys prunes lineitem;
+    # TPC-H Q18 runs as two segments and a last program at SF0.01
+    "dynamic_filter": "select sum(l_extendedprice) / 7.0 from lineitem, "
+                      "part where p_partkey = l_partkey and p_brand = "
+                      "'Brand#23' and p_container = 'MED BOX'",
+    "segmented": "q18",
 }
 
 
-@pytest.mark.parametrize("name", sorted(NEW_PATH_SQL))
-def test_new_paths_add_no_stream_sync(tpch_pair, name, monkeypatch):
-    # between the executor's counted fetches (the ok ladder and the
-    # result), the statement's operators never wait for the stream:
-    # torch raises on a synchronizing call in this mode
+def _tpch_sql(name: str) -> str:
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    from tpch_queries import QUERIES
+    return QUERIES[name]
+
+
+def _run_without_syncs(engine, sql, monkeypatch):
+    """``engine.execute(sql)`` with every synchronizing CUDA call an
+    error, except inside the executor's counted fetches."""
     from presto_tpu_torch.exec import hostsync as HS
-    card, host = tpch_pair
-    sql = NEW_PATH_SQL[name]
-    on_host = host.execute(sql)
-    card.session.set("kernel_backend", "cuda")
-    want = card.execute(sql)  # uploads the columns, builds the kernels
     torch.cuda.synchronize()
     fetch = HS.fetch
 
@@ -846,9 +857,31 @@ def test_new_paths_add_no_stream_sync(tpch_pair, name, monkeypatch):
     monkeypatch.setattr(HS, "fetch", counted_fetch)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = card.execute(sql)
+        return engine.execute(sql)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+        monkeypatch.setattr(HS, "fetch", fetch)
+
+
+@pytest.mark.parametrize("name", sorted(NEW_PATH_SQL))
+def test_new_paths_add_no_stream_sync(tpch_pair, name, monkeypatch):
+    # between the executor's counted fetches (the ok ladder, the
+    # segment widths and the result), the statement's operators never
+    # wait for the stream: torch raises on a synchronizing call in this
+    # mode
+    card, host = tpch_pair
+    sql = NEW_PATH_SQL[name]
+    if sql.startswith("q"):
+        sql = _tpch_sql(sql)
+    on_host = host.execute(sql)
+    card.session.set("kernel_backend", "cuda")
+    want = card.execute(sql)  # uploads the columns, builds the kernels
+    got = _run_without_syncs(card, sql, monkeypatch)
+    if name == "segmented":
+        assert card.last_run.segments
+    if name == "dynamic_filter":
+        (pruned,) = EX.scan_live_rows(card, "lineitem")
+        assert pruned < 1000
     # float sums (the variance family's) may round apart between the
     # card and the CPU, or between two runs of a float atomic
     for rows in (want, on_host):
@@ -857,3 +890,61 @@ def test_new_paths_add_no_stream_sync(tpch_pair, name, monkeypatch):
             assert all(x == y or (isinstance(x, float) and
                                   abs(x - y) <= 1e-9 * max(abs(y), 1.0))
                        for x, y in zip(g, w)), (g, w)
+
+
+def test_tpcds_segmented_query_adds_no_stream_sync(tpcds_card, monkeypatch):
+    # q58 at scale 0.1 runs as seven segments in three waves
+    engine, queries = tpcds_card
+    engine.session.set("kernel_backend", "cuda")
+    want = engine.execute(queries["q58"])
+    got = _run_without_syncs(engine, queries["q58"], monkeypatch)
+    assert [len(w) for w in engine.last_run.segments] == [2, 3, 2]
+    assert got == want
+
+
+def test_carrier_compaction_matches_plain(cuda):
+    # a segment's output with about 5% live rows compacts to
+    # pow2(live) through the compact kernel: int64 with NULLs, float64,
+    # a LONG decimal's [n, 2] limbs, bool and a projected literal
+    n = 300_007
+    rng = np.random.default_rng(3)
+    live = rng.random(n) < 0.05
+    cols = {
+        "i64": Val(T.BIGINT, _t(rng.integers(-2**62, 2**62, n), cuda),
+                   _t(rng.random(n) < 0.9, cuda)),
+        "f64": Val(T.DOUBLE, _t(rng.random(n), cuda)),
+        "dec": Val(T.DecimalType(30, 2),
+                   _t(rng.integers(-2**62, 2**62, (n, 2)), cuda)),
+        "flag": Val(T.BOOLEAN, _t(rng.random(n) < 0.5, cuda)),
+        "lit": Val(T.BIGINT, torch.tensor(7, device=cuda)),
+    }
+    dt = OP.DTable(cols, _t(live, cuda), n, cuda)
+    outs = {}
+    for backend in ("cuda", "torch"):
+        before = B.LAUNCHES.snapshot().get("filter_compact", 0)
+        with K.use_backend(backend):
+            outs[backend] = EX.device_outputs(dt)
+        launched = B.LAUNCHES.snapshot().get("filter_compact", 0) - before
+        assert launched == (1 if backend == "cuda" else 0)
+    got, want = outs["cuda"], outs["torch"]
+    assert got[3] == want[3] == H.next_pow2(int(live.sum()))
+    assert torch.equal(got[4], want[4])
+    rows = got[4]
+    assert int(rows.sum()) == int(live.sum())
+    for k in want[0]:
+        assert torch.equal(got[0][k][rows], want[0][k][rows]), k
+    assert bool((got[0]["lit"][rows] == 7).all())
+
+
+def test_streamed_q1_equals_whole_table_on_both_backends(cuda):
+    sql = _tpch_sql("q01")
+    e = Engine()
+    e.register_catalog("tpch", TpchConnector(scale=0.01))
+    rows = {}
+    for backend in ("cuda", "torch"):
+        e.session.set("kernel_backend", backend)
+        for block in (0, 7000):
+            e.session.set("scan_block_rows", block)
+            rows[(backend, block)] = e.execute(sql)
+            assert e.last_streamed_blocks == (9 if block else 0)
+    assert len(set(map(repr, rows.values()))) == 1 and rows[("cuda", 0)]

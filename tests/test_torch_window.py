@@ -232,9 +232,13 @@ def test_window_rows_equal_oracle(name, port, oracle):
     assert_query(port, oracle, ORACLE_WINDOW_SQL[name])
 
 
-def test_range_frame_null_keys(port, engine, oracle):
-    # NULL sort keys: offset frames cover the null peer group only
+def test_range_frame_null_keys(port, engine):
+    # NULL sort keys: offset frames cover the null peer group only. The
+    # table goes into an oracle of its own: tests/test_window.py loads
+    # another table "t" into the session's oracle, in whichever worker
+    # runs both files
     from presto_tpu import types as RT
+    from presto_tpu.testing.oracle import SqliteOracle
     from presto_tpu.connectors.memory import MemoryConnector as RefMemory
     from presto_tpu_torch import types as PT
     from presto_tpu_torch.connectors.memory import MemoryConnector
@@ -248,6 +252,7 @@ def test_range_frame_null_keys(port, engine, oracle):
                           {"id": None, "v": valid})
     engine.register_catalog("mem", ref_mem)
     port.register_catalog("mem", port_mem)
+    oracle = SqliteOracle()
     oracle.load_connector(ref_mem)
     got = port.execute(NULL_KEY_SQL)
     assert got == engine.execute(NULL_KEY_SQL)
