@@ -4,7 +4,8 @@ all 22 TPC-H queries, a lineitem-partsupp join (the unique non-dense
 join shape that reaches join_lookup at SF10), a grouped min/max (which
 reaches segment_min: no TPC-H query folds a min through it) and a
 general cross join (which reaches the compaction kernel) at SF10 on
-both kernel backends.
+both kernel backends; then the TPC-DS queries at scale 10, and the
+function library's aggregates, sketches and scalar functions at SF10.
 
     python3 chip_smoke.py [--scale 10] [--seed 19920101]
 
@@ -55,16 +56,31 @@ Phases (any failure exits non-zero before the result line):
    with its blocker) runs last and must run out of memory; q72's line
    carries the rows of its expanding join, counted with numpy.
 
-    python3 chip_smoke.py --phases kernels,tpch,tpcds   # the default
+5. Functions: the TPC-H tables of phase 3 (made again when it did not
+   run) through the queries of ``FUNCTION_QUERIES`` on both backends
+   as in phase 3: every aggregate of the function library grouped (F1),
+   a global sketch (F2), 512 groups of HLL registers and percentile
+   reservoirs (F3: about 2^20 register and 2^19 reservoir segments
+   through segment_max and segment_min), dates, strings over part
+   joined to lineitem, numbers and a varchar-to-number cast (F4-F7).
+   Rows identical on both backends but for the columns finalized from
+   float states (``FLOAT_STATE_COLUMNS``: corr, covar_samp, regr_slope,
+   skewness, kurtosis, geometric_mean and float sums, which sum with
+   atomics on the card), within a relative 1e-9; F1-F3 must run
+   ``cuda:agg_max`` and ``cuda:agg_min``; numpy checks the answers
+   (``check_functions``); F3's widest register and reservoir folds are
+   held against the plain versions and timed.
+
+    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions  # default
 
 runs the named phases only (a shorter call while a phase is worked on;
-the summary line needs all three).
+the summary line needs all four).
 
-The queries are the repository's TPC-H texts (tests/tpch_queries.py)
-and TPC-DS texts (tests/test_tpcds.py). The last lines are the card, a
-JSON summary of the kernels (each with the PR that last redesigned it,
-``redesigned_in``, and its launches summed over phases 3 and 4) and
-``{"ok": true, "device": {...}}``.
+The queries are the repository's TPC-H texts (tests/tpch_queries.py),
+TPC-DS texts (tests/test_tpcds.py) and ``FUNCTION_QUERIES``. The last
+lines are the card, a JSON summary of the kernels (each with the PR
+that last redesigned it, ``redesigned_in``, and its launches summed
+over phases 3, 4 and 5) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -135,11 +151,14 @@ TPCDS_OVER_MEMORY = {
            "joins, so catalog_sales (14.4M rows) joins inventory on the "
            "item alone, 626,407,591 rows, all live: a segment cannot "
            "compact them, and the program that makes them runs out of "
-           "memory at 81.3 GB on both backends (needs the expanding join "
-           "streamed in blocks, ROADMAP item 4, or the dimension "
-           "predicates pushed below the LEFT joins)",
+           "memory at 81.3 GB on both backends (needs the dimension "
+           "predicates pushed below the LEFT joins, which the reference's "
+           "planner does not do either; the reference's spill would not "
+           "bound these rows, as it concatenates every partition's join "
+           "output before the rest of the plan)",
 }
 TPCDS_SCALE = 10.0
+PHASES = ("kernels", "tpch", "tpcds", "functions")
 TPCDS_SEED = 20030527  # the connector's default, as tests/test_tpcds.py
 
 
@@ -647,8 +666,8 @@ def run_queries(engine, queries: dict[str, str],
     return rows, secs, notes
 
 
-def query_phase(scale: float, seed: int) -> tuple[dict, dict]:
-    from presto_tpu_torch import Engine
+def tpch_data(scale: float, seed: int):
+    """The port's TPC-H generator's tables, all made up front."""
     from presto_tpu_torch.connectors.tpch import TpchConnector
 
     t0 = time.perf_counter()
@@ -657,6 +676,12 @@ def query_phase(scale: float, seed: int) -> tuple[dict, dict]:
         conn.table(name)
     log(f"datagen sf={scale:g} seed={seed}: "
         f"{time.perf_counter() - t0:.1f} s")
+    return conn
+
+
+def query_phase(conn) -> tuple[dict, dict]:
+    from presto_tpu_torch import Engine
+
     engine = Engine()
     engine.register_catalog("tpch", conn)
     (rows, secs, notes, launches, plain_rows, plain_secs,
@@ -1059,15 +1084,311 @@ def require_over_memory(engine, q: str, sql: str, blocker: str,
                                    **measured, "blocker": blocker}))
 
 
+# -- phase 5: the function library at SF10 -----------------------------------
+
+# the queries of the functions phase (tests/test_torch_functions.py and
+# tests/test_torch_sketches.py run them at SF0.01 against sqlite and
+# presto_tpu): F1-F3 fold every new aggregate and the sketches (HLL
+# registers through segment_max, the percentile reservoir through
+# segment_min), F4-F7 the date, string, number and varchar-to-number
+# functions
+FUNCTION_QUERIES = {
+    "F1": """
+select l_returnflag, l_linestatus, count_if(l_discount > 0.05) as ci,
+  bool_and(l_quantity < 50) as ba, bool_or(l_tax = 0) as bo,
+  every(l_shipdate < l_receiptdate) as ev, approx_distinct(l_partkey) as ad,
+  approx_percentile(l_extendedprice, 0.5) as p50,
+  min_by(l_orderkey, l_extendedprice) as mnb,
+  max_by(l_orderkey, l_extendedprice) as mxb,
+  corr(l_quantity, l_extendedprice) as co,
+  covar_samp(l_quantity, l_extendedprice) as cs,
+  regr_slope(l_quantity, l_extendedprice) as rs,
+  skewness(l_discount) as sk, kurtosis(l_discount) as ku,
+  geometric_mean(l_quantity) as gm, checksum(l_orderkey) as ck
+from lineitem
+group by 1, 2
+order by 1, 2""",
+    "F2": """
+select approx_distinct(l_orderkey) as ad,
+  approx_percentile(l_quantity, 0.9) as p90
+from lineitem""",
+    "F3": """
+select l_suppkey % 512 as g, approx_distinct(l_partkey) as ad,
+  approx_percentile(l_extendedprice, 0.25) as p25
+from lineitem
+group by 1
+order by 1""",
+    "F4_dates": """
+select year(l_shipdate) as y, quarter(l_shipdate) as q,
+  month(l_shipdate) as m, day_of_week(l_shipdate) as w,
+  sum(date_diff('day', l_shipdate, l_receiptdate)) as d,
+  min(date_add('month', 1, l_shipdate)) as a,
+  max(date_trunc('month', l_commitdate)) as t
+from lineitem
+group by 1, 2, 3, 4
+order by 1, 2, 3, 4""",
+    "F4_date_format": """
+select date_format(o_orderdate, '%Y') as y, count(*) as c
+from orders
+group by 1
+order by 1""",
+    "F5": """
+select split_part(p_type, ' ', 2) as t, starts_with(p_container, 'SM') as sm,
+  regexp_extract(p_name, '^([a-z]+)', 1) as w, count(*) as c,
+  sum(l_quantity) as q, sum(length(p_name)) as n,
+  sum(strpos(p_name, 'green')) as g, max(lpad(p_brand, 12, '*')) as b,
+  min(replace(p_type, 'BRASS', 'B')) as r
+from lineitem, part
+where l_partkey = p_partkey
+group by 1, 2, 3
+order by 1, 2, 3""",
+    "F6": """
+select sign(l_quantity - 25) as s,
+  width_bucket(l_extendedprice, 0, 110000, 10) as wb,
+  floor(sqrt(l_quantity)) as f, bitwise_and(l_orderkey, 255) % 3 as b,
+  count(*) as c, sum(ln(l_quantity)) as lq, sum(power(l_discount, 2)) as p2
+from lineitem
+group by 1, 2, 3, 4
+order by 1, 2, 3, 4""",
+    "F7": """
+select cast(split_part(c_phone, '-', 1) as bigint) as cc, count(*) as c
+from customer
+group by 1
+order by 1""",
+}
+# columns finalized from float states, which sum with index_add_ (atomics
+# on the card): their last bits may differ between runs and backends, so
+# they agree within a relative 1e-9, with an absolute 1e-12 beside it
+# for the dimensionless statistics near zero (a symmetric column's
+# skewness, about 1e-5, is a small difference of large cubes, and a
+# reordered sum moves its ninth digit); every other column is identical
+FLOAT_STATE_COLUMNS = {"F1": (10, 11, 12, 13, 14, 15), "F6": (5, 6)}
+FLOAT_STATE_RTOL = 1e-9
+FLOAT_STATE_ATOL = 1e-12
+# the queries whose folds must reach both extremum kernels
+SKETCH_QUERIES = ("F1", "F2", "F3")
+HLL_SE = 1.04 / 2048 ** 0.5  # HyperLogLog's standard error, p = 11
+
+
+def floats_agree(a, b) -> bool:
+    """Two values of a float-state column agree (both NULL, or within
+    FLOAT_STATE_RTOL relative and FLOAT_STATE_ATOL absolute)."""
+    if a is None or b is None:
+        return a is b
+    return abs(a - b) <= (FLOAT_STATE_RTOL * max(abs(a), abs(b))
+                          + FLOAT_STATE_ATOL)
+
+
+def rows_agree(q: str, got: list, want: list) -> bool:
+    """Identical rows, but for FLOAT_STATE_COLUMNS (floats_agree)."""
+    floats = FLOAT_STATE_COLUMNS.get(q, ())
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        for i, (a, b) in enumerate(zip(g, w)):
+            if not (floats_agree(a, b) if i in floats else a == b):
+                return False
+    return True
+
+
+def np_splitmix64(x: np.ndarray) -> np.ndarray:
+    """SplitMix64's finalizer over uint64 (wrapping)."""
+    x = x.astype(np.uint64)
+    with np.errstate(over="ignore"):
+        x = x + np.uint64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def _close(name: str, got: float, want: float, rtol: float) -> None:
+    if not abs(got - want) <= rtol * max(abs(want), 1e-300):
+        raise AssertionError(f"{name}: {got} != numpy {want} (rtol {rtol})")
+
+
+def check_functions(conn, rows: dict) -> None:
+    """The functions phase's answers recomputed with numpy over the
+    generator's arrays: F1's counts, bools and checksums exactly, its
+    sketches within their error, its min_by/max_by rows among those
+    attaining the extremum, its corr and skewness within 1e-9; F2's
+    sketches; F4's date_format groups against the years; F6's sign
+    groups; F7 exactly."""
+    li = conn.table("lineitem").columns
+    rf, ls = li["l_returnflag"], li["l_linestatus"]
+    group = (np.asarray(rf.data).astype(np.int64) * len(ls.dictionary)
+             + np.asarray(ls.data))
+    qty = np.asarray(li["l_quantity"].data)
+    price = np.asarray(li["l_extendedprice"].data)
+    disc = np.asarray(li["l_discount"].data)
+    tax = np.asarray(li["l_tax"].data)
+    okey = np.asarray(li["l_orderkey"].data)
+    part = np.asarray(li["l_partkey"].data).astype(np.int64)
+    ship = np.asarray(li["l_shipdate"].data)
+    receipt = np.asarray(li["l_receiptdate"].data)
+    nparts = int(part.max()) + 1
+    present = np.bincount(group * nparts + part,
+                          minlength=6 * nparts).reshape(-1, nparts) > 0
+    hashes = np_splitmix64(okey.astype(np.int64).view(np.uint64))
+    for row in rows["F1"]:
+        g = (list(rf.dictionary).index(row[0]) * len(ls.dictionary)
+             + list(ls.dictionary).index(row[1]))
+        m = group == g
+        exact = (int((disc[m] > 5).sum()), bool((qty[m] < 5000).all()),
+                 bool((tax[m] == 0).any()),
+                 bool((ship[m] < receipt[m]).all()))
+        if tuple(row[2:6]) != exact:
+            raise AssertionError(f"F1 {row[:2]}: {row[2:6]} != numpy "
+                                 f"{exact}")
+        distinct = int(present[g].sum())
+        if abs(row[6] - distinct) > 4 * HLL_SE * distinct:
+            raise AssertionError(f"F1 {row[:2]}: approx_distinct {row[6]}"
+                                 f" vs exact {distinct}")
+        p = price[m] / 100.0
+        rank = float((p <= float(row[7])).mean())
+        if abs(rank - 0.5) > 0.06:
+            raise AssertionError(f"F1 {row[:2]}: percentile rank {rank}")
+        if row[8] not in set(okey[m][p == p.min()].tolist()) or \
+                row[9] not in set(okey[m][p == p.max()].tolist()):
+            raise AssertionError(f"F1 {row[:2]}: min_by/max_by rows "
+                                 f"{row[8:10]} attain no extremum")
+        q = qty[m] / 100.0
+        _close(f"F1 {row[:2]} corr", row[10], float(np.corrcoef(q, p)[0, 1]),
+               1e-9)
+        # a near-symmetric group's skewness is a small difference of
+        # large cubes: within 1e-9 of the skewness of |x - mean|, the
+        # size of the terms that cancel (the port's two-pass sum, the
+        # reference's, carries the mean's rounding into it)
+        d = disc[m] / 100.0 - (disc[m] / 100.0).mean()
+        m2 = (d ** 2).sum() ** 1.5 / np.sqrt(len(d))
+        skew, scale = (d ** 3).sum() / m2, (np.abs(d) ** 3).sum() / m2
+        if not abs(row[13] - skew) <= 1e-9 * max(abs(skew), scale):
+            raise AssertionError(f"F1 {row[:2]}: skewness {row[13]} != "
+                                 f"numpy {skew} (1e-9 of {scale})")
+        ck = int(hashes[m].sum(dtype=np.uint64).view(np.int64))
+        if row[16] != ck:
+            raise AssertionError(f"F1 {row[:2]}: checksum {row[16]} != "
+                                 f"numpy {ck}")
+    (ad, p90), = rows["F2"]
+    distinct = len(np.unique(okey))
+    if abs(ad - distinct) > 4 * HLL_SE * distinct:
+        raise AssertionError(f"F2: approx_distinct {ad} vs exact {distinct}")
+    rank = float((qty / 100.0 <= float(p90)).mean())
+    if abs(rank - 0.9) > 0.06:
+        raise AssertionError(f"F2: percentile rank {rank}")
+    if len(rows["F3"]) != 512:
+        raise AssertionError(f"F3: {len(rows['F3'])} groups, not 512")
+    odate = np.asarray(conn.table("orders").columns["o_orderdate"].data)
+    years = odate.astype("datetime64[D]").astype("datetime64[Y]") \
+        .astype(np.int64) + 1970
+    yv, yc = np.unique(years, return_counts=True)
+    want = [(str(y), int(c)) for y, c in zip(yv, yc)]
+    if len(want) != 7 or [(r[0], int(r[1])) for r in
+                          rows["F4_date_format"]] != want:
+        raise AssertionError(f"F4 date_format groups "
+                             f"{rows['F4_date_format']} != years {want}")
+    signs = {}
+    for r in rows["F6"]:
+        signs[r[0]] = signs.get(r[0], 0) + int(r[4])
+    sv, sc = np.unique(np.sign(qty.astype(np.int64) - 2500),
+                       return_counts=True)
+    if signs != {int(v): int(c) for v, c in zip(sv, sc)}:
+        raise AssertionError(f"F6 sign groups {signs} != numpy")
+    phone = conn.table("customer").columns["c_phone"]
+    text = np.asarray(phone.dictionary, dtype=object)[np.asarray(phone.data)]
+    cc = np.array([int(s.split("-", 1)[0]) for s in text])
+    cv, cn = np.unique(cc, return_counts=True)
+    if [(int(a), int(b)) for a, b in rows["F7"]] != \
+            [(int(a), int(b)) for a, b in zip(cv, cn)]:
+        raise AssertionError("F7 country codes differ from numpy")
+
+
+def sketch_folds(engine, sql: str) -> dict:
+    """The inputs of the widest segment_max and segment_min fold of one
+    cuda run of ``sql`` (captured, not timed)."""
+    from presto_tpu_torch.ops import segred
+    widest: dict = {}
+    wrapped = {name: getattr(segred, name)
+               for name in ("segment_max", "segment_min")}
+
+    def capture(name):
+        def fold(data, segment_ids, num_segments):
+            if num_segments > widest.get(name, (0,))[0]:
+                widest[name] = (num_segments, data, segment_ids)
+            return wrapped[name](data, segment_ids, num_segments)
+        return fold
+    engine.session.set("kernel_backend", "cuda")
+    try:
+        for name in wrapped:
+            setattr(segred, name, capture(name))
+        engine.execute(sql)
+    finally:
+        for name, fn in wrapped.items():
+            setattr(segred, name, fn)
+    return widest
+
+
+def functions_phase(conn) -> dict:
+    """The FUNCTION_QUERIES on both backends at SF10."""
+    from presto_tpu_torch import Engine
+    from presto_tpu_torch.kernels import segagg as SA
+
+    engine = Engine()
+    engine.register_catalog("tpch", conn)
+    (rows, secs, notes, launches, plain_rows, plain_secs,
+     plain_notes) = sweep(engine, FUNCTION_QUERIES)
+    faults = []
+    for q in FUNCTION_QUERIES:
+        if not rows_agree(q, rows[q], plain_rows[q]):
+            faults.append(f"{q}: cuda and torch backends differ")
+        if not rows[q]:
+            faults.append(f"{q}: no rows")
+        if q in SKETCH_QUERIES:
+            for tag in ("cuda:agg_max", "cuda:agg_min"):
+                if tag not in notes[q]["kernels"]:
+                    faults.append(f"{q} did not run {tag}: "
+                                  f"{notes[q]['kernels']}")
+        log("functions " + json.dumps({
+            "query": q, "rows": len(rows[q]), "s": secs[q],
+            "plain_s": plain_secs[q], **notes[q],
+            "plain_kernels": plain_notes[q]["kernels"]}))
+    log(f"functions cuda pass: {sum(secs.values()):.2f} s, plain pass: "
+        f"{sum(plain_secs.values()):.2f} s")
+    log("functions launches " + json.dumps(launches))
+    if launches.get("segment_min", 0) < 1:
+        faults.append(f"segment_min never launched: {launches}")
+    if faults:
+        raise AssertionError("functions faults:\n" + "\n".join(faults))
+    check_functions(conn, rows)
+    log("independent numpy checks of F1, F2, F3, F4, F6 and F7: ok")
+    # F3's widest register and reservoir folds, each kernel against its
+    # plain version and timed there (the kernel phase's k = 1<<20 case
+    # is random ids over 60M rows)
+    for name, (k, data, ids) in sorted(sketch_folds(
+            engine, FUNCTION_QUERIES["F3"]).items()):
+        kernel = getattr(SA, f"{name}_cuda")
+        plain = getattr(SA, f"{name}_torch")
+        err = require_equal(f"F3 {name} k={k}",
+                            [(kernel(data, ids, k), plain(data, ids, k))])
+        b_ms, b_by = bound(data.shape[0] * (data.element_size() + 4)
+                           + k * data.element_size(), data.shape[0])
+        log("functions kernel " + json.dumps({
+            "name": name, "query": "F3", "k": k, "rows": data.shape[0],
+            "dtype": str(data.dtype), "max_abs_err": err,
+            "ms": cuda_ms(lambda: kernel(data, ids, k)),
+            "plain_ms": cuda_ms(lambda: plain(data, ids, k)),
+            "bound_ms": b_ms, "bound_by": b_by}))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=10.0)
     ap.add_argument("--seed", type=int, default=19920101)
-    ap.add_argument("--phases", default="kernels,tpch,tpcds",
-                    help="comma-separated subset of kernels,tpch,tpcds")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
     args = ap.parse_args()
     phases = set(args.phases.split(","))
-    if not phases <= {"kernels", "tpch", "tpcds"}:
+    if not phases <= set(PHASES):
         ap.error(f"unknown phase in {args.phases!r}")
 
     import torch
@@ -1084,27 +1405,39 @@ def main() -> int:
     log(f"kernel build: {B.LIBRARY.build_seconds:.1f} s ({B.LIBRARY.path})")
     dev = torch.device("cuda")
 
-    kernels, launches = {}, {}
+    kernels, launches, conn = {}, {}, None
+
+    def add(more: dict) -> dict:
+        return {name: launches.get(name, 0) + more.get(name, 0)
+                for name in KERNELS}
     if "kernels" in phases:
         t = time.perf_counter()
         kernels = kernel_phase(dev, args.seed)
         log(f"kernel phase: {time.perf_counter() - t:.1f} s")
     if "tpch" in phases:
         t = time.perf_counter()
-        launches, _queries = query_phase(args.scale, args.seed)
+        conn = tpch_data(args.scale, args.seed)
+        launches, _queries = query_phase(conn)
         del _queries
         log(f"query phase: {time.perf_counter() - t:.1f} s")
     if "tpcds" in phases:
-        # the TPC-H engine and its resident columns are gone by now
+        # the TPC-H engine and its resident columns are gone by now (its
+        # host tables stay for the functions phase)
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        ds_launches = tpcds_phase(TPCDS_SCALE, TPCDS_SEED)
-        launches = {name: launches.get(name, 0) + ds_launches.get(name, 0)
-                    for name in KERNELS}
+        launches = add(tpcds_phase(TPCDS_SCALE, TPCDS_SEED))
         log(f"tpcds phase: {time.perf_counter() - t:.1f} s")
-    if phases != {"kernels", "tpch", "tpcds"}:
-        log(f"phases {sorted(phases)} passed; no summary without all three")
+    if "functions" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        launches = add(functions_phase(
+            conn or tpch_data(args.scale, args.seed)))
+        log(f"functions phase: {time.perf_counter() - t:.1f} s")
+    if phases != set(PHASES):
+        log(f"phases {sorted(phases)} passed; no summary without all "
+            f"{len(PHASES)}")
         return 1
 
     summary = []

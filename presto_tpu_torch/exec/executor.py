@@ -50,6 +50,7 @@ from presto_tpu_torch.block import Column, Table
 from presto_tpu_torch.exec import hostsync as HS
 from presto_tpu_torch.exec import operators as OP
 from presto_tpu_torch.exec.operators import DTable
+from presto_tpu_torch.expr import aggmeta as A
 from presto_tpu_torch.expr.compile import Val
 from presto_tpu_torch.ops import hash as H
 from presto_tpu_torch.ops.hash import HashChainOverflow, grow_overflowed
@@ -58,6 +59,9 @@ from presto_tpu_torch.plan import nodes as N
 
 RETRY_GROWTH = 4  # overshoot on overflow to bound re-runs at ~1
 MAX_ATTEMPTS = 6
+# the first group capacity of an aggregate with a sketch (about 9 MB of
+# registers and reservoir cells; the ladder reaches 2^19 slots)
+SKETCH_FIRST_RUNG = 512
 
 # The reference cuts plans with more joins than this into segments
 # because XLA compile time grows superlinearly with program size. Eager
@@ -345,10 +349,16 @@ class PlanInterpreter:
         if not node.group_keys:
             cap = 1
         else:
+            most = next_pow2(2 * src.n)
+            if any(c.fn in A.SKETCH_FNS for c in node.aggs.values()):
+                # a sketch holds kilobytes a slot (HLL registers, the
+                # percentile reservoir): its first rung is small, and
+                # the ladder grows it only when the groups overflow
+                most = min(most, SKETCH_FIRST_RUNG)
             cap = self._capacity(
                 node, next_pow2(min(2 * src.n, 1 << 22)),
                 override=int(self.session.get("groupby_table_size") or 0),
-                most=next_pow2(2 * src.n))
+                most=most)
         out, ok = OP.apply_aggregate(src, node, cap)
         if node.group_keys:
             self._note_ok(node, ok)

@@ -35,7 +35,8 @@ from presto_tpu_torch import types as T
 from presto_tpu_torch.exec import hostsync as HS
 from presto_tpu_torch.expr import aggregates as A
 from presto_tpu_torch.expr import ir
-from presto_tpu_torch.expr.compile import ExprCompiler, Val, cast_val
+from presto_tpu_torch.expr.compile import (ExprCompiler, Val, _align_strings,
+                                           cast_val)
 from presto_tpu_torch.kernels.multijoin import multijoin_torch, take
 from presto_tpu_torch.ops import hash as H
 from presto_tpu_torch.ops import segred
@@ -167,47 +168,86 @@ def _agg_call_inputs(c: ExprCompiler, dt: DTable, call, live):
         raise NotImplementedError(
             f"aggregate {call.fn} is not ported to presto_tpu_torch yet")
     data2 = None
+    data_valid = None
     if call.arg is not None:
         av = c.compile(call.arg)
-        weight = live if av.valid is None else (live & av.valid)
+        if call.fn == "checksum":
+            # NULL rows count, as a fixed hash (below)
+            weight = live
+        elif call.fn in A.BY_FNS:
+            # a NULL x is a legal result; NULL keys exclude rows (arg2)
+            weight = live
+            data_valid = av.valid
+        else:
+            weight = live if av.valid is None else (live & av.valid)
         long = A.is_long_decimal(av.dtype)
-        if long and call.fn in A.VAR_FNS:
-            raise NotImplementedError(
-                f"{call.fn} over long decimals (precision > 18) is not "
-                "supported yet")
         data = A.prepare_arg(call.fn, av.data, av.dtype)
         if long and data.ndim == 1:  # scalar long-decimal literal
             data = data.expand(dt.n, 2)
         if long and data.ndim == 2:
+            if call.fn not in ("sum", "avg", "min", "max", "arbitrary",
+                               "count"):
+                raise NotImplementedError(
+                    f"{call.fn} over long decimals (precision > 18) is "
+                    "not supported yet")
             # int128 [n, 2] -> separate low/high limb columns
             data, data2 = data[:, 0], data[:, 1]
+        if call.fn == "checksum" and av.valid is not None:
+            data = torch.where(av.valid, data,
+                               torch.full_like(data, A.CHECKSUM_NULL))
         if data.ndim == 0:
             data = data.expand(dt.n)
+        if data_valid is not None and data_valid.ndim == 0:
+            data_valid = data_valid.expand(dt.n)
         arg_type = av.dtype
     else:
         weight = live
         data = torch.ones(dt.n, dtype=torch.int64, device=dt.device)
         arg_type = None
     if call.arg2 is not None:
-        raise NotImplementedError(
-            f"two-argument aggregate {call.fn} is not ported yet")
+        av2 = c.compile(call.arg2)
+        if av2.valid is not None:
+            weight = weight & av2.valid
+        data2 = A.prepare_arg2(call.fn, av2.data, av2.dtype)
+        if data2.ndim == 0:
+            data2 = data2.expand(dt.n)
     if call.mask is not None:
         mv = dt.cols[call.mask]
         weight = weight & mv.data
         if mv.valid is not None:
             weight = weight & mv.valid
-    return data, weight, data2, None, arg_type
+    if weight.ndim == 0:
+        weight = weight.expand(dt.n)
+    return data, weight, data2, data_valid, arg_type
 
 
-def _state_outputs(out: dict, node, c, call, sym, states, arg_type):
-    """PARTIAL steps emit state columns; others finalize."""
+def _state_outputs(out: dict, node, c, call, sym, states, arg_type,
+                   dt: DTable):
+    """PARTIAL steps emit state columns; others finalize. A value
+    state keeps its string dictionary: min/max's argument's, min_by and
+    max_by's key's (val) and value's (xval)."""
     if node.step == N.AggStep.PARTIAL:
         for f, arr in states.items():
-            out[f"{sym}${f}"] = Val(A.state_type(call, f), arr, None, None)
+            dtype = A.state_type(call, f)
+            dictionary = None
+            if f == "val" and call.arg is not None:
+                dictionary = _arg_dictionary(
+                    c, call.arg2 if call.fn in A.BY_FNS else call.arg,
+                    dtype)
+            elif f == "xval":
+                dictionary = _arg_dictionary(c, call.arg, dtype)
+            out[f"{sym}${f}"] = Val(dtype, arr, None, dictionary)
         return
     fdata, fvalid = A.finalize(call.fn, states, call.dtype, arg_type,
                                param=call.param)
-    out[sym] = Val(call.dtype, fdata, fvalid, _arg_dictionary(c, call.arg))
+    dictionary = None
+    if node.step == N.AggStep.FINAL:
+        state = dt.cols.get(f"{sym}$xval" if call.fn in A.BY_FNS
+                            else f"{sym}$val")
+        dictionary = None if state is None else state.dictionary
+    if dictionary is None:
+        dictionary = _arg_dictionary(c, call.arg, call.dtype)
+    out[sym] = Val(call.dtype, fdata, fvalid, dictionary)
 
 
 def _apply_aggregate_sorted(dt: DTable, node: N.Aggregate, capacity: int,
@@ -261,23 +301,30 @@ def _apply_aggregate_sorted(dt: DTable, node: N.Aggregate, capacity: int,
             continue
         key_refs.append((k, v, _add(v.data), valid_idx))
 
+    # each call folds by segmented scans over the sorted rows, or (the
+    # sketches, whose [rows, width] states ride no sort) by segment ops
+    # over the rows' group slots
     call_refs: dict[str, tuple] = {}
     for sym, call in node.aggs.items():
         if call.fn not in A.PORTED_FNS:
             raise NotImplementedError(
                 f"aggregate {call.fn} is not ported to presto_tpu_torch yet")
+        scan = call.fn in A.SCAN_FNS
         if is_final:
             sum_state = dt.cols.get(f"{sym}$sum")
             arg_type = sum_state.dtype if sum_state is not None else None
-            idxs = {f: _add(dt.cols[f"{sym}${f}"].data)
-                    for f in A.state_fields(call)}
-            call_refs[sym] = ("merge", idxs, arg_type)
+            idxs = ({f: _add(dt.cols[f"{sym}${f}"].data)
+                     for f in A.state_fields(call)} if scan else None)
+            call_refs[sym] = ("merge" if scan else "seg", idxs, arg_type)
         else:
-            data, weight, data2, _dv, arg_type = \
-                _agg_call_inputs(c, dt, call, live)
-            idxs = (_add(data), _add(weight),
-                    None if data2 is None else _add(data2))
-            call_refs[sym] = ("fold", idxs, arg_type)
+            inputs = _agg_call_inputs(c, dt, call, live)
+            arg_type = inputs[4]
+            if scan:
+                call_refs[sym] = ("fold", tuple(
+                    None if x is None else _add(x) for x in inputs[:4]),
+                    arg_type)
+            else:
+                call_refs[sym] = ("seg", inputs[:4], arg_type)
 
     sg = H.SortedGroups(rh, live, payloads, num_key_payloads)
     ok = sg.ngroups <= capacity
@@ -296,14 +343,32 @@ def _apply_aggregate_sorted(dt: DTable, node: N.Aggregate, capacity: int,
                for sym, v, di, vi in key_refs]
 
     state_out: dict[str, dict] = {}
+    seg_states: dict[str, dict] = {}
     arg_types: dict[str, object] = {}
+    slots = None
     for sym, call in node.aggs.items():
         kind, refs, arg_type = call_refs[sym]
         arg_types[sym] = arg_type
+        if kind == "seg":
+            if slots is None:
+                slots = sg.slots()
+            if is_final:
+                seg_states[sym] = A.merge(
+                    call.fn, {f: dt.cols[f"{sym}${f}"].data
+                              for f in A.state_fields(call)},
+                    slots, capacity, live)
+            else:
+                data, weight, data2, data_valid = refs
+                seg_states[sym] = A.fold(
+                    call.fn, data, weight, slots, capacity, data2=data2,
+                    data_valid=data_valid, param=call.param)
+            continue
         if kind == "fold":
-            di, wi, d2i = refs
+            di, wi, d2i, dvi = refs
             st = A.scan_fold(call.fn, sp[di], sp[wi], sg,
-                             data2=None if d2i is None else sp[d2i])
+                             data2=None if d2i is None else sp[d2i],
+                             data_valid=None if dvi is None else sp[dvi],
+                             param=call.param)
         else:
             st = A.scan_merge(call.fn, {f: sp[i] for f, i in refs.items()},
                               sg.live, sg)
@@ -322,8 +387,10 @@ def _apply_aggregate_sorted(dt: DTable, node: N.Aggregate, capacity: int,
         out[sym] = Val(v.dtype, compacted[di], valid, v.dictionary)
 
     for sym, call in node.aggs.items():
-        states = {f: compacted[i] for f, i in state_out[sym].items()}
-        _state_outputs(out, node, c, call, sym, states, arg_types[sym])
+        states = seg_states.get(sym) or {
+            f: compacted[i] for f, i in state_out[sym].items()}
+        _state_outputs(out, node, c, call, sym, states, arg_types[sym],
+                       dt)
 
     return DTable(out, occupied, capacity, dt.device), ok
 
@@ -367,11 +434,12 @@ def apply_aggregate(dt: DTable, node: N.Aggregate, capacity: int) -> tuple:
             sum_state = dt.cols.get(f"{sym}$sum")
             arg_type = sum_state.dtype if sum_state is not None else None
         else:
-            data, weight, data2, _dv, arg_type = \
+            data, weight, data2, data_valid, arg_type = \
                 _agg_call_inputs(c, dt, call, live)
             states = A.fold(call.fn, data, weight, slots, capacity,
-                            data2=data2, param=call.param)
-        _state_outputs(out, node, c, call, sym, states, arg_type)
+                            data2=data2, data_valid=data_valid,
+                            param=call.param)
+        _state_outputs(out, node, c, call, sym, states, arg_type, dt)
 
     return DTable(out, occupancy, capacity, dt.device), true
 
@@ -392,26 +460,38 @@ def _decode_direct_keys(dt: DTable, keys: list[str], sizes: list[int],
     return out
 
 
-def _arg_dictionary(c: ExprCompiler, arg):
-    """min/max over a string column keep its dictionary."""
+def _arg_dictionary(c: ExprCompiler, arg, out_type):
+    """The dictionary of a string argument (min/max, min_by/max_by keep
+    their value's): a column's, or, for a VARCHAR output, a string
+    expression's, compiled again for it (the reference keeps a
+    column's only, so min/max of a string expression come out as
+    codes: ROADMAP R9)."""
     if isinstance(arg, ir.ColumnRef):
         v = c.columns.get(arg.name)
         if v is not None and v.is_string:
             return v.dictionary
+        return None
+    if (arg is not None and isinstance(arg.dtype, T.VarcharType)
+            and isinstance(out_type, T.VarcharType)):
+        return c.compile(arg).dictionary
     return None
 
 
 def _verify_keys(left: DTable, right: DTable,
                  criteria: list[tuple[str, str]], gather):
-    """Value-compare matched non-string join keys (64-bit row-hash
-    collision defence). String keys rely on content-based
-    per-dictionary hashes."""
+    """Value-compare matched join keys (64-bit row-hash collision
+    defence; a dense probe hashes no key, so every key but the dense
+    one is checked here). String keys compare as codes in one code
+    space (a probe string absent from the build dictionary matches
+    nothing)."""
     eq = None
     for lk, rk in criteria:
         lv, rv = left.cols[lk], right.cols[rk]
         if lv.is_string or rv.is_string:
-            continue
-        e = lv.data == take(rv.data, gather)
+            lcodes, rcodes = _align_strings(lv, rv)
+            e = lcodes == take(rcodes, gather)
+        else:
+            e = lv.data == take(rv.data, gather)
         if e.ndim == 2:
             e = e.all(dim=1)
         eq = e if eq is None else (eq & e)

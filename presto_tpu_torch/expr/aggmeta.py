@@ -65,6 +65,9 @@ MOMENT_FNS = frozenset({"skewness", "kurtosis"})
 COVAR_FNS = frozenset({"corr", "covar_samp", "covar_pop",
                        "regr_slope", "regr_intercept"})
 BY_FNS = frozenset({"min_by", "max_by"})
+# per-slot sketch states of fixed width: HyperLogLog registers and the
+# min-hash percentile reservoir ([capacity, width] arrays)
+SKETCH_FNS = frozenset({"approx_distinct", "approx_percentile"})
 # variable-length-output aggregates: computed host-side at finalization
 # (exec/varlen.py) because their results cannot live in fixed-width HBM
 # arrays (reference operator/aggregation/ArrayAggregationFunction,

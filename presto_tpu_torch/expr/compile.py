@@ -13,14 +13,21 @@ their device. Value model (``Val``): (dtype, data, valid, dictionary)
   host (LIKE matches the pattern over the dictionary and gathers a
   boolean lookup table by code).
 
-The port covers what the 22 TPC-H queries and the TPC-DS suite use:
-column references, literals, IS [NOT] NULL, IN lists, CASE, casts
-among numeric, decimal and date types and from varchar to date and
-timestamp, and the scalar functions add, subtract, multiply, divide,
-modulus (and mod), negate, abs, round, greatest, least, coalesce,
-nullif, row_index, eq, neq, lt, lte, gt, gte, and, or, not, between,
-like, substring, concat, upper, lower and year. Every other expression
-form and function raises ``NotImplementedError`` naming itself.
+The port covers column references, literals, IS [NOT] NULL, IN lists,
+CASE, casts among numeric, decimal and date types and from varchar to
+every scalar type, and every scalar function of the reference but its
+ARRAY/MAP/lambda ones: arithmetic, comparisons and logic; math
+(sign, the DOUBLE-valued families, log, is_nan/is_finite/is_infinite,
+width_bucket) and bitwise functions; strings (length, trim, pads,
+replace, strpos, starts_with, split_part, reverse, codepoint, chr,
+translate, the edit distances, regexp_like/replace/extract, contains)
+and their JSON, URL and binary encodings; dates and times (the
+extracts, date_trunc, date_add, date_diff, add_months, from/to
+unixtime, date_format). String functions run once per dictionary
+entry on the host and gather by code on the device; date functions
+are integer arithmetic on the device (``//`` and ``%`` floor, as the
+reference's do). Every other expression form and function raises
+``NotImplementedError`` naming itself.
 """
 
 from __future__ import annotations
@@ -114,8 +121,13 @@ def _lut(values: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 def _by_code(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """``lut`` at dictionary ``codes`` of any shape, a literal's 0-d code
-    included (indexing with a 0-d tensor would read it on the host)."""
-    return torch.take(lut, codes.to(torch.int64))
+    included (indexing with a 0-d tensor would read it on the host); a
+    table of rows ([k, 2] limbs) gathers whole rows."""
+    codes = codes.to(torch.int64)
+    if lut.ndim == 1:
+        return torch.take(lut, codes)
+    rows = torch.index_select(lut, 0, codes.reshape(-1))
+    return rows.reshape(tuple(codes.shape) + tuple(lut.shape[1:]))
 
 
 # --- dictionary helpers (host side) ----------------------------------------
@@ -325,6 +337,9 @@ def _div_round(x, f: int):
 def cast_val(v: Val, to: T.DataType) -> Val:
     if v.dtype == to:
         return v
+    if v.is_string and v.dictionary is not None and isinstance(
+            to, (T.BigintType, T.IntegerType, T.DoubleType, T.DecimalType)):
+        return _parse_numeric_dictionary(v, to)
     d = v.data
     if isinstance(to, T.DoubleType) and not v.is_string:
         if is_long_dec(v.dtype):
@@ -370,15 +385,22 @@ def cast_val(v: Val, to: T.DataType) -> Val:
                               "presto_tpu_torch yet")
 
 
+def _lut_gather(values: np.ndarray, v: Val) -> torch.Tensor:
+    """Each row's entry of a per-dictionary-entry host table, gathered
+    on the device by code (codes clamped; an empty dictionary gathers
+    a zero)."""
+    if not len(values):
+        values = np.zeros((1,) + values.shape[1:], values.dtype)
+    codes = torch.clamp(v.data.to(torch.int64), 0, len(values) - 1)
+    return _by_code(_lut(values, v.data), codes)
+
+
 def _gather_lut(values: np.ndarray, ok: np.ndarray, v: Val, to) -> Val:
     """Rows of a per-dictionary-entry parse: each row gathers its
-    entry's value and parse flag by code (codes clamped); a failed
-    parse is NULL."""
-    if not len(values):  # an empty dictionary: every row fails
-        values, ok = np.zeros(1, values.dtype), np.zeros(1, bool)
-    codes = torch.clamp(v.data.to(torch.int64), 0, len(values) - 1)
-    return Val(to, _by_code(_lut(values, v.data), codes),
-               and_valid(v.valid, _by_code(_lut(ok, v.data), codes)))
+    entry's value and parse flag by code; a failed parse (and every row
+    of an empty dictionary) is NULL."""
+    return Val(to, _lut_gather(values, v),
+               and_valid(v.valid, _lut_gather(ok, v)))
 
 
 def _parse_dictionary(v: Val, to: T.DataType, unit: str,
@@ -946,3 +968,900 @@ def _concat(e, args):
             + torch.clamp(b.data.to(torch.int64), 0, nb - 1))
     remap = _lut(inverse.astype(np.int32), a.data)
     return Val(e.dtype, _by_code(remap, pair), valid, d.astype(object))
+
+
+# -- per-entry helpers --------------------------------------------------------
+
+
+def _dict_values(v: Val, fn, dtype=np.int64) -> np.ndarray:
+    """``fn`` of each dictionary entry, as a host array."""
+    return np.array([fn(str(s)) for s in v.dictionary], dtype)
+
+
+def _literal_args(e: ir.Call, what: str) -> None:
+    if not all(isinstance(a, ir.Literal) for a in e.args[1:]):
+        raise NotImplementedError(f"{what} with non-literal arguments")
+
+
+def _per_entry(fn):
+    """A dictionary transform body applying ``fn`` to each entry."""
+    return lambda d: np.array([fn(str(s)) for s in d], object)
+
+
+# -- numbers -----------------------------------------------------------------
+
+
+@scalar("sign")
+def _sign(e, args):
+    """-1, 0 or 1. A LONG decimal reads its sign from the high limb and
+    zero from both limbs (the reference applies ``jnp.sign`` to each
+    limb of the pair, ROADMAP R7)."""
+    (a,) = args
+    if is_long_dec(a.dtype):
+        lo, hi = a.data[..., 0], a.data[..., 1]
+        s = torch.where(hi < 0, -1, ((hi != 0) | (lo != 0)).to(torch.int64))
+        return Val(e.dtype, s, a.valid)
+    return Val(e.dtype, torch.sign(a.data), a.valid)
+
+
+def _as_f64(v: Val):
+    return cast_val(v, T.DOUBLE).data
+
+
+def _cbrt(x):
+    """Real cube root: the power of |x|, one Newton step, the sign."""
+    y = torch.pow(torch.abs(x), 1.0 / 3.0)
+    y = torch.where(y > 0, y - (y * y * y - torch.abs(x)) / (3 * y * y), y)
+    return torch.copysign(y, x)
+
+
+def _mathfn(name, op, arity=1):
+    """A DOUBLE-valued math function (reference MathFunctions.java)."""
+    @scalar(name)
+    def _f(e, args, _op=op, _n=arity):
+        if _n == 1:
+            (a,) = args
+            return Val(e.dtype, _op(_as_f64(a)), a.valid)
+        a, b = args
+        return Val(e.dtype, _op(_as_f64(a), _as_f64(b)),
+                   and_valid(a.valid, b.valid))
+    return _f
+
+
+for _name, _op in (("sqrt", torch.sqrt), ("cbrt", _cbrt), ("exp", torch.exp),
+                   ("ln", torch.log), ("log10", torch.log10),
+                   ("log2", torch.log2), ("floor", torch.floor),
+                   ("ceiling", torch.ceil), ("ceil", torch.ceil),
+                   ("truncate", torch.trunc), ("sin", torch.sin),
+                   ("cos", torch.cos), ("tan", torch.tan),
+                   ("asin", torch.asin), ("acos", torch.acos),
+                   ("atan", torch.atan), ("sinh", torch.sinh),
+                   ("cosh", torch.cosh), ("tanh", torch.tanh),
+                   ("degrees", torch.rad2deg), ("radians", torch.deg2rad),
+                   ("exp2", torch.exp2)):
+    _mathfn(_name, _op)
+for _name, _op in (("power", torch.pow), ("pow", torch.pow),
+                   ("atan2", torch.atan2)):
+    _mathfn(_name, _op, arity=2)
+del _name, _op
+
+
+@scalar("log")
+def _log_base(e, args):
+    """log(base, x)."""
+    b, x = args
+    return Val(e.dtype, torch.log(_as_f64(x)) / torch.log(_as_f64(b)),
+               and_valid(b.valid, x.valid))
+
+
+@scalar("is_nan")
+def _is_nan(e, args):
+    (a,) = args
+    return Val(e.dtype, torch.isnan(_as_f64(a)), a.valid)
+
+
+@scalar("is_finite")
+def _is_finite(e, args):
+    (a,) = args
+    return Val(e.dtype, torch.isfinite(_as_f64(a)), a.valid)
+
+
+@scalar("is_infinite")
+def _is_infinite(e, args):
+    (a,) = args
+    return Val(e.dtype, torch.isinf(_as_f64(a)), a.valid)
+
+
+def _srl_by(a, b):
+    """Logical right shift of int64 bit patterns by a tensor of
+    amounts in [0, 64)."""
+    keep = (torch.ones_like(a) << (64 - b)) - 1
+    return torch.where(b == 0, a, (a >> b) & keep)
+
+
+def _bitfn(name, op, arity=2):
+    @scalar(name)
+    def _f(e, args, _op=op, _n=arity):
+        if _n == 1:
+            (a,) = args
+            return Val(e.dtype, _op(a.data.to(torch.int64)), a.valid)
+        a, b = args
+        x, y = torch.broadcast_tensors(a.data.to(torch.int64),
+                                       b.data.to(torch.int64))
+        return Val(e.dtype, _op(x, y), and_valid(a.valid, b.valid))
+    return _f
+
+
+_bitfn("bitwise_and", torch.bitwise_and)
+_bitfn("bitwise_or", torch.bitwise_or)
+_bitfn("bitwise_xor", torch.bitwise_xor)
+_bitfn("bitwise_not", torch.bitwise_not, arity=1)
+_bitfn("bitwise_left_shift", torch.bitwise_left_shift)
+_bitfn("bitwise_right_shift", _srl_by)
+
+
+def _popcount(x):
+    """Set bits of int64 bit patterns (SWAR; the multiply wraps)."""
+    from presto_tpu_torch.ops.hash import srl
+    x = x - (srl(x, 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + (srl(x, 2) & 0x3333333333333333)
+    x = (x + srl(x, 4)) & 0x0F0F0F0F0F0F0F0F
+    return srl(x * 0x0101010101010101, 56)
+
+
+@scalar("bit_count")
+def _bit_count(e, args):
+    """Set bits of the value as a ``bits``-wide two's complement
+    integer (64 by default)."""
+    a = args[0]
+    bits = int(e.args[1].value) if len(e.args) > 1 else 64
+    v = a.data.to(torch.int64)
+    if bits < 64:
+        v = v & ((1 << bits) - 1)
+    return Val(e.dtype, _popcount(v), a.valid)
+
+
+@scalar("width_bucket")
+def _width_bucket(e, args):
+    """The bucket of x among n equal buckets over [lo, hi): 0 below,
+    n + 1 at or above hi."""
+    x, lo, hi, nb = (cast_val(a, T.DOUBLE) for a in args)
+    n = nb.data.to(torch.int64)
+    span = hi.data - lo.data
+    frac = (x.data - lo.data) / torch.where(span == 0, 1.0, span)
+    b = torch.floor(frac * n).to(torch.int64) + 1
+    b = torch.where(x.data < lo.data, 0, b)
+    b = torch.where(x.data >= hi.data, n + 1, b)
+    return Val(e.dtype, b, and_valid(*[a.valid for a in args]))
+
+
+def _parse_numeric_dictionary(v: Val, to: T.DataType) -> Val:
+    """varchar -> bigint, integer, double or decimal: one parse per
+    dictionary entry into a host table that rows gather by code;
+    malformed strings become NULL (an integral-valued decimal string
+    such as '5.0' casts to an integer)."""
+    from decimal import Decimal, InvalidOperation
+    k = len(v.dictionary)
+    ok = np.zeros(k, bool)
+    if isinstance(to, T.DoubleType):
+        vals = np.zeros(k, np.float64)
+    elif isinstance(to, T.DecimalType):
+        vals = np.zeros((k, 2) if to.is_long else k, np.int64)
+    else:
+        vals = np.zeros(k, to.physical_dtype)
+    for i, s in enumerate(v.dictionary):
+        t = str(s).strip()
+        try:
+            if isinstance(to, T.DoubleType):
+                vals[i] = float(t)
+            elif isinstance(to, T.DecimalType):
+                raw = int(Decimal(t).scaleb(to.scale).to_integral_value())
+                vals[i] = _lit128_np(raw) if to.is_long else raw
+            else:
+                try:
+                    vals[i] = int(t)
+                except ValueError:
+                    f = float(t)
+                    if f != int(f):
+                        continue
+                    vals[i] = int(f)
+            ok[i] = True
+        except (InvalidOperation, ValueError, OverflowError):
+            continue
+    return _gather_lut(vals, ok, v, to)
+
+
+# -- strings -----------------------------------------------------------------
+
+
+def _text(v: Val) -> np.ndarray:
+    """The dictionary as a numpy unicode array (np.char's operand)."""
+    return v.dictionary.astype("U")
+
+
+@scalar("length")
+def _length(e, args):
+    (col,) = args
+    return Val(e.dtype, _lut_gather(np.char.str_len(_text(col))
+                                    .astype(np.int64), col), col.valid)
+
+
+@scalar("trim")
+def _trim(e, args):
+    return _dict_transform(args[0], np.char.strip)
+
+
+@scalar("ltrim")
+def _ltrim(e, args):
+    return _dict_transform(args[0], np.char.lstrip)
+
+
+@scalar("rtrim")
+def _rtrim(e, args):
+    return _dict_transform(args[0], np.char.rstrip)
+
+
+@scalar("reverse")
+def _reverse(e, args):
+    return _dict_transform(args[0], _per_entry(lambda s: s[::-1]))
+
+
+@scalar("replace")
+def _replace(e, args):
+    _literal_args(e, "replace")
+    pat = str(e.args[1].value)
+    rep = str(e.args[2].value) if len(e.args) > 2 else ""
+    return _dict_transform(args[0], lambda d: np.char.replace(d, pat, rep))
+
+
+@scalar("starts_with")
+def _starts_with(e, args):
+    _literal_args(e, "starts_with")
+    prefix = str(e.args[1].value)
+    return _dict_predicate(args[0], lambda d: np.char.startswith(d, prefix))
+
+
+@scalar("strpos")
+def _strpos(e, args):
+    """1-based position of the first occurrence, 0 if absent."""
+    _literal_args(e, "strpos")
+    needle = str(e.args[1].value)
+    col = args[0]
+    pos = np.char.find(_text(col), needle).astype(np.int64) + 1
+    return Val(e.dtype, _lut_gather(pos, col), col.valid)
+
+
+@scalar("lpad")
+def _lpad(e, args):
+    _literal_args(e, "lpad")
+    n = int(e.args[1].value)
+    fill = str(args[2].dictionary[0]) if len(args) > 2 else " "
+    return _dict_transform(args[0], _per_entry(lambda s: s.rjust(n, fill)[:n]))
+
+
+@scalar("rpad")
+def _rpad(e, args):
+    _literal_args(e, "rpad")
+    n = int(e.args[1].value)
+    fill = str(args[2].dictionary[0]) if len(args) > 2 else " "
+    return _dict_transform(args[0], _per_entry(lambda s: s.ljust(n, fill)[:n]))
+
+
+@scalar("split_part")
+def _split_part(e, args):
+    """The 1-based ``index``-th field split by ``sep`` ('' past the
+    last)."""
+    _literal_args(e, "split_part")
+    sep = str(args[1].dictionary[0])
+    idx = int(e.args[2].value)
+
+    def part(s):
+        parts = s.split(sep)
+        return parts[idx - 1] if 0 < idx <= len(parts) else ""
+    return _dict_transform(args[0], _per_entry(part))
+
+
+@scalar("regexp_like")
+def _regexp_like(e, args):
+    if not isinstance(e.args[1], ir.Literal):
+        raise NotImplementedError("regexp_like with non-literal pattern")
+    rx = re.compile(str(args[1].dictionary[0]))
+    return _dict_predicate(args[0], lambda d: np.array(
+        [rx.search(s) is not None for s in d], dtype=bool))
+
+
+@scalar("regexp_replace")
+def _regexp_replace(e, args):
+    _literal_args(e, "regexp_replace")
+    rx = re.compile(str(args[1].dictionary[0]))
+    repl = str(args[2].dictionary[0]) if len(args) > 2 else ""
+    # SQL replacement groups are $1; python's are \1
+    repl_py = re.sub(r"\$(\d+)", r"\\\1", repl)
+    return _dict_transform(args[0], _per_entry(lambda s: rx.sub(repl_py, s)))
+
+
+@scalar("regexp_extract")
+def _regexp_extract(e, args):
+    """The match (or its ``group``); NULL where the pattern does not
+    match."""
+    _literal_args(e, "regexp_extract")
+    rx = re.compile(str(args[1].dictionary[0]))
+    group = int(e.args[2].value) if len(e.args) > 2 else 0
+    col = args[0]
+    found = [rx.search(str(s)) for s in col.dictionary]
+    matched = np.array([m is not None for m in found], dtype=bool)
+    v = _dict_transform(col, lambda d: np.array(
+        ["" if m is None else (m.group(group) or "") for m in found],
+        object))
+    return Val(v.dtype, v.data, and_valid(v.valid, _lut_gather(matched, col)),
+               v.dictionary)
+
+
+@scalar("contains")
+def _contains(e, args):
+    """The string form: whether the needle occurs (ARRAY ``contains``
+    comes with ARRAY values)."""
+    if not args[0].is_string:
+        raise NotImplementedError(
+            "contains over ARRAY values is not ported to presto_tpu_torch "
+            "yet")
+    if not isinstance(e.args[1], ir.Literal):
+        raise NotImplementedError("contains with non-literal needle")
+    needle = str(args[1].dictionary[0])
+    return _dict_predicate(args[0], lambda d: np.array(
+        [needle in s for s in d], dtype=bool))
+
+
+@scalar("codepoint")
+def _codepoint(e, args):
+    (col,) = args
+    return Val(e.dtype, _lut_gather(_dict_values(
+        col, lambda s: ord(s[0]) if s else 0), col), col.valid)
+
+
+@scalar("chr")
+def _chr(e, args):
+    (a,) = args
+    if not isinstance(e.args[0], ir.Literal):
+        raise NotImplementedError("chr() requires a literal")
+    return Val(T.VARCHAR, HS.upload(np.asarray(0, np.int32), a.data.device,
+                                    "literal"), a.valid,
+               np.array([chr(int(e.args[0].value))], object))
+
+
+@scalar("translate")
+def _translate(e, args):
+    _literal_args(e, "translate")
+    src, dst = str(e.args[1].value), str(e.args[2].value)
+    table = {ord(c): (dst[i] if i < len(dst) else None)
+             for i, c in enumerate(src)}
+    return _dict_transform(args[0], _per_entry(lambda s: s.translate(table)))
+
+
+def _levenshtein_to(want: str):
+    def dist(s: str) -> int:
+        prev = list(range(len(want) + 1))
+        for i, ca in enumerate(s, 1):
+            cur = [i]
+            for j, cb in enumerate(want, 1):
+                cur.append(min(prev[j] + 1, cur[j - 1] + 1,
+                               prev[j - 1] + (ca != cb)))
+            prev = cur
+        return prev[-1]
+    return dist
+
+
+@scalar("levenshtein_distance")
+def _levenshtein(e, args):
+    a, b = args
+    if not isinstance(e.args[1], ir.Literal):
+        raise NotImplementedError(
+            "levenshtein_distance needs a literal second argument")
+    lut = _dict_values(a, _levenshtein_to(str(e.args[1].value)))
+    return Val(e.dtype, _lut_gather(lut, a), and_valid(a.valid, b.valid))
+
+
+@scalar("hamming_distance")
+def _hamming(e, args):
+    """Differing positions; NULL where the lengths differ."""
+    a, b = args
+    if not isinstance(e.args[1], ir.Literal):
+        raise NotImplementedError(
+            "hamming_distance needs a literal second argument")
+    want = str(e.args[1].value)
+    lut = _dict_values(a, lambda s: sum(x != y for x, y in zip(s, want))
+                       if len(s) == len(want) else -1)
+    return Val(e.dtype, _lut_gather(lut, a),
+               and_valid(a.valid, b.valid, _lut_gather(lut >= 0, a)))
+
+
+# -- URLs and binary encodings (dictionary transforms) ------------------------
+
+
+def _url_parts(s: str):
+    from urllib.parse import urlparse
+    try:
+        return urlparse(s)
+    except ValueError:
+        return urlparse("")
+
+
+def _query_params(s: str) -> dict:
+    from urllib.parse import parse_qs
+    return parse_qs(_url_parts(s).query, keep_blank_values=True)
+
+
+def _urlfn(name, extract):
+    @scalar(name)
+    def _f(e, args, _x=extract):
+        return _dict_transform(args[0], _per_entry(_x))
+    return _f
+
+
+def _b64(s: str) -> str:
+    import base64
+    return base64.b64encode(s.encode()).decode()
+
+
+def _unb64(s: str) -> str:
+    import base64
+    return base64.b64decode(s.encode()).decode("utf-8", "replace")
+
+
+def _quote(s: str) -> str:
+    from urllib.parse import quote_plus
+    return quote_plus(s)
+
+
+def _unquote(s: str) -> str:
+    from urllib.parse import unquote_plus
+    return unquote_plus(s)
+
+
+def _digest(algo: str):
+    import hashlib
+    return lambda s: hashlib.new(algo, s.encode()).hexdigest()
+
+
+_urlfn("url_extract_protocol", lambda s: _url_parts(s).scheme)
+_urlfn("url_extract_host", lambda s: _url_parts(s).hostname or "")
+_urlfn("url_extract_path", lambda s: _url_parts(s).path)
+_urlfn("url_extract_query", lambda s: _url_parts(s).query)
+_urlfn("url_extract_fragment", lambda s: _url_parts(s).fragment)
+_urlfn("url_encode", _quote)
+_urlfn("url_decode", _unquote)
+_urlfn("to_hex", lambda s: s.encode().hex().upper())
+_urlfn("from_hex", lambda s: bytes.fromhex(s).decode("utf-8", "replace"))
+_urlfn("md5", _digest("md5"))
+_urlfn("sha256", _digest("sha256"))
+_urlfn("to_base64", _b64)
+_urlfn("from_base64", _unb64)
+
+
+@scalar("url_extract_port")
+def _url_port(e, args):
+    """The URL's port; NULL where it names none."""
+    (col,) = args
+    ports = _dict_values(col, lambda s: _url_parts(s).port or -1)
+    return Val(e.dtype, _lut_gather(np.clip(ports, 0, None), col),
+               and_valid(col.valid, _lut_gather(ports >= 0, col)))
+
+
+@scalar("url_extract_parameter")
+def _url_param(e, args):
+    """The first value of a query parameter; NULL where it is absent."""
+    if not isinstance(e.args[1], ir.Literal):
+        raise NotImplementedError(
+            "url_extract_parameter needs a literal name")
+    name = str(e.args[1].value)
+    col = args[0]
+    out = _dict_transform(col, _per_entry(
+        lambda s: (_query_params(s).get(name) or [""])[0]))
+    has = _dict_values(col, lambda s: name in _query_params(s), bool)
+    return Val(T.VARCHAR, out.data,
+               and_valid(col.valid, _lut_gather(has, col)), out.dictionary)
+
+
+# -- JSON (each distinct document parses once, on the host) -------------------
+
+
+def _json_path_steps(path: str) -> list:
+    """A JSONPath subset: $, .key, [index], ["key"] (strict or lax)."""
+    if path.startswith("lax ") or path.startswith("strict "):
+        path = path.split(" ", 1)[1]
+    if not path.startswith("$"):
+        raise NotImplementedError(f"unsupported JSON path {path!r}")
+    steps: list = []
+    i = 1
+    while i < len(path):
+        if path[i] == ".":
+            j = i + 1
+            while j < len(path) and path[j] not in ".[":
+                j += 1
+            steps.append(path[i + 1:j])
+            i = j
+        elif path[i] == "[":
+            j = path.index("]", i)
+            body = path[i + 1:j].strip()
+            steps.append(body[1:-1] if body[:1] in ("'", '"')
+                         else int(body))
+            i = j + 1
+        else:
+            raise NotImplementedError(f"unsupported JSON path {path!r}")
+    return steps
+
+
+def _json_eval(doc: str, steps: list):
+    """(value, found) of ``steps`` in the document."""
+    import json
+    try:
+        v = json.loads(doc)
+    except (ValueError, TypeError):
+        return None, False
+    for s in steps:
+        if isinstance(s, int):
+            if not isinstance(v, list) or not -len(v) <= s < len(v):
+                return None, False
+        elif not isinstance(v, dict) or s not in v:
+            return None, False
+        v = v[s]
+    return v, True
+
+
+def _json_lut(col: Val, e, per_doc) -> Val:
+    """Rows gather each document's (value, found) by code; a document
+    that yields found=False reads as NULL."""
+    results = [per_doc(str(doc)) for doc in col.dictionary]
+    found = np.array([ok for _, ok in results], dtype=bool)
+    valid = and_valid(col.valid, _lut_gather(found, col))
+    if isinstance(e.dtype, T.VarcharType):
+        uniq = sorted({v for v, ok in results if ok}) or [""]
+        pos = {v: i for i, v in enumerate(uniq)}
+        remap = np.array([pos[v] if ok else 0 for v, ok in results],
+                         np.int32)
+        return Val(T.VARCHAR, _lut_gather(remap, col), valid,
+                   np.asarray(uniq, dtype=object))
+    vals = np.array([v if ok else 0 for v, ok in results], np.int64)
+    return Val(e.dtype, _lut_gather(vals, col), valid)
+
+
+def _literal_path(e) -> list:
+    if not isinstance(e.args[1], ir.Literal):
+        raise NotImplementedError("JSON path must be a literal")
+    return _json_path_steps(str(e.args[1].value))
+
+
+@scalar("json_extract_scalar")
+def _json_extract_scalar(e, args):
+    steps = _literal_path(e)
+
+    def per_doc(doc):
+        v, ok = _json_eval(doc, steps)
+        if not ok or isinstance(v, (dict, list)) or v is None:
+            return None, False
+        if isinstance(v, bool):
+            return ("true" if v else "false"), True
+        if isinstance(v, float) and v.is_integer():
+            return str(int(v)), True
+        return str(v), True
+    return _json_lut(args[0], e, per_doc)
+
+
+@scalar("json_extract")
+def _json_extract(e, args):
+    import json
+    steps = _literal_path(e)
+
+    def per_doc(doc):
+        v, ok = _json_eval(doc, steps)
+        if not ok:
+            return None, False
+        return json.dumps(v, separators=(",", ":"), sort_keys=True), True
+    return _json_lut(args[0], e, per_doc)
+
+
+@scalar("json_array_length")
+def _json_array_length(e, args):
+    import json
+
+    def per_doc(doc):
+        try:
+            v = json.loads(doc)
+        except (ValueError, TypeError):
+            return None, False
+        return (len(v), True) if isinstance(v, list) else (None, False)
+    return _json_lut(args[0], e, per_doc)
+
+
+@scalar("json_size")
+def _json_size(e, args):
+    steps = _literal_path(e)
+
+    def per_doc(doc):
+        v, ok = _json_eval(doc, steps)
+        if not ok:
+            return None, False
+        return (len(v) if isinstance(v, (dict, list)) else 0), True
+    return _json_lut(args[0], e, per_doc)
+
+
+@scalar("json_parse")
+@scalar("json_format")
+def _json_identity(e, args):
+    """JSON values are dictionary-encoded strings end to end."""
+    a = args[0]
+    return Val(T.VARCHAR, a.data, a.valid, a.dictionary)
+
+
+# -- dates and times ---------------------------------------------------------
+
+
+def _us_of(v: Val):
+    """Epoch micros of a DATE or TIMESTAMP Val."""
+    if isinstance(v.dtype, T.DateType):
+        return v.data.to(torch.int64) * T.US_PER_DAY
+    return v.data
+
+
+def _tod_us(v: Val):
+    """Micros since midnight of a TIME, DATE or TIMESTAMP Val."""
+    if isinstance(v.dtype, T.TimeType):
+        return v.data
+    return _us_of(v) - _days_of(v).to(torch.int64) * T.US_PER_DAY
+
+
+def _days_from_civil(y, m, d):
+    """Hinnant's days_from_civil, the inverse of _civil_from_days
+    (``//`` floors)."""
+    y = y - (m <= 2).to(y.dtype)
+    era = y // 400
+    yoe = y - era * 400
+    mp = m + torch.where(m > 2, -3, 9)
+    doy = (153 * mp + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146097 + doe - 719468
+
+
+def _month_days(y, m):
+    """Days in month ``m`` of year ``y`` (30 + the parity of m, m + 1
+    from August on; February 28 or 29)."""
+    leap = ((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)
+    long = (m + (m >= 8).to(m.dtype)) & 1
+    return torch.where(m == 2, 28 + leap.to(m.dtype), 30 + long)
+
+
+def _add_months_days(days, months):
+    """Epoch days plus whole months, the day of month clamped to the
+    target month's length."""
+    y, m, d = _civil_from_days(days)
+    total = (y * 12 + (m - 1)) + months
+    ny = total // 12
+    nm = total - ny * 12 + 1
+    return _days_from_civil(ny, nm, torch.minimum(d, _month_days(ny, nm)))
+
+
+def _extract(name, fn):
+    @scalar(name)
+    def _f(e, args, _fn=fn):
+        (a,) = args
+        return Val(e.dtype, _fn(a), a.valid)
+    return _f
+
+
+_extract("month", lambda a: _civil_from_days(_days_of(a))[1])
+_extract("day", lambda a: _civil_from_days(_days_of(a))[2])
+_extract("quarter", lambda a: (_civil_from_days(_days_of(a))[1] - 1) // 3
+         + 1)
+# ISO: Monday 1 .. Sunday 7; epoch day 0 was a Thursday
+_extract("day_of_week", lambda a: (_days_of(a).to(torch.int64) + 3) % 7 + 1)
+_extract("hour", lambda a: _tod_us(a) // T.US_PER_HOUR)
+_extract("minute", lambda a: (_tod_us(a) // T.US_PER_MINUTE) % 60)
+_extract("second", lambda a: (_tod_us(a) // T.US_PER_SECOND) % 60)
+_extract("millisecond", lambda a: (_tod_us(a) // 1000) % 1000)
+
+
+def _jan1(days):
+    y = _civil_from_days(days)[0]
+    one = torch.ones_like(y)
+    return _days_from_civil(y, one, one)
+
+
+@scalar("day_of_year")
+def _day_of_year(e, args):
+    (a,) = args
+    days = _days_of(a).to(torch.int64)
+    return Val(e.dtype, days - _jan1(days) + 1, a.valid)
+
+
+@scalar("week")
+def _week(e, args):
+    """ISO week of the year: the year of the week's Thursday."""
+    (a,) = args
+    d = _days_of(a).to(torch.int64)
+    thursday = d - ((d + 3) % 7) + 3
+    return Val(e.dtype, (thursday - _jan1(thursday)) // 7 + 1, a.valid)
+
+
+@scalar("add_months")
+def _add_months(e, args):
+    """date + N months [+ D days], the day of month clamped."""
+    a, months = args[0], args[1]
+    out = _add_months_days(a.data, months.data)
+    if len(args) > 2:
+        out = out + args[2].data
+    return Val(e.dtype, out.to(torch.int32), a.valid)
+
+
+@scalar("ts_add_months")
+def _ts_add_months(e, args):
+    a, months = args
+    days = _days_of(a)
+    tod = a.data - days * T.US_PER_DAY
+    out = _add_months_days(days, months.data) * T.US_PER_DAY + tod
+    return Val(e.dtype, out, and_valid(a.valid, months.valid))
+
+
+def _trunc_days(unit: str, days):
+    """Epoch days truncated to the start of a civil unit."""
+    y, m, _d = _civil_from_days(days)
+    one = torch.ones_like(y)
+    if unit == "year":
+        return _days_from_civil(y, one, one)
+    if unit == "quarter":
+        return _days_from_civil(y, ((m - 1) // 3) * 3 + 1, one)
+    if unit == "month":
+        return _days_from_civil(y, m, one)
+    if unit == "week":  # ISO weeks start on Monday
+        d = days.to(torch.int64)
+        return d - ((d + 3) % 7)
+    raise NotImplementedError(f"date_trunc unit {unit}")
+
+
+_US_PER = {"second": T.US_PER_SECOND, "minute": T.US_PER_MINUTE,
+           "hour": T.US_PER_HOUR, "day": T.US_PER_DAY}
+_MONTHS_PER = {"year": 12, "quarter": 3, "month": 1}
+
+
+def _unit(e: ir.Call) -> str:
+    unit = str(e.args[0].value).lower()
+    return unit[:-1] if unit.endswith("s") else unit
+
+
+@scalar("date_trunc")
+def _date_trunc(e, args):
+    unit = str(e.args[0].value).lower()
+    v = args[1]
+    if isinstance(v.dtype, T.DateType):
+        if unit == "day":
+            return v
+        return Val(e.dtype, _trunc_days(unit, v.data).to(torch.int32),
+                   v.valid)
+    per = _US_PER.get(unit)
+    if per is not None:
+        return Val(e.dtype, (v.data // per) * per, v.valid)
+    return Val(e.dtype, _trunc_days(unit, _days_of(v)) * T.US_PER_DAY,
+               v.valid)
+
+
+@scalar("date_add")
+def _date_add(e, args):
+    unit = _unit(e)
+    n, v = args[1], args[2]
+    valid = and_valid(n.valid, v.valid)
+    months = _MONTHS_PER.get(unit)
+    if isinstance(v.dtype, T.DateType):
+        if months is not None:
+            out = _add_months_days(v.data, n.data * months)
+            return Val(e.dtype, out.to(torch.int32), valid)
+        per_day = {"day": 1, "week": 7}.get(unit)
+        if per_day is None:
+            raise NotImplementedError(f"date_add({unit}) on a date value")
+        return Val(e.dtype, (v.data + n.data * per_day).to(torch.int32),
+                   valid)
+    if months is not None:
+        days = _days_of(v)
+        tod = v.data - days * T.US_PER_DAY
+        out = _add_months_days(days, n.data * months) * T.US_PER_DAY + tod
+        return Val(e.dtype, out, valid)
+    per = {**_US_PER, "week": 7 * T.US_PER_DAY,
+           "millisecond": 1000}.get(unit)
+    if per is None:
+        raise NotImplementedError(f"date_add unit {unit}")
+    return Val(e.dtype, v.data + n.data * per, valid)
+
+
+def _trunc_div(x, d: int):
+    """Integer division truncating toward zero."""
+    return torch.where(x >= 0, x // d, -((-x) // d))
+
+
+@scalar("date_diff")
+def _date_diff(e, args):
+    unit = _unit(e)
+    a, b = args[1], args[2]
+    valid = and_valid(a.valid, b.valid)
+    months = _MONTHS_PER.get(unit)
+    if months is not None:
+        # the calendar-month difference, floored to the unit
+        ya, ma, _ = _civil_from_days(_days_of(a))
+        yb, mb, _ = _civil_from_days(_days_of(b))
+        diff = (yb * 12 + mb) - (ya * 12 + ma)
+        return Val(e.dtype, diff // months, valid)
+    if unit in ("day", "week") and isinstance(a.dtype, T.DateType) \
+            and isinstance(b.dtype, T.DateType):
+        d = (b.data.to(torch.int64) - a.data.to(torch.int64))
+        return Val(e.dtype, _trunc_div(d, 7) if unit == "week" else d, valid)
+    per = {**_US_PER, "week": 7 * T.US_PER_DAY,
+           "millisecond": 1000}.get(unit)
+    if per is None:
+        raise NotImplementedError(f"date_diff unit {unit}")
+    return Val(e.dtype, _trunc_div(_us_of(b) - _us_of(a), per), valid)
+
+
+@scalar("from_unixtime")
+def _from_unixtime(e, args):
+    (a,) = args
+    sec = a.data.to(torch.float64)
+    if isinstance(a.dtype, T.DecimalType):
+        sec = sec / a.dtype.unscale_factor
+    return Val(e.dtype, torch.round(sec * T.US_PER_SECOND).to(torch.int64),
+               a.valid)
+
+
+@scalar("to_unixtime")
+def _to_unixtime(e, args):
+    (a,) = args
+    return Val(e.dtype, _us_of(a).to(torch.float64) / T.US_PER_SECOND,
+               a.valid)
+
+
+# MySQL date_format specifiers of day granularity (a time-of-day
+# specifier would need per-row strings, which no dictionary encodes)
+_MYSQL_STRFTIME = {
+    "%Y": "%Y", "%y": "%y", "%m": "%m", "%c": "%-m", "%d": "%d",
+    "%e": "%-d", "%j": "%j", "%M": "%B", "%b": "%b", "%W": "%A",
+    "%a": "%a",
+}
+_DATE_FORMAT_LO = -40179  # 1860-01-01
+_DATE_FORMAT_HI = 80468   # 2190-04-25
+_DATE_FORMAT_CACHE: dict[str, tuple] = {}
+
+
+def _date_format_table(fmt: str) -> tuple[np.ndarray, np.ndarray]:
+    """(the sorted distinct strings, each day's code among them) over
+    the supported day range, for one format."""
+    import datetime
+    hit = _DATE_FORMAT_CACHE.get(fmt)
+    if hit is None:
+        pyfmt = re.sub(
+            "%.", lambda m: _MYSQL_STRFTIME.get(m.group(0), m.group(0)),
+            fmt)
+        base = datetime.date(1970, 1, 1).toordinal()
+        per_day = np.array(
+            [datetime.date.fromordinal(base + d).strftime(pyfmt)
+             for d in range(_DATE_FORMAT_LO, _DATE_FORMAT_HI)], dtype="U")
+        strings, codes = np.unique(per_day, return_inverse=True)
+        hit = (strings.astype(object), codes.astype(np.int32))
+        if len(_DATE_FORMAT_CACHE) > 16:
+            _DATE_FORMAT_CACHE.clear()
+        _DATE_FORMAT_CACHE[fmt] = hit
+    return hit
+
+
+@scalar("date_format")
+def _date_format(e, args):
+    """A per-day string table over 1860-2190, made unique (each string
+    one code, so code equality is string equality: the reference keeps
+    one entry per day, ROADMAP R8); a day outside the range is NULL."""
+    if not isinstance(e.args[1], ir.Literal):
+        raise NotImplementedError("date_format with non-literal format")
+    fmt = str(e.args[1].value)
+    if re.search(r"%[HhiSsfprT]", fmt):
+        raise NotImplementedError("date_format with time-of-day specifiers")
+    v = args[0]
+    strings, day_codes = _date_format_table(fmt)
+    day = _days_of(v).to(torch.int64) - _DATE_FORMAT_LO
+    in_range = (day >= 0) & (day < len(day_codes))
+    day = torch.clamp(day, 0, len(day_codes) - 1)
+    return Val(T.VARCHAR, _by_code(_lut(day_codes, v.data), day),
+               and_valid(v.valid, in_range), strings)

@@ -90,6 +90,36 @@ def grow_overflowed(capacities: dict, ok_keys, oks,
     return overflowed
 
 
+def splitmix64(x: torch.Tensor) -> torch.Tensor:
+    """SplitMix64's finalizer over int64 bit patterns (the reference's
+    ``_splitmix64``): ``+`` and ``*`` wrap mod 2^64, the shifts are
+    logical, the constants are their signed equivalents."""
+    x = x.to(torch.int64) + PHI64
+    x = (x ^ srl(x, 30)) * (0xBF58476D1CE4E5B9 - (1 << 64))
+    x = (x ^ srl(x, 27)) * (0x94D049BB133111EB - (1 << 64))
+    return x ^ srl(x, 31)
+
+
+def value_hash(data: torch.Tensor) -> torch.Tensor:
+    """Per-row 64-bit hash of a value column (the reference's
+    ``expr/aggregates._value_hash``): integers hash their sign-extended
+    bits, bool its 0/1, floats the double-float pair hi = f32(x),
+    lo = f32(x - hi), each 32-bit pattern in its half of the word
+    (-0.0 folded to 0.0; doubles beyond the f32 range collapse to the
+    inf fingerprint, as in the reference)."""
+    if data.dtype.is_floating_point:
+        x = data.to(torch.float64)
+        x = torch.where(x == 0, torch.zeros_like(x), x)
+        hi = x.to(torch.float32)
+        lo = (x - hi.to(torch.float64)).to(torch.float32)
+        hb = hi.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        lb = lo.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        bits = hb | (lb << 32)
+    else:
+        bits = data.to(torch.int64)
+    return splitmix64(bits)
+
+
 def hash_int_column(data: torch.Tensor, valid=None) -> torch.Tensor:
     """Order-preserving identity key of an integer-like column: the
     value with its sign bit flipped. NULLs map to a fixed sentinel."""

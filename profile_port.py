@@ -4,10 +4,11 @@
                             [--suite tpch] [--backend cuda] [--top 25]
                             [--host] [--kernels]
 
-Generates TPC-H (``--suite tpch``: the texts of chip_smoke.QUERIES)
-or TPC-DS (``--suite tpcds``: tests/test_tpcds.py's texts over the
-port's TPC-DS connector, seed 20030527 unless ``--seed`` names one)
-with the port's connector, runs each query once to
+Generates TPC-H (``--suite tpch``: the texts of chip_smoke.QUERIES;
+``--suite functions``: chip_smoke.FUNCTION_QUERIES over the same
+tables) or TPC-DS (``--suite tpcds``: tests/test_tpcds.py's texts over
+the port's TPC-DS connector, seed 20030527 unless ``--seed`` names
+one) with the port's connector, runs each query once to
 upload its columns, then once more under ``torch.profiler`` (CPU and
 CUDA activities), and prints the query's wall time, the device-busy
 sum and the top operators by device time and by host time (with
@@ -29,7 +30,8 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import QUERIES, TPCDS_SEED, tpcds_queries
+from chip_smoke import (FUNCTION_QUERIES, QUERIES, TPCDS_SEED,
+                        tpcds_queries)
 
 # the CUDA functions of each wrapper (kernels/csrc/*.cu, all in an
 # anonymous namespace; a template's arguments follow its name);
@@ -88,7 +90,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=None,
                     help="the generator's seed (19920101 for tpch, "
                     f"{TPCDS_SEED} for tpcds)")
-    ap.add_argument("--suite", default="tpch", choices=("tpch", "tpcds"))
+    ap.add_argument("--suite", default="tpch",
+                    choices=("tpch", "tpcds", "functions"))
     ap.add_argument("--queries", default="q03,q09")
     ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"))
     ap.add_argument("--top", type=int, default=25)
@@ -125,7 +128,8 @@ def main() -> int:
             seed=TPCDS_SEED if args.seed is None else args.seed))
         engine.session.catalog = "tpcds"
     else:
-        queries = QUERIES
+        queries = FUNCTION_QUERIES if args.suite == "functions" \
+            else QUERIES
         engine.register_catalog("tpch", TpchConnector(
             scale=args.scale,
             seed=19920101 if args.seed is None else args.seed))

@@ -6,7 +6,10 @@ constants of ROADMAP's P1 against the port on the CPU, the 101
 TPC-DS queries at scale 0.1 on both backends, and the executor's
 default paths: carrier compaction through the kernel, a block-streamed
 Q1 on both backends, and dynamic filtering and segmented plans without
-a synchronizing call. Elsewhere every test skips with its reason. This
+a synchronizing call; the function library's aggregates and chip_smoke's
+functions-phase queries on both backends (F1 and F4 also without a
+synchronizing call) and min_by ties resolved to one row on every
+backend. Elsewhere every test skips with its reason. This
 file imports neither jax nor presto_tpu, so it runs where only the port
 is installed:
 
@@ -948,3 +951,142 @@ def test_streamed_q1_equals_whole_table_on_both_backends(cuda):
             rows[(backend, block)] = e.execute(sql)
             assert e.last_streamed_blocks == (9 if block else 0)
     assert len(set(map(repr, rows.values()))) == 1 and rows[("cuda", 0)]
+
+
+# -- the function library (ROADMAP Queue 1 items 3a and 3d) -------------------
+
+
+def _chip_smoke():
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    return chip_smoke
+
+
+# one statement per aggregate of item 3d, folded over the sorted groups
+# of l_suppkey % 16 (and, for the sketches, globally)
+NEW_AGG_SQL = {
+    "count_if": "count_if(l_discount > 0.05)",
+    "bool_and": "bool_and(l_quantity < 50)",
+    "bool_or": "bool_or(l_tax = 0)",
+    "every": "every(l_shipdate < l_receiptdate)",
+    "skewness": "skewness(l_discount)",
+    "kurtosis": "kurtosis(l_extendedprice)",
+    "geometric_mean": "geometric_mean(l_quantity)",
+    "checksum": "checksum(l_comment)",
+    "min_by": "min_by(l_orderkey, l_extendedprice)",
+    "max_by": "max_by(l_shipdate, l_orderkey * 8 + l_linenumber)",
+    "corr": "corr(l_quantity, l_extendedprice)",
+    "covar_samp": "covar_samp(l_quantity, l_tax)",
+    "covar_pop": "covar_pop(l_discount, l_tax)",
+    "regr_slope": "regr_slope(l_quantity, l_extendedprice)",
+    "regr_intercept": "regr_intercept(l_quantity, l_extendedprice)",
+    "approx_distinct": "approx_distinct(l_partkey)",
+    "approx_percentile": "approx_percentile(l_extendedprice, 0.3)",
+}
+FLOAT_AGGS = {"skewness", "kurtosis", "geometric_mean", "corr", "covar_samp",
+              "covar_pop", "regr_slope", "regr_intercept"}
+
+
+@pytest.fixture(scope="module")
+def tpch_sf01():
+    """The port on the card over TPC-H at scale 0.1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on "
+                    "the card (this host has no CUDA device)")
+    e = Engine()
+    e.register_catalog("tpch", TpchConnector(scale=0.1))
+    return e
+
+
+def _agree(got, want, floats=()) -> bool:
+    """Identical rows; the columns in ``floats`` (float states, which
+    sum with atomics on the card) as chip_smoke.rows_agree takes them."""
+    cs = _chip_smoke()
+    return len(got) == len(want) and all(
+        (a == b) if i not in floats else cs.floats_agree(a, b)
+        for g, w in zip(got, want) for i, (a, b) in enumerate(zip(g, w)))
+
+
+@pytest.mark.parametrize("shape", ["grouped", "global"])
+@pytest.mark.parametrize("fn", sorted(NEW_AGG_SQL))
+def test_new_aggregates_backends_agree(tpch_sf01, fn, shape):
+    expr = NEW_AGG_SQL[fn]
+    sql = (f"select l_suppkey % 16 as g, {expr} from lineitem group by 1 "
+           "order by 1" if shape == "grouped"
+           else f"select {expr} from lineitem")
+    rows, notes = {}, {}
+    for backend in ("cuda", "torch"):
+        tpch_sf01.session.set("kernel_backend", backend)
+        rows[backend] = tpch_sf01.execute(sql)
+        notes[backend] = {t for tags in tpch_sf01.last_kernel_notes.values()
+                          for t in tags}
+    floats = (len(rows["cuda"][0]) - 1,) if fn in FLOAT_AGGS else ()
+    assert rows["cuda"] and _agree(rows["cuda"], rows["torch"], floats)
+    if fn == "approx_distinct":
+        assert "cuda:agg_max" in notes["cuda"]
+    if fn == "approx_percentile":
+        assert "cuda:agg_min" in notes["cuda"]
+
+
+@pytest.mark.parametrize("name", ["F1", "F2", "F3", "F4_dates",
+                                  "F4_date_format", "F5", "F6", "F7"])
+def test_function_queries_backends_agree(tpch_sf01, name):
+    cs = _chip_smoke()
+    sql = cs.FUNCTION_QUERIES[name]
+    rows, notes = {}, {}
+    for backend in ("cuda", "torch"):
+        tpch_sf01.session.set("kernel_backend", backend)
+        rows[backend] = tpch_sf01.execute(sql)
+        notes[backend] = {t for tags in tpch_sf01.last_kernel_notes.values()
+                          for t in tags}
+    assert rows["cuda"] and cs.rows_agree(name, rows["cuda"], rows["torch"])
+    if name in cs.SKETCH_QUERIES:
+        assert {"cuda:agg_max", "cuda:agg_min"} <= notes["cuda"]
+
+
+@pytest.mark.parametrize("name", ["F1", "F4_dates", "F4_date_format"])
+def test_function_queries_add_no_stream_sync(tpch_pair, name, monkeypatch):
+    card, host = tpch_pair
+    cs = _chip_smoke()
+    sql = cs.FUNCTION_QUERIES[name]
+    card.session.set("kernel_backend", "cuda")
+    want = card.execute(sql)  # uploads the columns, builds the kernels
+    got = _run_without_syncs(card, sql, monkeypatch)
+    assert cs.rows_agree(name, got, want)
+    assert cs.rows_agree(name, got, host.execute(sql))
+
+
+MIN_BY_TIES_SQL = """
+select l_suppkey % 7 as g, min_by(l_orderkey, l_quantity),
+  max_by(l_linenumber, l_tax),
+  min_by(case when l_linenumber = 2 then null else l_partkey end, l_discount)
+from lineitem group by 1 order by 1"""
+
+
+@pytest.mark.parametrize("block", [0, 20_000])
+def test_min_by_ties_pick_one_row_on_every_backend(tpch_pair, block):
+    """l_quantity, l_tax and l_discount take a few dozen values, so each
+    group's extremum ties over many rows: every backend names the same
+    row (the lowest index attaining it), its value and validity alike,
+    also merged over streamed blocks."""
+    card, host = tpch_pair
+    rows = {"host": host.execute(MIN_BY_TIES_SQL)}
+    for backend in ("cuda", "torch"):
+        card.session.set("kernel_backend", backend)
+        card.session.set("scan_block_rows", block)
+        try:
+            rows[backend] = card.execute(MIN_BY_TIES_SQL)
+            if block:
+                assert card.last_streamed_blocks > 1
+            rows[backend + " again"] = card.execute(MIN_BY_TIES_SQL)
+        finally:
+            card.session.set("scan_block_rows", 1 << 24)
+    assert len(set(map(repr, rows.values()))) == 1 and rows["host"]
+    globally = "select min_by(l_orderkey, l_quantity) from lineitem"
+    want = host.execute(globally)
+    for backend in ("cuda", "torch"):
+        card.session.set("kernel_backend", backend)
+        assert card.execute(globally) == want
