@@ -5,7 +5,9 @@ join shape that reaches join_lookup at SF10), a grouped min/max (which
 reaches segment_min: no TPC-H query folds a min through it) and a
 general cross join (which reaches the compaction kernel) at SF10 on
 both kernel backends; then the TPC-DS queries at scale 10, and the
-function library's aggregates, sketches and scalar functions at SF10.
+function library's aggregates, sketches and scalar functions at SF10,
+and ARRAY and MAP values, lambdas, UNNEST, the variable-length
+aggregates and MATCH_RECOGNIZE at SF10.
 
     python3 chip_smoke.py [--scale 10] [--seed 19920101]
 
@@ -70,17 +72,34 @@ Phases (any failure exits non-zero before the result line):
    ``cuda:agg_max`` and ``cuda:agg_min``; numpy checks the answers
    (``check_functions``); F3's widest register and reservoir folds are
    held against the plain versions and timed.
+6. Arrays: the TPC-H tables again through ``ARRAY_QUERIES`` on both
+   backends as in phase 3: word counts over part names through the
+   part-partsupp join and UNNEST (A1, segment_sum), an ARRAY group key
+   made below the aggregate-input split, so its segment carrier holds
+   the array with its ``$len`` and ``$emask`` companions (A2, compacted
+   by filter_compact; the carrier's arrays are printed), lambdas and
+   array scalars over every lineitem row and a map lookup over orders
+   (A3), array_agg of 15M orders by customer read by cardinality
+   through the host-table carrier, and listagg and map_agg over nation
+   and region (A4), and the V-shape MATCH_RECOGNIZE over the orders of
+   the customers o_custkey <= ``MR_CUT_CUSTKEY`` (A5: 1.5M orders, SF1's
+   worth, because the pattern automaton is the reference's host loop).
+   Rows identical on both backends, each query's kernel
+   (``ARRAY_QUERY_KERNELS``) run, segment_sum and filter_compact
+   launched; numpy (and plain python for the names and the V shapes)
+   checks every answer (``check_arrays``).
 
-    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions  # default
+    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions,arrays
 
-runs the named phases only (a shorter call while a phase is worked on;
-the summary line needs all four).
+(the default) runs the named phases only (a shorter call while a phase
+is worked on; the summary line needs all five).
 
 The queries are the repository's TPC-H texts (tests/tpch_queries.py),
-TPC-DS texts (tests/test_tpcds.py) and ``FUNCTION_QUERIES``. The last
+TPC-DS texts (tests/test_tpcds.py), ``FUNCTION_QUERIES`` and
+``ARRAY_QUERIES``. The last
 lines are the card, a JSON summary of the kernels (each with the PR
 that last redesigned it, ``redesigned_in``, and its launches summed
-over phases 3, 4 and 5) and ``{"ok": true, "device": {...}}``.
+over phases 3 to 6) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -158,7 +177,7 @@ TPCDS_OVER_MEMORY = {
            "output before the rest of the plan)",
 }
 TPCDS_SCALE = 10.0
-PHASES = ("kernels", "tpch", "tpcds", "functions")
+PHASES = ("kernels", "tpch", "tpcds", "functions", "arrays")
 TPCDS_SEED = 20030527  # the connector's default, as tests/test_tpcds.py
 
 
@@ -1380,6 +1399,298 @@ def functions_phase(conn) -> dict:
     return launches
 
 
+# phase 6: ARRAY and MAP values, lambdas, UNNEST, the variable-length
+# aggregates and MATCH_RECOGNIZE at SF10
+ARRAY_QUERIES = {
+    # word counts over part names through the part-partsupp join: 8M
+    # joined rows unnest to 40M words
+    "A1": """
+select w, count(*) as c, sum(ps_availqty) as q
+from part, partsupp, unnest(split(p_name, ' ')) t(w)
+where p_partkey = ps_partkey
+group by w
+order by w""",
+    # an ARRAY group key, made below the aggregate-input split: the
+    # segment carrier holds it with its $len and $emask companions
+    "A2": """
+select a, cardinality(a) as n, count(*) as c, sum(ps_availqty) as q
+from (select array[p_size % 5, p_size % 3, ps_availqty % 2] as a,
+        ps_availqty
+      from part, partsupp
+      where p_partkey = ps_partkey and p_size < 10)
+group by a
+order by element_at(a, 1), element_at(a, 2), element_at(a, 3)""",
+    # lambdas and array scalars over every lineitem row
+    "A3": """
+select
+  sum(reduce(filter(array[l_partkey, l_suppkey, l_linenumber],
+                    x -> x % 3 <> 0),
+             cast(0 as bigint), (a, x) -> a + x)) as r,
+  count_if(any_match(array[l_linenumber, l_suppkey % 50], x -> x > 45)) as am,
+  sum(array_max(array[l_partkey % 1000, l_suppkey % 1000, l_linenumber]))
+    as mx,
+  sum(array_position(array_sort(array[l_suppkey % 10, l_linenumber,
+                                      l_partkey % 10]), l_linenumber)) as ps,
+  sum(cardinality(array_distinct(array[l_partkey % 4, l_suppkey % 4,
+                                       l_linenumber % 4]))) as cd
+from lineitem""",
+    "A3_map": """
+select sum(element_at(map(array['F', 'O', 'P'], array[1, 2, 3]),
+                      o_orderstatus)) as m, count(*) as c
+from orders""",
+    # array_agg over 15M orders by customer, read through the host-table
+    # carrier by cardinality and grouped by it
+    "A4": """
+select cardinality(ks) as n, count(*) as c
+from (select o_custkey, array_agg(o_orderkey order by o_orderdate) as ks
+      from orders group by o_custkey)
+group by 1
+order by 1""",
+    "A4_names": """
+select r_name, listagg(n_name, ',') within group (order by n_name desc)
+         as ns,
+       map_agg(n_name, n_nationkey) as m
+from nation, region
+where n_regionkey = r_regionkey
+group by r_name
+order by r_name""",
+    # tests/test_match_recognize.py's V shape over orders: the orders of
+    # the customers o_custkey <= MR_CUT_CUSTKEY (the catalog "cut")
+    "A5": """
+select count(*) as matches, sum(mno) as mnos, sum(k1 - k0) as span,
+  sum(p1) as p
+from cut.orders match_recognize (
+  partition by o_custkey order by o_orderdate, o_orderkey
+  measures first(o_orderkey) as k0, last(o_orderkey) as k1,
+           last(o_totalprice) as p1, match_number() as mno
+  one row per match
+  after match skip past last row
+  pattern (strt down+ up+)
+  define down as o_totalprice < prev(o_totalprice),
+         up as o_totalprice > prev(o_totalprice))""",
+}
+# the kernel each query must run on the card (A4 groups by the sorted
+# path's scans: none)
+ARRAY_QUERY_KERNELS = {"A1": "cuda:agg_sum", "A2": "cuda:compact",
+                       "A3": "cuda:agg_sum", "A3_map": "cuda:agg_sum",
+                       "A4_names": "cuda:agg_sum", "A5": "cuda:agg_sum"}
+# A5's cut: the host NFA is the reference's per-position loop, so the
+# pattern runs over SF1's worth of orders (1.5M), not SF10's 15M
+MR_CUT_CUSTKEY = 150_000
+
+
+def cut_orders(conn):
+    """Catalog "cut": a memory table ``orders`` holding the generator's
+    orders of the customers o_custkey <= MR_CUT_CUSTKEY (A5)."""
+    from presto_tpu_torch.connectors.memory import MemoryConnector
+    o = conn.table("orders").columns
+    keep = np.asarray(o["o_custkey"].data) <= MR_CUT_CUSTKEY
+    cols = ("o_custkey", "o_orderkey", "o_orderdate", "o_totalprice")
+    cut = MemoryConnector()
+    cut.create_table("orders", {c: o[c].dtype for c in cols},
+                     {c: np.asarray(o[c].data)[keep] for c in cols},
+                     {c: None for c in cols})
+    return cut
+
+
+def carrier_types(engine, sql: str) -> list:
+    """The segment carriers one cuda run of ``sql`` makes: each
+    carrier's arrays with their dtypes and shapes (captured, not
+    timed)."""
+    from presto_tpu_torch.exec import executor as EX
+    made = []
+    run_plan_device = EX.run_plan_device
+
+    def recording(*args, **kw):
+        made.append(run_plan_device(*args, **kw))
+        return made[-1]
+    engine.session.set("kernel_backend", "cuda")
+    EX.run_plan_device = recording
+    try:
+        engine.execute(sql)
+    finally:
+        EX.run_plan_device = run_plan_device
+    return [{name: f"{str(a.dtype).replace('torch.', '')}"
+             f"{list(a.shape)}" for name, a in c.arrays.items()}
+            for c in made]
+
+
+def _v_shapes(cust, price, key):
+    """A5 recomputed without the engine: over rows sorted by customer,
+    the V shapes ``strt down+ up+`` found greedily left to right, each
+    match skipping past its last row. (count, sum of match numbers,
+    sum of last - first orderkey, sum of last prices)."""
+    n = len(price)
+    down = np.zeros(n, bool)
+    up = np.zeros(n, bool)
+    same = np.zeros(n, bool)
+    same[1:] = cust[1:] == cust[:-1]
+    down[1:] = same[1:] & (price[1:] < price[:-1])
+    up[1:] = same[1:] & (price[1:] > price[:-1])
+    count = mnos = span = total = 0
+    i = 0
+    number = 0
+    while i < n:
+        if i == 0 or not same[i]:
+            number = 0
+        j = i + 1
+        while j < n and down[j]:
+            j += 1
+        k = j
+        while j > i + 1 and k < n and up[k]:
+            k += 1
+        if j > i + 1 and k > j:
+            number += 1
+            count += 1
+            mnos += number
+            span += int(key[k - 1]) - int(key[i])
+            total += int(price[k - 1])
+            i = k
+        else:
+            i += 1
+    return count, mnos, span, total
+
+
+def check_arrays(conn, cut, rows: dict) -> None:
+    """Phase 6's answers recomputed with numpy (and plain python for the
+    names and the V shapes) over the generator's arrays."""
+    pa = conn.table("part").columns
+    ps = conn.table("partsupp").columns
+    li = conn.table("lineitem").columns
+    od = conn.table("orders").columns
+    ps_part = np.asarray(ps["ps_partkey"].data).astype(np.int64)
+    avail = np.asarray(ps["ps_availqty"].data).astype(np.int64)
+    p_key = np.asarray(pa["p_partkey"].data).astype(np.int64)
+    nparts = int(p_key.max()) + 1
+    per_part_rows = np.bincount(ps_part, minlength=nparts)
+    per_part_avail = np.bincount(ps_part, weights=avail, minlength=nparts)
+    # A1: each word of each name, weighted by its part's partsupp rows
+    names = pa["p_name"]
+    codes = np.asarray(names.data)
+    per_code_rows = np.bincount(codes, weights=per_part_rows[p_key],
+                                minlength=len(names.dictionary))
+    per_code_avail = np.bincount(codes, weights=per_part_avail[p_key],
+                                 minlength=len(names.dictionary))
+    words: dict = {}
+    for c in np.flatnonzero(per_code_rows):
+        for w in str(names.dictionary[c]).split(" "):
+            n0, q0 = words.get(w, (0, 0))
+            words[w] = (n0 + int(per_code_rows[c]),
+                        q0 + int(per_code_avail[c]))
+    want = sorted((w, n, q) for w, (n, q) in words.items())
+    if [(w, int(n), int(q)) for w, n, q in rows["A1"]] != want:
+        raise AssertionError("A1 word counts differ from numpy")
+    # A2: the array key's groups
+    size = np.zeros(nparts, np.int64)
+    size[p_key] = np.asarray(pa["p_size"].data)
+    s = size[ps_part]
+    m = s < 10
+    key = np.stack([s[m] % 5, s[m] % 3, avail[m] % 2], axis=1)
+    uniq, inv = np.unique(key, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    want = [(list(map(int, u)), 3, int(c), int(q)) for u, c, q in zip(
+        uniq, np.bincount(inv), np.bincount(inv, weights=avail[m]))]
+    have = [([int(x) for x in a], int(n), int(c), int(q))
+            for a, n, c, q in rows["A2"]]
+    if have != want:
+        raise AssertionError(f"A2 groups {have[:3]} != numpy {want[:3]}")
+    # A3: every lambda and scalar, summed
+    lp = np.asarray(li["l_partkey"].data).astype(np.int64)
+    lsk = np.asarray(li["l_suppkey"].data).astype(np.int64)
+    ln = np.asarray(li["l_linenumber"].data).astype(np.int64)
+    r = sum(np.where(x % 3 != 0, x, 0).sum() for x in (lp, lsk, ln))
+    am = int(((ln > 45) | (lsk % 50 > 45)).sum())
+    mx = int(np.maximum(np.maximum(lp % 1000, lsk % 1000), ln).sum())
+    srt = np.sort(np.stack([lsk % 10, ln, lp % 10], axis=1), axis=1)
+    pos = int((np.argmax(srt == ln[:, None], axis=1) + 1).sum())
+    del srt
+    d4 = np.sort(np.stack([lp % 4, lsk % 4, ln % 4], axis=1), axis=1)
+    cd = int((1 + (d4[:, 1:] != d4[:, :-1]).sum(axis=1)).sum())
+    del d4
+    if tuple(int(x) for x in rows["A3"][0]) != (int(r), am, mx, pos, cd):
+        raise AssertionError(f"A3 {rows['A3'][0]} != numpy "
+                             f"{(int(r), am, mx, pos, cd)}")
+    status = od["o_orderstatus"]
+    weight = np.array([{"F": 1, "O": 2, "P": 3}.get(str(x), 0)
+                       for x in status.dictionary], np.int64)
+    sc = np.asarray(status.data)
+    if tuple(int(x) for x in rows["A3_map"][0]) != (
+            int(weight[sc].sum()), len(sc)):
+        raise AssertionError(f"A3_map {rows['A3_map'][0]} differs")
+    # A4: customers by their order count
+    per_cust = np.bincount(np.asarray(od["o_custkey"].data))
+    hist = np.bincount(per_cust[per_cust > 0])
+    want = [(k, int(c)) for k, c in enumerate(hist) if c]
+    if [(int(n), int(c)) for n, c in rows["A4"]] != want:
+        raise AssertionError("A4 histogram of orders per customer differs")
+    na, re_ = conn.table("nation").columns, conn.table("region").columns
+    nname, _ = _host(conn, "nation", "n_name")
+    rname, _ = _host(conn, "region", "r_name")
+    nreg = np.asarray(na["n_regionkey"].data)
+    nkey = np.asarray(na["n_nationkey"].data)
+    rkey = np.asarray(re_["r_regionkey"].data)
+    want = []
+    for rk, rn in sorted(zip(rkey, rname), key=lambda t: t[1]):
+        sel = nreg == rk
+        want.append((rn, ",".join(sorted(nname[sel], reverse=True)),
+                     dict(zip(nname[sel], map(int, nkey[sel])))))
+    if [(a, b, {k: int(v) for k, v in m.items()})
+            for a, b, m in rows["A4_names"]] != want:
+        raise AssertionError("A4_names differs from python")
+    # A5: the V shapes, found without the engine
+    co = cut.table("orders").columns
+    cust = np.asarray(co["o_custkey"].data)
+    order = np.lexsort((np.asarray(co["o_orderkey"].data),
+                        np.asarray(co["o_orderdate"].data), cust))
+    count, mnos, span, total = _v_shapes(
+        cust[order], np.asarray(co["o_totalprice"].data)[order],
+        np.asarray(co["o_orderkey"].data)[order])
+    got = rows["A5"][0]
+    if (int(got[0]), int(got[1]), int(got[2])) != (count, mnos, span) \
+            or round(float(got[3]) * 100) != total:
+        raise AssertionError(f"A5 {got} != python "
+                             f"{(count, mnos, span, total / 100)}")
+
+
+def arrays_phase(conn) -> dict:
+    """The ARRAY_QUERIES on both backends at SF10."""
+    from presto_tpu_torch import Engine
+
+    engine = Engine()
+    engine.register_catalog("tpch", conn)
+    cut = cut_orders(conn)
+    engine.register_catalog("cut", cut)
+    (rows, secs, notes, launches, plain_rows, plain_secs,
+     plain_notes) = sweep(engine, ARRAY_QUERIES)
+    faults = []
+    for q in ARRAY_QUERIES:
+        if rows[q] != plain_rows[q]:
+            faults.append(f"{q}: cuda and torch backends differ")
+        if not rows[q]:
+            faults.append(f"{q}: no rows")
+        if q in ARRAY_QUERY_KERNELS and ARRAY_QUERY_KERNELS[q] not in \
+                notes[q]["kernels"]:
+            faults.append(f"{q} did not run {ARRAY_QUERY_KERNELS[q]}: "
+                          f"{notes[q]['kernels']}")
+        log("arrays " + json.dumps({
+            "query": q, "rows": len(rows[q]), "s": secs[q],
+            "plain_s": plain_secs[q], **notes[q],
+            "plain_kernels": plain_notes[q]["kernels"]}))
+    log(f"arrays cuda pass: {sum(secs.values()):.2f} s, plain pass: "
+        f"{sum(plain_secs.values()):.2f} s")
+    log("arrays launches " + json.dumps(launches))
+    for name in ("segment_sum", "filter_compact"):
+        if launches.get(name, 0) < 1:
+            faults.append(f"{name} never launched: {launches}")
+    if faults:
+        raise AssertionError("arrays faults:\n" + "\n".join(faults))
+    log("arrays A2 carriers " + json.dumps(
+        carrier_types(engine, ARRAY_QUERIES["A2"])))
+    check_arrays(conn, cut, rows)
+    log("independent checks of A1-A5 (numpy, python): ok")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -1432,9 +1743,16 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        launches = add(functions_phase(
-            conn or tpch_data(args.scale, args.seed)))
+        conn = conn or tpch_data(args.scale, args.seed)
+        launches = add(functions_phase(conn))
         log(f"functions phase: {time.perf_counter() - t:.1f} s")
+    if "arrays" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        launches = add(arrays_phase(conn or tpch_data(args.scale,
+                                                      args.seed)))
+        log(f"arrays phase: {time.perf_counter() - t:.1f} s")
     if phases != set(PHASES):
         log(f"phases {sorted(phases)} passed; no summary without all "
             f"{len(PHASES)}")

@@ -22,6 +22,7 @@ spi/block/Block.java:25). Differences, chosen for TPU execution:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Iterable, Mapping
 
 import numpy as np
@@ -213,29 +214,33 @@ def _decode_column(dtype: T.DataType, data: np.ndarray, dictionary):
 def pad_object_lists(element: T.DataType, data: np.ndarray):
     """Host object array of Python lists -> (data2d, lengths, emask,
     dictionary) in the fixed-capacity device layout (expr/compile.Val).
-    NULL rows / NULL elements become dead padding."""
+    NULL rows / NULL elements become dead padding. Vectorized: one pass
+    over the flattened elements (the reference's per-element loop gives
+    the same arrays)."""
+    data = np.asarray(data, dtype=object).reshape(-1)
     n = len(data)
-    lens = np.array([0 if row is None else len(row) for row in data],
-                    np.int32)
+    present = ~np.equal(data, None)
+    lens = np.zeros(n, np.int32)
+    lens[present] = np.fromiter(map(len, data[present]), np.int64,
+                                int(present.sum()))
     cap = max(int(lens.max()) if n else 1, 1)
+    total = int(lens.sum())
+    flat = np.empty(total, object)
+    flat[:] = list(itertools.chain.from_iterable(data[present]))
+    ok = ~np.equal(flat, None)
+    rows = np.repeat(np.arange(n), lens)
+    cols = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
     emask = np.zeros((n, cap), bool)
+    emask[rows, cols] = ok
     if isinstance(element, T.VarcharType):
-        vocab = sorted({str(x) for row in data if row is not None
-                        for x in row if x is not None})
-        code_of = {x: i for i, x in enumerate(vocab)}
+        vocab, codes = np.unique(flat[ok].astype(str), return_inverse=True)
         d2 = np.zeros((n, cap), np.int32)
-        for i, row in enumerate(data):
-            for j, x in enumerate(row or ()):
-                if x is not None:
-                    d2[i, j] = code_of[str(x)]
-                    emask[i, j] = True
-        return d2, lens, emask, np.array(vocab, dtype=object)
+        d2[rows[ok], cols[ok]] = codes
+        return d2, lens, emask, vocab.astype(object)
     d2 = np.zeros((n, cap), element.physical_dtype)
-    for i, row in enumerate(data):
-        for j, x in enumerate(row or ()):
-            if x is not None:
-                d2[i, j] = x
-                emask[i, j] = True
+    if ok.any():
+        d2[rows[ok], cols[ok]] = np.asarray(list(flat[ok])).astype(
+            element.physical_dtype)
     return d2, lens, emask, None
 
 
@@ -243,18 +248,19 @@ def lists_from_padded(element: T.DataType, data2d: np.ndarray,
                       lengths: np.ndarray, emask: np.ndarray | None,
                       dictionary) -> np.ndarray:
     """Inverse of pad_object_lists: decode to an object array of
-    Python lists (NULL elements as None)."""
+    Python lists (NULL elements as None), one pass over the present
+    elements."""
     n, cap = data2d.shape[:2]
-    flat = _decode_column(element, data2d.reshape(-1),
-                          dictionary).reshape(n, cap)
+    lengths = np.clip(np.asarray(lengths).astype(np.int64), 0, cap)
+    within = np.arange(cap)[None, :] < lengths[:, None]
+    flat = _decode_column(element, data2d[within], dictionary)
+    vals = np.empty(len(flat), object)
+    vals[:] = list(flat)
+    if emask is not None:
+        vals[~np.asarray(emask)[within]] = None
+    values = vals.tolist()
+    ends = np.cumsum(lengths).tolist()
     out = np.empty(n, object)
-    for i in range(n):
-        ln = int(lengths[i])
-        row = []
-        for j in range(ln):
-            if emask is not None and not emask[i, j]:
-                row.append(None)
-            else:
-                row.append(flat[i, j])
-        out[i] = row
+    for i, (lo, hi) in enumerate(zip([0] + ends[:-1], ends)):
+        out[i] = values[lo:hi]
     return out

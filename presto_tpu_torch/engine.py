@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import types as T
-from presto_tpu_torch.block import Table, _decode_column
+from presto_tpu_torch.block import Table, _decode_column, pad_object_lists
 from presto_tpu_torch.connectors.base import Connector
 from presto_tpu_torch.exec import hostsync as HS
 from presto_tpu_torch.session import SYSTEM_SESSION_PROPERTIES, Session
@@ -55,6 +55,8 @@ class Engine:
         # the device once per (table, column); the strong host ref pins
         # the id so a recycled address cannot alias
         self._dev_cache: dict[int, tuple[np.ndarray, torch.Tensor]] = {}
+        # host list column id -> (host ref, its padded 2-D layout)
+        self._lists_cache: dict[int, tuple[np.ndarray, tuple]] = {}
         self.last_warnings: list = []
         # the last query: kernel notes by (program, node position), its
         # backend, its programs (exec/executor.QueryRun) and the blocks
@@ -79,14 +81,26 @@ class Engine:
             return dev
         host = np.asarray(a)
         if host.dtype == object:
-            raise NotImplementedError(
-                "object-dtype host columns are not ported to "
-                "presto_tpu_torch yet")
+            raise TypeError(
+                "device_array takes numeric host arrays; an ARRAY column "
+                "of host lists goes up padded (host_lists)")
         if not host.flags.writeable:
             host = host.copy()
         dev = HS.upload(host, self.device, "scan-column")
         self._dev_cache[id(a)] = (a, dev)
         return dev
+
+    def host_lists(self, element: T.DataType, a) -> tuple:
+        """An ARRAY column of host lists (an object array) in the padded
+        2-D device layout, (data, lengths, element mask, dictionary),
+        made once per column; its arrays go up through device_array,
+        so each is uploaded once too."""
+        hit = self._lists_cache.get(id(a))
+        if hit is not None and hit[0] is a:
+            return hit[1]
+        padded = pad_object_lists(element, np.asarray(a, dtype=object))
+        self._lists_cache[id(a)] = (a, padded)
+        return padded
 
     # -- SQL entry points ---------------------------------------------------
 

@@ -6,6 +6,11 @@ program's plan and runs each operator eagerly on the engine's device.
 
 ``execute_plan`` takes the reference's default route, in its order:
 
+0. Around a MATCH_RECOGNIZE node (its input on the device, the pattern
+   automaton on the host, ``exec/match_recognize.py``) or a
+   variable-length aggregate (``exec/varlen.py``), the rest of the
+   plan runs over the host result as a host-table carrier
+   (``exec/hostcarrier.py``).
 1. Block streaming (``exec/streaming.py``): one scan of more than
    ``scan_block_rows`` rows under a SINGLE aggregate runs as one
    PARTIAL program per block, then a FINAL program over the partials.
@@ -28,13 +33,16 @@ Dynamic filtering (session ``enable_dynamic_filtering``): a one-hash
 bloom of each inner join's build keys kills probe rows at the first
 node of the probe subtree that outputs the key.
 
+A carrier ships each symbol's data with its companions: ``$valid``,
+and an ARRAY's ``$len`` and ``$emask`` (``carrier_arrays``).
+
 Left out so far (ROADMAP): the AOT program cache, plan templates
 (carrier widths take the reference's exact rule, ``cap_floor=None``),
 spill and grouped execution, the parallel segment pool (segments run
-in order on one stream), match-recognize, varlen aggregates, and every
-plan node outside TableScan, Values, Filter, Project, Aggregate, Join,
-MultiJoin, SemiJoin, CrossJoin, Union, Window, MarkDistinct, Distinct,
-Sort, TopN, Limit, Exchange and Output (each raises
+in order on one stream), and every plan node outside TableScan,
+Values, Filter, Project, Aggregate, Join, MultiJoin, SemiJoin,
+CrossJoin, Union, Window, MarkDistinct, Distinct, Unnest,
+MatchRecognize, Sort, TopN, Limit, Exchange and Output (each raises
 NotImplementedError).
 """
 
@@ -46,12 +54,12 @@ import numpy as np
 import torch
 
 from presto_tpu_torch import types as T
-from presto_tpu_torch.block import Column, Table
+from presto_tpu_torch.block import Column, Table, lists_from_padded
 from presto_tpu_torch.exec import hostsync as HS
 from presto_tpu_torch.exec import operators as OP
 from presto_tpu_torch.exec.operators import DTable
 from presto_tpu_torch.expr import aggmeta as A
-from presto_tpu_torch.expr.compile import Val
+from presto_tpu_torch.expr.compile import Val, is_long_dec
 from presto_tpu_torch.ops import hash as H
 from presto_tpu_torch.ops.hash import HashChainOverflow, grow_overflowed
 from presto_tpu_torch.ops.sizes import next_pow2
@@ -72,6 +80,9 @@ MAX_JOINS_PER_PROGRAM = 2
 # its own compaction boundary
 AGG_SPLIT_MIN_ROWS = 1 << 21
 SEGMENT_CATALOG = "__segment__"
+# the companion arrays a carrier ships beside a symbol's data: its NULL
+# mask, and an ARRAY's lengths and element mask
+COMPANIONS = ("valid", "len", "emask")
 
 
 @dataclasses.dataclass
@@ -117,20 +128,28 @@ def scan_live_rows(engine, table: str) -> list[int]:
             and (i, pos) in run.node_rows]
 
 
-def _scan_input(node: N.TableScan, tbl, to_device, nrows: int
+def _scan_input(engine, node: N.TableScan, tbl, to_device, nrows: int
                 ) -> ScanInput:
     """The scanned columns of connector table ``tbl``, each put on the
-    device by ``to_device`` (host array -> tensor of ``nrows`` rows)."""
+    device by ``to_device`` (host array -> tensor of ``nrows`` rows).
+    An ARRAY column of host lists goes up in the padded 2-D layout
+    (``Engine.host_lists``) with its ``$len`` and ``$emask``
+    companions."""
     arrays, dicts, types = {}, {}, {}
     for sym, colname in node.assignments.items():
         col = tbl.columns[colname]
         if isinstance(col.dtype, T.ArrayType):
-            raise NotImplementedError(
-                "ARRAY columns are not ported to presto_tpu_torch yet")
-        arrays[sym] = to_device(col.data)
+            d2, lens, emask, dictionary = engine.host_lists(
+                col.dtype.element, col.data)
+            arrays[sym] = to_device(d2)
+            arrays[f"{sym}$len"] = to_device(lens)
+            arrays[f"{sym}$emask"] = to_device(emask)
+            dicts[sym] = dictionary
+        else:
+            arrays[sym] = to_device(col.data)
+            dicts[sym] = col.dictionary
         if col.valid is not None:
             arrays[f"{sym}$valid"] = to_device(col.valid)
-        dicts[sym] = col.dictionary
         types[sym] = col.dtype
     live = None if tbl.mask is None else to_device(tbl.mask)
     return ScanInput(node, arrays, dicts, types, nrows, live)
@@ -152,8 +171,8 @@ def collect_scans(plan: N.PlanNode, engine,
                 out[id(node)] = _rebind_carrier(carriers[node.table], node)
             else:
                 tbl = engine.catalogs[node.catalog].table(node.table)
-                out[id(node)] = _scan_input(node, tbl, engine.device_array,
-                                            tbl.nrows)
+                out[id(node)] = _scan_input(engine, node, tbl,
+                                            engine.device_array, tbl.nrows)
         else:
             for s in node.sources():
                 visit(s)
@@ -172,9 +191,9 @@ def _rebind_carrier(si: ScanInput, node: N.TableScan) -> ScanInput:
 
     def base(k: str) -> str:
         # partial-aggregate state symbols contain '$' too ("rev$sum"):
-        # only the companion suffix strips
+        # only a companion suffix strips
         b, sep, suffix = k.rpartition("$")
-        return b if sep and suffix == "valid" else k
+        return b if sep and suffix in COMPANIONS else k
 
     return dataclasses.replace(
         si, node=node,
@@ -317,7 +336,9 @@ class PlanInterpreter:
         scan = self.scans[id(node)]
         cols = {sym: Val(scan.types[sym], scan.arrays[sym],
                          scan.arrays.get(f"{sym}$valid"),
-                         scan.dictionaries[sym])
+                         scan.dictionaries[sym],
+                         scan.arrays.get(f"{sym}$len"),
+                         scan.arrays.get(f"{sym}$emask"))
                 for sym in node.assignments}
         return DTable(cols, scan.live, scan.nrows, self.device)
 
@@ -439,6 +460,9 @@ class PlanInterpreter:
     def _r_union(self, node: N.Union) -> DTable:
         return OP.apply_union([self.run(s) for s in node.inputs], node)
 
+    def _r_unnest(self, node: N.Unnest) -> DTable:
+        return OP.apply_unnest(self.run(node.source), node)
+
     def _r_window(self, node: N.Window) -> DTable:
         return OP.apply_window(self.run(node.source), node)
 
@@ -475,13 +499,29 @@ class PlanInterpreter:
 
 
 def execute_plan(engine, plan: N.PlanNode) -> Table:
-    """Run a logical plan on the engine's device: block-streamed when
-    its one scan exceeds the session block size and its shape allows,
-    else segmented when it has a split, else whole."""
-    from presto_tpu_torch.exec.streaming import try_execute_streamed
+    """Run a logical plan on the engine's device. ``engine.last_run``
+    collects the programs of every part of it."""
     engine.last_run = QueryRun()
     engine.last_kernel_notes = {}
     engine.last_streamed_blocks = 0
+    return execute_part(engine, plan)
+
+
+def execute_part(engine, plan: N.PlanNode) -> Table:
+    """Run a plan or a part of one, in the reference's order: around a
+    MATCH_RECOGNIZE (its input on the device, the automaton on the
+    host), around a variable-length aggregate (host-finalized), else
+    block-streamed when its one scan exceeds the session block size and
+    its shape allows, else segmented when it has a split, else whole."""
+    from presto_tpu_torch.exec.streaming import try_execute_streamed
+    from presto_tpu_torch.exec.varlen import (execute_with_varlen,
+                                              find_varlen_aggregate)
+    mr = _find_match_recognize(plan)
+    if mr is not None:
+        return _execute_with_match_recognize(engine, plan, mr)
+    vl = find_varlen_aggregate(plan)
+    if vl is not None:
+        return execute_with_varlen(engine, plan, vl)
     streamed = try_execute_streamed(engine, plan)
     if streamed is not None:
         return streamed
@@ -558,17 +598,31 @@ def run_plan(engine, plan: N.PlanNode,
     in one more host sync."""
     prog = prepare_plan(engine, plan, scans)
     out = prog.out
-    res = []
-    for v in out.cols.values():
-        res.append(v.data)
-        res.append(v.valid)
+    # an ARRAY ships its lengths and element mask after (data, valid)
+    res = [[v.data, v.valid] + ([v.lengths, v.elem_mask()] if v.is_array
+                                else [])
+           for v in out.cols.values()]
     live_np, res_np, counts = HS.fetch(
         (out.live_mask(), res, prog.counts), site="result-demux")
     prog.note_rows(engine, counts)
     cols: dict[str, Column] = {}
-    for i, (sym, v) in enumerate(out.cols.items()):
-        data, valid = res_np[2 * i], res_np[2 * i + 1]
-        cols[sym] = Column(v.dtype, data, valid, v.dictionary)
+    live_rows = np.flatnonzero(live_np)
+    for (sym, v), parts in zip(out.cols.items(), res_np):
+        if v.is_array:
+            # host lists for the live rows only (an aggregate's output
+            # has its capacity's rows)
+            data, valid, lengths, emask = (
+                None if a is None else np.broadcast_to(
+                    a, (len(live_np),) + a.shape[1:])[live_rows]
+                for a in parts)
+            lists = np.empty(len(live_np), object)
+            lists[live_rows] = lists_from_padded(
+                v.dtype.element, data, lengths, emask, v.dictionary)
+            cols[sym] = Column(v.dtype, lists, None if valid is None else
+                               np.broadcast_to(parts[1], live_np.shape),
+                               None)
+            continue
+        cols[sym] = Column(v.dtype, parts[0], parts[1], v.dictionary)
     return Table(_rename_outputs(plan, cols), len(live_np), live_np)
 
 
@@ -583,9 +637,8 @@ def device_outputs(dt: DTable, counts=None) -> tuple:
     cnt, counts = HS.fetch((torch.sum(dt.live_mask().to(torch.int64)),
                             counts), site="segment-width")
     cnt = int(cnt)
-    cols = {sym: Val(v.dtype, OP._rows(
-                v.data, dt.n, isinstance(v.dtype, T.DecimalType)
-                and v.dtype.is_long),
+    cols = {sym: OP.broadcast_rows(v, dt.n) if v.is_array else Val(
+                v.dtype, OP._rows(v.data, dt.n, is_long_dec(v.dtype)),
                 None if v.valid is None else v.valid.expand(dt.n),
                 v.dictionary)
             for sym, v in dt.cols.items()}
@@ -598,13 +651,23 @@ def device_outputs(dt: DTable, counts=None) -> tuple:
         compacted, _ok = OP.compact_dtable(DTable(cols, live, n, dt.device),
                                            cap)
         cols, live, n = compacted.cols, compacted.live, cap
+    return (carrier_arrays(cols), {s: v.dictionary for s, v in cols.items()},
+            {s: v.dtype for s, v in cols.items()}, n, live, counts)
+
+
+def carrier_arrays(cols: dict[str, Val]) -> dict[str, torch.Tensor]:
+    """Columns as a carrier's scan arrays: each symbol's data, its
+    ``$valid`` mask, and an ARRAY's ``$len`` and ``$emask``."""
     arrays: dict[str, torch.Tensor] = {}
     for sym, v in cols.items():
         arrays[sym] = v.data
         if v.valid is not None:
             arrays[f"{sym}$valid"] = v.valid
-    return (arrays, {s: v.dictionary for s, v in cols.items()},
-            {s: v.dtype for s, v in cols.items()}, n, live, counts)
+        if v.is_array:
+            arrays[f"{sym}$len"] = v.lengths
+            if v.elem_valid is not None:
+                arrays[f"{sym}$emask"] = v.elem_valid
+    return arrays
 
 
 def run_plan_device(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
@@ -816,3 +879,30 @@ def _rename_outputs(plan: N.PlanNode,
         return {name: cols[sym]
                 for name, sym in zip(plan.names, plan.symbols)}
     return cols
+
+
+def _find_match_recognize(plan: N.PlanNode):
+    if isinstance(plan, N.MatchRecognize):
+        return plan
+    for s in plan.sources():
+        found = _find_match_recognize(s)
+        if found is not None:
+            return found
+    return None
+
+
+def _execute_with_match_recognize(engine, plan: N.PlanNode,
+                                  mr: N.MatchRecognize) -> Table:
+    """Split execution around a MatchRecognize node: its input subplan
+    on the device, the pattern automaton on the host
+    (exec/match_recognize.py: DEFINE predicates on the device, the NFA
+    over their fetched masks), the matches back through a host-table
+    carrier for the rest of the plan."""
+    from presto_tpu_torch.exec.hostcarrier import carrier_scan
+    from presto_tpu_torch.exec.match_recognize import evaluate
+    from presto_tpu_torch.exec.streaming import _replace_node
+    matched = evaluate(engine, execute_part(engine, mr.source), mr)
+    node, scan = carrier_scan(engine, "__matches__", matched)
+    rest = _replace_node(plan, mr, node)
+    return run_plan(engine, rest, collect_scans(rest, engine,
+                                                {node.table: scan}))

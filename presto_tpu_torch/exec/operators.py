@@ -21,6 +21,14 @@ Operator parity map (reference core/trino-main/.../operator/):
 - compact_dtable              <- page compaction
 - apply_distinct              <- DistinctLimitOperator / MarkDistinct hash
 - apply_sort/topn/limit       <- OrderByOperator, TopNOperator, LimitOperator
+- apply_unnest                <- UnnestOperator
+
+An ARRAY column is 2-D like a LONG decimal's limbs, so every operator
+tells the two apart by TYPE (``is_long_dec``, ``Val.is_array``), never
+by rank; every row gather, compaction and concatenation carries an
+array's ``lengths`` and ``elem_valid`` with its data (``take_val``,
+``broadcast_rows``); an ARRAY group or DISTINCT key is its length and
+every position (``_key_parts``).
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from presto_tpu_torch.exec import hostsync as HS
 from presto_tpu_torch.expr import aggregates as A
 from presto_tpu_torch.expr import ir
 from presto_tpu_torch.expr.compile import (ExprCompiler, Val, _align_strings,
-                                           cast_val)
+                                           cast_val, is_long_dec)
 from presto_tpu_torch.kernels.multijoin import multijoin_torch, take
 from presto_tpu_torch.ops import hash as H
 from presto_tpu_torch.ops import segred
@@ -74,16 +82,84 @@ def apply_project(dt: DTable, assignments: dict[str, ir.Expr]) -> DTable:
     out = {}
     for sym, expr in assignments.items():
         v = c.compile(expr)
+        if v.is_array:
+            # an array built from literals alone has one row
+            out[sym] = broadcast_rows(v, dt.n)
+            continue
         data, valid = v.data, v.valid
-        long = isinstance(v.dtype, T.DecimalType) and v.dtype.is_long
         if data.ndim == 0:  # broadcast scalar literal
             data = data.expand(dt.n)
-        elif long and data.ndim == 1:  # scalar LONG decimal: [2] limbs
+        elif is_long_dec(v.dtype) and data.ndim == 1:  # [2] limbs
             data = data.expand(dt.n, 2)
         if valid is not None and valid.ndim == 0:
             valid = valid.expand(dt.n)
         out[sym] = Val(v.dtype, data, valid, v.dictionary)
     return DTable(out, dt.live, dt.n, dt.device)
+
+
+def broadcast_rows(v: Val, n: int) -> Val:
+    """An ARRAY Val of one row (or n) as n rows, companions included."""
+    def rows(x):
+        if x is None or (x.ndim and x.shape[0] == n):
+            return x
+        return x.reshape((1,) * (x.ndim == 0) + tuple(x.shape)).expand(
+            (n,) + tuple(x.shape[1:] if x.ndim else ()))
+    return Val(v.dtype, rows(v.data), rows(v.valid), v.dictionary,
+               rows(v.lengths), rows(v.elem_valid),
+               None if v.map_keys is None else broadcast_rows(v.map_keys, n))
+
+
+def take_val(v: Val, idx) -> Val:
+    """Rows ``idx`` of a Val (``take``: clamped by the callers), its
+    ARRAY companions included."""
+    return Val(v.dtype, take(v.data, idx),
+               None if v.valid is None else take(v.valid, idx),
+               v.dictionary,
+               None if v.lengths is None else take(v.lengths, idx),
+               None if v.elem_valid is None else take(v.elem_valid, idx),
+               None if v.map_keys is None else take_val(v.map_keys, idx))
+
+
+def _key_parts(v: Val) -> list:
+    """A key column's exact identity as 1-D sort operands, told apart by
+    its TYPE (a LONG decimal and an ARRAY are both 2-D): a LONG
+    decimal's two limbs in unsigned order; an ARRAY's length, then each
+    position's value (and its element mask where elements can be NULL),
+    dead positions zero; any other column its normalized value. NULL
+    rows collapse to zeros: callers carry the validity beside."""
+    if is_long_dec(v.dtype):
+        return [H.unsigned_key(k) for k in _long_key_operands(v)]
+    if v.is_array:
+        m = v.elem_mask()
+        lengths = v.lengths.to(torch.int64)
+        if v.valid is not None:
+            m = m & v.valid[:, None]
+            lengths = torch.where(v.valid, lengths, 0)
+        parts = [lengths]
+        for j in range(v.data.shape[1]):
+            parts.append(_group_key_operand(
+                Val(v.dtype.element, v.data[:, j], m[:, j])))
+            if v.elem_valid is not None:
+                parts.append(m[:, j])
+        return parts
+    return [_group_key_operand(v)]
+
+
+def _array_payloads(v: Val) -> list:
+    """An ARRAY key's values as they ride a grouping sort: data,
+    lengths and the element mask (the key parts say which rows are
+    one group; these rebuild the group's value)."""
+    return [v.data, v.lengths, v.elem_mask()]
+
+
+def _array_from(v: Val, data, lengths, emask, valid) -> Val:
+    return Val(v.dtype, data, valid, v.dictionary, lengths.to(torch.int32),
+               emask)
+
+
+def _unsupported_array(v: Val, what: str) -> None:
+    if v.is_array:
+        raise NotImplementedError(f"{what} over an ARRAY value")
 
 
 def _row_hash(dt: DTable, keys: list[str]):
@@ -92,10 +168,14 @@ def _row_hash(dt: DTable, keys: list[str]):
         v = dt.cols[k]
         if v.is_string:
             hs.append(H.hash_string_column(v.data, v.dictionary, v.valid))
-        elif v.data.ndim == 2:
+        elif is_long_dec(v.dtype):
             # LONG decimal: both int64 limbs feed the row key
             hs.append(H.hash_int_column(v.data[:, 0], v.valid))
             hs.append(H.hash_int_column(v.data[:, 1], v.valid))
+        elif v.is_array:
+            # an ARRAY's length and every position (string elements
+            # as codes: one column shares one dictionary)
+            hs.extend(H.hash_int_column(p, v.valid) for p in _key_parts(v))
         else:
             hs.append(H.hash_int_column(v.data, v.valid))
     return H.combine_hashes(hs)
@@ -171,6 +251,8 @@ def _agg_call_inputs(c: ExprCompiler, dt: DTable, call, live):
     data_valid = None
     if call.arg is not None:
         av = c.compile(call.arg)
+        # the variable-length aggregates take arrays (exec/varlen.py)
+        _unsupported_array(av, f"aggregate {call.fn}")
         if call.fn == "checksum":
             # NULL rows count, as a fixed hash (below)
             weight = live
@@ -269,18 +351,23 @@ def _apply_aggregate_sorted(dt: DTable, node: N.Aggregate, capacity: int,
 
     key_refs = []  # (sym, Val, data_idx, valid_idx)
     plain_keys = []  # float originals / FD-dependent keys ride outside
+    array_keys = []  # (sym, Val, valid_idx): values ride outside
     for k in node.group_keys:
         v = dt.cols[k]
         if k not in id_keys:
             plain_keys.append((k, v, v.valid))
             continue
-        if v.data.ndim == 2:  # LONG decimal key
-            khi, klo = _long_key_operands(v)
+        if is_long_dec(v.dtype):  # LONG decimal key
             # uint64 operands sort by their unsigned order
-            hi_idx = _add(H.unsigned_key(khi))
-            lo_idx = _add(H.unsigned_key(klo))
+            hi_idx, lo_idx = (_add(p) for p in _key_parts(v))
             valid_idx = None if v.valid is None else _add(v.valid)
             key_refs.append((k, v, ("long", hi_idx, lo_idx), valid_idx))
+            continue
+        if v.is_array:
+            for p in _key_parts(v):
+                _add(p)
+            array_keys.append((k, v, None if v.valid is None
+                               else _add(v.valid)))
             continue
         norm_idx = _add(_group_key_operand(v))
         valid_idx = None if v.valid is None else _add(v.valid)
@@ -294,12 +381,19 @@ def _apply_aggregate_sorted(dt: DTable, node: N.Aggregate, capacity: int,
             valid_idx = valid_ref
         else:
             valid_idx = _add(valid_ref)
-        if v.data.ndim == 2:
-            khi, klo = _long_key_operands(v)
-            key_refs.append((k, v, ("long", _add(H.unsigned_key(khi)),
-                                    _add(H.unsigned_key(klo))), valid_idx))
+        if is_long_dec(v.dtype):
+            key_refs.append((k, v, ("long", *(_add(p) for p in
+                                              _key_parts(v))), valid_idx))
+            continue
+        if v.is_array:
+            key_refs.append((k, v, ("array", *(_add(p) for p in
+                                               _array_payloads(v))),
+                             valid_idx))
             continue
         key_refs.append((k, v, _add(v.data), valid_idx))
+    for k, v, valid_idx in array_keys:
+        key_refs.append((k, v, ("array", *(_add(p) for p in
+                                           _array_payloads(v))), valid_idx))
 
     # each call folds by segmented scans over the sorted rows, or (the
     # sketches, whose [rows, width] states ride no sort) by segment ops
@@ -337,7 +431,7 @@ def _apply_aggregate_sorted(dt: DTable, node: N.Aggregate, capacity: int,
         return len(compact_in) - 1
 
     key_out = [(sym, v,
-                ("long", _adc(sp[di[1]]), _adc(sp[di[2]]))
+                (di[0], *(_adc(sp[i]) for i in di[1:]))
                 if isinstance(di, tuple) else _adc(sp[di]),
                 None if vi is None else _adc(sp[vi]))
                for sym, v, di, vi in key_refs]
@@ -379,12 +473,7 @@ def _apply_aggregate_sorted(dt: DTable, node: N.Aggregate, capacity: int,
     out: dict[str, Val] = {}
     for sym, v, di, vi in key_out:
         valid = None if vi is None else compacted[vi]
-        if isinstance(di, tuple):  # LONG decimal limbs
-            data = _unpack_long_key(compacted[di[1]] ^ H.INT64_MIN,
-                                    compacted[di[2]] ^ H.INT64_MIN)
-            out[sym] = Val(v.dtype, data, valid, v.dictionary)
-            continue
-        out[sym] = Val(v.dtype, compacted[di], valid, v.dictionary)
+        out[sym] = _key_out(v, di, compacted, valid)
 
     for sym, call in node.aggs.items():
         states = seg_states.get(sym) or {
@@ -393,6 +482,19 @@ def _apply_aggregate_sorted(dt: DTable, node: N.Aggregate, capacity: int,
                        dt)
 
     return DTable(out, occupied, capacity, dt.device), ok
+
+
+def _key_out(v: Val, di, compacted: list, valid) -> Val:
+    """A group key's output column from its compacted payloads: an int
+    index, or ("long", hi, lo) limbs, or ("array", data, lengths,
+    element mask)."""
+    if not isinstance(di, tuple):
+        return Val(v.dtype, compacted[di], valid, v.dictionary)
+    if di[0] == "long":
+        return Val(v.dtype, _unpack_long_key(
+            compacted[di[1]] ^ H.INT64_MIN, compacted[di[2]] ^ H.INT64_MIN),
+            valid, v.dictionary)
+    return _array_from(v, *(compacted[i] for i in di[1:]), valid)
 
 
 def apply_aggregate(dt: DTable, node: N.Aggregate, capacity: int) -> tuple:
@@ -487,12 +589,13 @@ def _verify_keys(left: DTable, right: DTable,
     eq = None
     for lk, rk in criteria:
         lv, rv = left.cols[lk], right.cols[rk]
+        _unsupported_array(lv, "a join key")
         if lv.is_string or rv.is_string:
             lcodes, rcodes = _align_strings(lv, rv)
             e = lcodes == take(rcodes, gather)
         else:
             e = lv.data == take(rv.data, gather)
-        if e.ndim == 2:
+        if is_long_dec(lv.dtype) or is_long_dec(rv.dtype):
             e = e.all(dim=1)
         eq = e if eq is None else (eq & e)
     return eq
@@ -567,13 +670,12 @@ def apply_join(left: DTable, right: DTable, node: N.Join,
     out = dict(left.cols)
     inner = node.join_type == N.JoinType.INNER
     for sym, v in right.cols.items():
-        data = take(v.data, gather)
-        gv = None if v.valid is None else take(v.valid, gather)
+        g = take_val(v, gather)
         # INNER: unmatched rows die via the live mask, so the found
         # mask is redundant as validity (keeps build-side dictionary
         # keys eligible for the direct group-by path downstream)
-        valid = gv if inner else (found if gv is None else found & gv)
-        out[sym] = Val(v.dtype, data, valid, v.dictionary)
+        out[sym] = g if inner else dataclasses.replace(
+            g, valid=found if g.valid is None else found & g.valid)
 
     if node.filter is not None:
         fv = ExprCompiler(out, left.device).compile(node.filter)
@@ -582,8 +684,8 @@ def apply_join(left: DTable, right: DTable, node: N.Join,
         if not inner:
             for sym in right.cols:
                 v = out[sym]
-                out[sym] = Val(v.dtype, v.data, found if v.valid is None
-                               else (found & v.valid), v.dictionary)
+                out[sym] = dataclasses.replace(
+                    v, valid=found if v.valid is None else found & v.valid)
 
     if inner:
         live = probe_live & found
@@ -623,9 +725,7 @@ def _walk(spine: DTable, builds: list[DTable], criteria,
     out = dict(spine.cols)
     for bdt, gather in zip(builds, gathers):
         for sym, v in bdt.cols.items():
-            out[sym] = Val(v.dtype, take(v.data, gather),
-                           None if v.valid is None else take(v.valid, gather),
-                           v.dictionary)
+            out[sym] = take_val(v, gather)
     return DTable(out, live, spine.n, spine.device), ok
 
 
@@ -665,29 +765,27 @@ def apply_expand_join(left: DTable, right: DTable, node: N.Join,
     gather = torch.clamp(build_row, 0, max(right.n - 1, 0))
     out: dict[str, Val] = {}
     for sym, v in left.cols.items():
-        out[sym] = Val(v.dtype, take(v.data, probe_idx),
-                       None if v.valid is None else take(v.valid, probe_idx),
-                       v.dictionary)
+        out[sym] = take_val(v, probe_idx)
     verify = None
     for lk, rk in node.criteria:
         lv, rv = left.cols[lk], right.cols[rk]
+        _unsupported_array(lv, "a join key")
         if lv.is_string or rv.is_string:
             continue
         e = take(lv.data, probe_idx) == take(rv.data, gather)
-        if e.ndim == 2:
+        if is_long_dec(lv.dtype) or is_long_dec(rv.dtype):
             e = e.all(dim=1)
         verify = e if verify is None else (verify & e)
     if verify is not None and not left_join:
         out_live = out_live & (verify | ~matched)
     for sym, v in right.cols.items():
-        gv = None if v.valid is None else take(v.valid, gather)
+        g = take_val(v, gather)
         if left_join:
-            valid = matched if gv is None else (matched & gv)
-        else:
-            # inner expansion emits matched rows only: matched is
-            # redundant with out_live (see apply_join)
-            valid = gv
-        out[sym] = Val(v.dtype, take(v.data, gather), valid, v.dictionary)
+            g = dataclasses.replace(g, valid=matched if g.valid is None
+                                    else (matched & g.valid))
+        # inner expansion emits matched rows only: matched is
+        # redundant with out_live (see apply_join)
+        out[sym] = g
 
     keep = matched
     f_ok = None
@@ -718,7 +816,7 @@ def apply_expand_join(left: DTable, right: DTable, node: N.Join,
         for sym, v in right.cols.items():
             valid = keep if v.valid is None \
                 else (keep & take(v.valid, gather))
-            out[sym] = Val(v.dtype, out[sym].data, valid, v.dictionary)
+            out[sym] = dataclasses.replace(out[sym], valid=valid)
     joined = DTable(out, out_live, out_capacity, left.device)
     if full_join:
         joined = concat_dtables(
@@ -738,9 +836,9 @@ def _unmatched_build_rows(left: DTable, right: DTable, kept, build_row):
     matched.index_put_((slot,), torch.ones((), dtype=torch.bool,
                                            device=dev))
     zero = torch.zeros(nb, dtype=torch.int64, device=dev)
-    cols = {sym: Val(v.dtype, take(v.data, zero),
-                     torch.zeros(nb, dtype=torch.bool, device=dev),
-                     v.dictionary)
+    cols = {sym: dataclasses.replace(
+                take_val(v, zero),
+                valid=torch.zeros(nb, dtype=torch.bool, device=dev))
             for sym, v in left.cols.items()}
     cols.update(right.cols)
     return DTable(cols, right.live_mask() & ~matched[:nb], nb, dev)
@@ -754,17 +852,38 @@ def concat_dtables(parts: list[DTable]) -> DTable:
     cols: dict[str, Val] = {}
     for sym, v0 in first.cols.items():
         vs = [p.cols[sym] for p in parts]
-        long = isinstance(v0.dtype, T.DecimalType) and v0.dtype.is_long
-        data = torch.cat([_rows(v.data, p.n, long) for v, p in zip(vs, parts)])
+        if v0.is_array:
+            vs = [broadcast_rows(v, p.n) for v, p in zip(vs, parts)]
+            cap = max(v.data.shape[1] for v in vs)
+            data = torch.cat([_pad_cap(v.data, cap, 0) for v in vs])
+            lengths = torch.cat([v.lengths for v in vs])
+            ev = None
+            if any(v.elem_valid is not None for v in vs):
+                ev = torch.cat([_pad_cap(v.elem_mask(), cap, False)
+                                for v in vs])
+        else:
+            data = torch.cat([_rows(v.data, p.n, is_long_dec(v0.dtype))
+                              for v, p in zip(vs, parts)])
+            lengths = ev = None
         valid = None
         if any(v.valid is not None for v in vs):
             valid = torch.cat([
                 torch.ones(p.n, dtype=torch.bool, device=p.device)
                 if v.valid is None else v.valid.expand(p.n)
                 for v, p in zip(vs, parts)])
-        cols[sym] = Val(v0.dtype, data, valid, v0.dictionary)
+        cols[sym] = Val(v0.dtype, data, valid, v0.dictionary, lengths, ev)
     live = torch.cat([p.live_mask() for p in parts])
     return DTable(cols, live, sum(p.n for p in parts), first.device)
+
+
+def _pad_cap(x, cap: int, fill):
+    """[n, c] element values padded to [n, cap] with ``fill`` (a
+    concatenation: ``F.pad`` takes no bool tensor)."""
+    if x.shape[1] == cap:
+        return x
+    pad = torch.full((x.shape[0], cap - x.shape[1]), fill, dtype=x.dtype,
+                     device=x.device)
+    return torch.cat([x, pad], dim=1)
 
 
 def _rows(data, n: int, long: bool):
@@ -846,9 +965,13 @@ def compact_dtable(dt: DTable, capacity: int) -> tuple:
         arrays[f"{sym}!d"] = v.data.contiguous()
         if v.valid is not None:
             arrays[f"{sym}!v"] = v.valid.contiguous()
+        if v.is_array:  # [n] lengths and the [n, cap] element mask
+            arrays[f"{sym}!l"] = v.lengths.contiguous()
+            if v.elem_valid is not None:
+                arrays[f"{sym}!e"] = v.elem_valid.contiguous()
     out = K.dispatch("compact")(live.contiguous(), arrays, capacity)
     cols = {sym: Val(v.dtype, out[f"{sym}!d"], out.get(f"{sym}!v"),
-                     v.dictionary)
+                     v.dictionary, out.get(f"{sym}!l"), out.get(f"{sym}!e"))
             for sym, v in dt.cols.items()}
     live_out = torch.arange(capacity, device=dt.device) < cnt
     return DTable(cols, live_out, capacity, dt.device), ok
@@ -865,9 +988,7 @@ def apply_cross_general(left: DTable, right: DTable) -> DTable:
     out: dict[str, Val] = {}
     for side, idx in ((left, i), (right, j)):
         for sym, v in side.cols.items():
-            out[sym] = Val(v.dtype, take(v.data, idx),
-                           None if v.valid is None else take(v.valid, idx),
-                           v.dictionary)
+            out[sym] = take_val(v, idx)
     live = take(left.live_mask(), i) & take(right.live_mask(), j)
     return DTable(out, live, nl * nr, dev)
 
@@ -883,11 +1004,10 @@ def apply_cross_scalar(left: DTable, right: DTable) -> DTable:
     any_live = torch.any(rlive)
     out = dict(left.cols)
     for sym, v in right.cols.items():
-        data = v.data.index_select(0, idx)[0]
-        data = data.expand((left.n,) + tuple(data.shape))
-        rv = any_live if v.valid is None else (
-            any_live & v.valid.index_select(0, idx)[0])
-        out[sym] = Val(v.dtype, data, rv.expand(left.n), v.dictionary)
+        row = take_val(v, idx)
+        rv = any_live if v.valid is None else (any_live & row.valid[0])
+        row = dataclasses.replace(row, valid=rv.reshape(1))
+        out[sym] = broadcast_rows(row, left.n)
     return DTable(out, left.live, left.n, left.device)
 
 
@@ -904,7 +1024,8 @@ def _unify_string_vals(vals: list[Val]) -> list[Val]:
                           .astype(np.int32), v.data.device, "dictionary-lut")
         codes = torch.clamp(v.data.to(torch.int64), 0,
                             max(len(v.dictionary) - 1, 0))
-        out.append(Val(v.dtype, take(remap, codes), v.valid, uobj))
+        out.append(dataclasses.replace(v, data=take(remap, codes),
+                                       dictionary=uobj))
     return out
 
 
@@ -918,12 +1039,16 @@ def apply_union(parts: list[DTable], node: N.Union) -> DTable:
         vals = []
         for p, mapping in zip(parts, node.mappings):
             v = p.cols[mapping[sym]]
-            vals.append(v if v.is_string else cast_val(v, dtype))
-        if isinstance(dtype, T.VarcharType):
+            vals.append(v if v.is_string or v.is_array
+                        else cast_val(v, dtype))
+        if isinstance(dtype, T.VarcharType) or (
+                isinstance(dtype, T.ArrayType)
+                and isinstance(dtype.element, T.VarcharType)):
             vals = _unify_string_vals(vals)
         for r, v in zip(renamed, vals):
-            r.cols[sym] = Val(dtype, v.data, v.valid,
-                              v.dictionary if v.is_string else None)
+            r.cols[sym] = dataclasses.replace(
+                v, dtype=dtype, dictionary=v.dictionary
+                if v.is_string or v.is_array else None)
     return concat_dtables(renamed)
 
 
@@ -936,10 +1061,7 @@ def apply_mark_distinct(dt: DTable, node: N.MarkDistinct) -> DTable:
     key_ops = []
     for k in node.keys:
         v = dt.cols[k]
-        if v.data.ndim == 2:  # LONG decimal key
-            key_ops.extend(_long_key_operands(v))
-        else:
-            key_ops.append(_group_key_operand(v))
+        key_ops.extend(_key_parts(v))
         if v.valid is not None:
             key_ops.append(v.valid)
     sg = H.SortedGroups(rh, live, key_ops, len(key_ops))
@@ -967,8 +1089,9 @@ def _sort_keys(dt: DTable, orderings: list[N.Ordering]) -> list:
     keys = [(~live).to(torch.int32)]  # dead rows last
     for o in orderings:
         v = dt.cols[o.symbol]
+        _unsupported_array(v, "ORDER BY")
         data = v.data
-        if data.ndim == 2:
+        if is_long_dec(v.dtype):
             # LONG decimal: int128 limbs -> two uint64 key levels,
             # compared unsigned; descending complements both levels
             from presto_tpu_torch.ops import int128 as I
@@ -1010,11 +1133,7 @@ def _sort_keys(dt: DTable, orderings: list[N.Ordering]) -> list:
 
 
 def _gather_table(dt: DTable, perm) -> DTable:
-    out = {}
-    for sym, v in dt.cols.items():
-        out[sym] = Val(v.dtype, v.data[perm],
-                       None if v.valid is None else v.valid[perm],
-                       v.dictionary)
+    out = {sym: take_val(v, perm) for sym, v in dt.cols.items()}
     live = None if dt.live is None else dt.live[perm]
     return DTable(out, live, dt.n, dt.device)
 
@@ -1055,16 +1174,19 @@ def apply_distinct(dt: DTable, capacity: int) -> tuple:
     payloads: list = []
     refs = []
     float_cols = []
+    array_cols = []
     for sym, v in dt.cols.items():
         di = len(payloads)
-        if v.data.ndim == 2:  # LONG decimal key
-            khi, klo = _long_key_operands(v)
-            payloads += [H.unsigned_key(khi), H.unsigned_key(klo)]
+        if is_long_dec(v.dtype) or v.is_array:
+            payloads += _key_parts(v)
             vi = None
             if v.valid is not None:
                 vi = len(payloads)
                 payloads.append(v.valid)
-            refs.append((sym, v, ("long", di, di + 1), vi))
+            if v.is_array:  # its values ride outside the keys
+                array_cols.append((sym, v, vi))
+            else:
+                refs.append((sym, v, ("long", di, di + 1), vi))
             continue
         payloads.append(_group_key_operand(v))
         vi = None
@@ -1079,19 +1201,74 @@ def apply_distinct(dt: DTable, capacity: int) -> tuple:
     for sym, v, vi in float_cols:
         refs.append((sym, v, len(payloads), vi))
         payloads.append(v.data)
+    for sym, v, vi in array_cols:
+        at = len(payloads)
+        payloads += _array_payloads(v)
+        refs.append((sym, v, ("array", at, at + 1, at + 2), vi))
     sg = H.SortedGroups(rh, live, payloads, num_key_payloads)
     ok = sg.ngroups <= capacity
     compacted, occupied = sg.compact_first(sg.payloads, capacity)
-    out = {}
-    for sym, v, di, vi in refs:
-        valid = None if vi is None else compacted[vi]
-        if isinstance(di, tuple):  # LONG decimal limbs
-            data = _unpack_long_key(compacted[di[1]] ^ H.INT64_MIN,
-                                    compacted[di[2]] ^ H.INT64_MIN)
-        else:
-            data = compacted[di]
-        out[sym] = Val(v.dtype, data, valid, v.dictionary)
+    out = {sym: _key_out(v, di, compacted,
+                         None if vi is None else compacted[vi])
+           for sym, v, di, vi in refs}
+    # the columns in their input order
+    out = {sym: out[sym] for sym in dt.cols}
     return DTable(out, occupied, capacity, dt.device), ok
+
+
+def _repeat_rows(v: Val, k: int) -> Val:
+    """Each row of a Val ``k`` times in a row, companions included
+    (``repeat_interleave`` by a Python int: no host sync)."""
+    def rep(x):
+        return None if x is None else torch.repeat_interleave(x, k, dim=0)
+    return Val(v.dtype, rep(v.data), rep(v.valid), v.dictionary,
+               rep(v.lengths), rep(v.elem_valid),
+               None if v.map_keys is None else _repeat_rows(v.map_keys, k))
+
+
+def apply_unnest(dt: DTable, node: N.Unnest) -> DTable:
+    """Array elements as rows (reference UnnestOperator over UnnestNode):
+    output row (i, j) carries source row i's columns and each array's
+    j-th element, a static n * cap rows. Several arrays zip to the
+    longest length (shorter ones pad with NULLs); a NULL array gives no
+    rows; ``ordinality_sym`` is the 1-based position."""
+    n, dev = dt.n, dt.device
+    arrays = {s: broadcast_rows(dt.cols[s], n) for s in node.array_syms}
+    cap = max(a.data.shape[1] for a in arrays.values())
+    # per-row zip length: the longest array (a NULL array counts 0)
+    zlen = None
+    for a in arrays.values():
+        ln = a.lengths if a.valid is None \
+            else torch.where(a.valid, a.lengths, 0)
+        zlen = ln if zlen is None else torch.maximum(zlen, ln)
+    out: dict[str, Val] = {}
+    for sym, v in dt.cols.items():
+        if sym in node.array_syms and sym not in node.out_syms:
+            continue  # a consumed array drops from the output
+        out[sym] = _repeat_rows(v, cap)
+    j = torch.arange(cap, dtype=torch.int32, device=dev).repeat(n)
+    for osym, asym in zip(node.out_syms, node.array_syms):
+        a = arrays[asym]
+        valid = None
+        if len(arrays) > 1:
+            # a shorter array of the zip pads with NULLs
+            valid = j < torch.repeat_interleave(a.lengths, cap)
+            if a.valid is not None:
+                valid = valid & torch.repeat_interleave(a.valid, cap)
+        # (one array's rows past its length are dead: the live mask
+        # says so, and a dictionary column without validity keeps the
+        # direct group-by path downstream)
+        if a.elem_valid is not None:
+            ev = _pad_cap(a.elem_valid, cap, False).reshape(n * cap)
+            valid = ev if valid is None else valid & ev
+        out[osym] = Val(node.out_types[osym],
+                        _pad_cap(a.data, cap, 0).reshape(n * cap), valid,
+                        a.dictionary)
+    if node.ordinality_sym:
+        out[node.ordinality_sym] = Val(T.BIGINT, (j + 1).to(torch.int64))
+    live = (torch.repeat_interleave(dt.live_mask(), cap)
+            & (j < torch.repeat_interleave(zlen, cap)))
+    return DTable(out, live, n * cap, dev)
 
 
 # --- window functions --------------------------------------------------------
@@ -1109,10 +1286,17 @@ def _keys_equal_prev(vals: list[Val], perm) -> torch.Tensor:
     head = _first_false(n, dev)
     eq = torch.arange(n, device=dev) > 0
     for v in vals:
-        d = v.data[perm]
-        pair_eq = d[1:] == d[:-1]
-        if pair_eq.ndim == 2:  # LONG decimal limbs: equal iff both are
-            pair_eq = pair_eq.all(dim=1)
+        if v.is_array:  # every part of the identity equal
+            pair_eq = torch.ones(max(n - 1, 0), dtype=torch.bool,
+                                 device=dev)
+            for p in _key_parts(v):
+                p = p[perm]
+                pair_eq = pair_eq & (p[1:] == p[:-1])
+        else:
+            d = v.data[perm]
+            pair_eq = d[1:] == d[:-1]
+            if is_long_dec(v.dtype):  # limbs: equal iff both are
+                pair_eq = pair_eq.all(dim=1)
         same = torch.cat([head, pair_eq])
         if v.valid is not None:
             vv = v.valid[perm]
@@ -1167,10 +1351,8 @@ def apply_window(dt: DTable, node: N.Window) -> DTable:
     peer_end = _run_ends(torch.cat([~same_peer[1:], last]))
 
     out = dict(dt.cols)
-    c = ExprCompiler({s: Val(v.dtype, v.data[perm],
-                             None if v.valid is None else v.valid[perm],
-                             v.dictionary)
-                      for s, v in dt.cols.items()}, dev)
+    c = ExprCompiler({s: take_val(v, perm) for s, v in dt.cols.items()},
+                     dev)
     key_val = (c.columns.get(node.orderings[0].symbol)
                if len(node.orderings) == 1 else None)
     fctx = {"orderings": node.orderings, "same_peer": same_peer,
@@ -1256,7 +1438,8 @@ def _window_agg(call, fn, c, idx, part_start, peer_end, part_end,
                 same_part, slive, n, fctx):
     if call.args:
         v = c.compile(call.args[0])
-        if v.data.ndim == 2:
+        _unsupported_array(v, "a window aggregate")
+        if is_long_dec(v.dtype):
             raise NotImplementedError(
                 "window aggregates over long decimals (precision > 18) "
                 "are not supported yet")

@@ -82,14 +82,14 @@ def _block_input(engine, node: N.TableScan, tbl, lo: int, hi: int):
             return dev[lo:hi]
         return HS.upload(np.asarray(a)[lo:hi], engine.device, "scan-block")
 
-    return _scan_input(node, tbl, rows, hi - lo)
+    return _scan_input(engine, node, tbl, rows, hi - lo)
 
 
 def try_execute_streamed(engine, plan: N.PlanNode):
     """Execute ``plan`` block-streamed, or return None if inapplicable."""
     from presto_tpu_torch.exec import operators as OP
     from presto_tpu_torch.exec.executor import (
-        ScanInput, prepare_plan, run_plan)
+        ScanInput, carrier_arrays, prepare_plan, run_plan)
 
     block = int(engine.session.get("scan_block_rows") or 0)
     if block <= 0:
@@ -121,11 +121,7 @@ def try_execute_streamed(engine, plan: N.PlanNode):
     types = {sym: v.dtype for sym, v in merged.cols.items()}
     carrier = N.TableScan("__stream__", "__partials__",
                           {sym: sym for sym in merged.cols}, types)
-    arrays = {}
-    for sym, v in merged.cols.items():
-        arrays[sym] = v.data
-        if v.valid is not None:
-            arrays[f"{sym}$valid"] = v.valid
+    arrays = carrier_arrays(merged.cols)
     # every block's key dictionaries are the scan's (or one transform
     # of them), so the first block's stand for all
     dicts = {sym: v.dictionary for sym, v in merged.cols.items()}

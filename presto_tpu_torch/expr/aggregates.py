@@ -36,8 +36,8 @@ partial states; ``finalize`` turns states into the output column.
 64-bit hashes are int64 bit patterns (ops/hash.py). The call metadata
 (AggCall, output and state types) lives in
 :mod:`presto_tpu_torch.expr.aggmeta` and is re-exported here. The
-variable-length aggregates (``VARLEN_FNS``) raise
-``NotImplementedError``.
+variable-length aggregates (``VARLEN_FNS``) never fold here:
+``exec/varlen.py`` builds their values on the host.
 """
 
 from __future__ import annotations
@@ -77,6 +77,12 @@ _MAX_CELLS = 1 << 30
 
 
 def _unported(fn: str):
+    if fn in VARLEN_FNS:
+        # their lists, maps and strings are built on the host, and
+        # execute_plan routes every plan holding one there first
+        return NotImplementedError(
+            f"aggregate {fn} is host-finalized (exec/varlen.py) and never "
+            "folds on the device")
     return NotImplementedError(
         f"aggregate {fn} is not ported to presto_tpu_torch yet")
 

@@ -15,25 +15,28 @@ their device. Value model (``Val``): (dtype, data, valid, dictionary)
 
 The port covers column references, literals, IS [NOT] NULL, IN lists,
 CASE, casts among numeric, decimal and date types and from varchar to
-every scalar type, and every scalar function of the reference but its
-ARRAY/MAP/lambda ones: arithmetic, comparisons and logic; math
+every scalar type, and every scalar function of the reference:
+arithmetic, comparisons and logic; math
 (sign, the DOUBLE-valued families, log, is_nan/is_finite/is_infinite,
 width_bucket) and bitwise functions; strings (length, trim, pads,
 replace, strpos, starts_with, split_part, reverse, codepoint, chr,
 translate, the edit distances, regexp_like/replace/extract, contains)
 and their JSON, URL and binary encodings; dates and times (the
 extracts, date_trunc, date_add, date_diff, add_months, from/to
-unixtime, date_format). String functions run once per dictionary
-entry on the host and gather by code on the device; date functions
-are integer arithmetic on the device (``//`` and ``%`` floor, as the
-reference's do). Every other expression form and function raises
+unixtime, date_format); ARRAY and MAP values, lambdas and the array
+functions (below). String functions run once per dictionary entry on
+the host and gather by code on the device; date functions are integer
+arithmetic on the device (``//`` and ``%`` floor, as the reference's
+do). Every other expression form and function raises
 ``NotImplementedError`` naming itself.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import re
+import threading
 from typing import Callable
 
 import numpy as np
@@ -46,16 +49,40 @@ from presto_tpu_torch.expr import ir
 
 @dataclasses.dataclass
 class Val:
-    """One columnar value."""
+    """One columnar value.
+
+    Scalar columns: data [n]. ARRAY columns are fixed-capacity padded
+    2-D values, the reference's layout: data [n, cap] element values
+    (codes in ``dictionary`` for string elements), ``lengths`` [n]
+    int32 element counts, ``elem_valid`` [n, cap] per-element non-NULL
+    mask (None = no NULL element); positions past the length are dead
+    padding. A MAP value also carries its key array in ``map_keys``.
+    An ARRAY built from literals alone has one row and broadcasts."""
 
     dtype: T.DataType
     data: object
     valid: object | None = None
     dictionary: np.ndarray | None = None
+    lengths: object | None = None
+    elem_valid: object | None = None
+    map_keys: "Val | None" = None
 
     @property
     def is_string(self) -> bool:
         return isinstance(self.dtype, T.VarcharType)
+
+    @property
+    def is_array(self) -> bool:
+        return isinstance(self.dtype, T.ArrayType)
+
+    def elem_mask(self):
+        """[n, cap] mask of live (present, non-NULL) elements."""
+        cap = self.data.shape[1]
+        m = (torch.arange(cap, device=self.data.device)[None, :]
+             < self.lengths[:, None])
+        if self.elem_valid is not None:
+            m = m & self.elem_valid
+        return m
 
 
 def is_long_dec(t) -> bool:
@@ -200,6 +227,19 @@ def _align_strings(a: Val, b: Val) -> tuple[object, object]:
     return _by_code(_lut(mapping, a.data), a.data), b.data
 
 
+# the compilers of the _c_call frames in flight, innermost last: a lambda
+# body binds the innermost one's columns and device. Per thread, so
+# that compilations on two threads never bind each other's columns.
+_COMPILER_TLS = threading.local()
+
+
+def _compilers() -> list:
+    stack = getattr(_COMPILER_TLS, "stack", None)
+    if stack is None:
+        stack = _COMPILER_TLS.stack = []
+    return stack
+
+
 # --- the compiler ----------------------------------------------------------
 
 
@@ -291,7 +331,20 @@ class ExprCompiler:
             raise NotImplementedError(
                 f"scalar function {e.fn} is not ported to presto_tpu_torch "
                 "yet")
-        return fn(e, [self.compile(a) for a in e.args])
+        args = [self.compile(a) for a in e.args]
+        # higher-order functions compile their lambda bodies against
+        # this call's columns (outer captures) on its device
+        stack = _compilers()
+        stack.append(self)
+        try:
+            return fn(e, args)
+        finally:
+            stack.pop()
+
+    def _c_lambda(self, e: ir.Lambda) -> Val:
+        # a lambda is not a value: the higher-order functions read it
+        # from the call's arguments and bind its parameters themselves
+        return Val(e.dtype, None)
 
 
 # --- casts -----------------------------------------------------------------
@@ -945,6 +998,8 @@ def _concat(e, args):
     columns take the sorted dictionary of every pair's concatenation,
     gathered at ca * |db| + cb."""
     a, b = args
+    if a.is_array and b.is_array:  # ``||`` of two arrays
+        return _array_concat_fn(e, args)
     valid = and_valid(a.valid, b.valid)
     if len(a.dictionary) == 1:
         s = str(a.dictionary[0])
@@ -1299,12 +1354,10 @@ def _regexp_extract(e, args):
 
 @scalar("contains")
 def _contains(e, args):
-    """The string form: whether the needle occurs (ARRAY ``contains``
-    comes with ARRAY values)."""
-    if not args[0].is_string:
-        raise NotImplementedError(
-            "contains over ARRAY values is not ported to presto_tpu_torch "
-            "yet")
+    """The string form: whether the needle occurs (the ARRAY form is
+    ``_array_contains``)."""
+    if args[0].is_array:
+        return _array_contains(e, args)
     if not isinstance(e.args[1], ir.Literal):
         raise NotImplementedError("contains with non-literal needle")
     needle = str(args[1].dictionary[0])
@@ -1865,3 +1918,428 @@ def _date_format(e, args):
     day = torch.clamp(day, 0, len(day_codes) - 1)
     return Val(T.VARCHAR, _by_code(_lut(day_codes, v.data), day),
                and_valid(v.valid, in_range), strings)
+
+
+# --- arrays, maps and lambdas (the fixed-capacity 2-D layout; see Val) ------
+# Every array function stays on the device: no host read, no boolean
+# mask indexing; gathers along the capacity clamp their positions, and a
+# sort along it is stable, so ties keep their positions (the reference's
+# two-key ``lax.sort`` over (key, position)).
+
+
+def _elem_string(t: T.DataType) -> bool:
+    return isinstance(t, T.VarcharType)
+
+
+def _rows_of(*tensors) -> int:
+    """The row count the operands broadcast to (a literal array has
+    one row)."""
+    return max(x.shape[0] for x in tensors if x is not None and x.ndim)
+
+
+def _at_rows(x, n: int):
+    """``x`` ([m, ...] with m 1 or n) as n rows."""
+    return x if x.shape[0] == n else x.expand((n,) + tuple(x.shape[1:]))
+
+
+def _gather_pos(x, pos):
+    """x[i, pos[i]] of a [m, cap] tensor for positions [n] (clamped;
+    a one-row x broadcasts)."""
+    x = _at_rows(x, pos.shape[0])
+    pos = torch.clamp(pos.to(torch.int64), 0, x.shape[1] - 1)
+    return torch.gather(x, 1, pos[:, None])[:, 0]
+
+
+def _compact_elems(keep, *operands):
+    """Each row's kept elements moved to its front, in position order:
+    a stable sort of ``~keep`` along the capacity, every operand
+    gathered by it."""
+    order = torch.sort((~keep).to(torch.int32), dim=1, stable=True)[1]
+    return [None if x is None else torch.gather(
+        _at_rows(x, keep.shape[0]).expand(keep.shape), 1, order)
+        for x in operands]
+
+
+def _broadcast_cols_2d(columns: dict[str, Val]) -> dict:
+    """Outer scalar columns as [n, 1] views, so that a lambda body
+    broadcasts them against [n, cap] element values."""
+    out = {}
+    for sym, v in columns.items():
+        if (v.is_array or v.data is None or v.data.ndim != 1
+                or is_long_dec(v.dtype)):
+            out[sym] = v
+            continue
+        out[sym] = Val(v.dtype, v.data[:, None],
+                       None if v.valid is None else v.valid[:, None],
+                       v.dictionary)
+    return out
+
+
+def _bind_lambda(lam: ir.Lambda, arrays: list[Val]) -> Val:
+    """Compile a lambda body with each parameter bound to its array's
+    [n, cap] element values (outer columns broadcast as [n, 1]); the
+    body's [n, cap] Val."""
+    outer = _compilers()[-1]
+    cols = _broadcast_cols_2d(outer.columns)
+    for p, arr in zip(lam.params, arrays):
+        cols[p] = Val(arr.dtype.element, arr.data,
+                      arr.elem_mask() if arr.elem_valid is not None
+                      else None, arr.dictionary)
+    return ExprCompiler(cols, outer.device).compile(lam.body)
+
+
+@scalar("array_ctor")
+def _array_ctor(e, args):
+    """ARRAY[e1, ..., ek]: k scalar columns stacked into [n, k]."""
+    dev = _compilers()[-1].device
+    if not args:
+        return Val(e.dtype, torch.zeros((1, 1), dtype=torch.int64,
+                                        device=dev), None, None,
+                   torch.zeros(1, dtype=torch.int32, device=dev), None)
+    dictionary = None
+    if _elem_string(e.dtype.element):
+        base = args[0]
+        unified = [base]
+        for v in args[1:]:
+            v, base = _merge_dicts(v, base)
+            unified.append(v)
+        # earlier arguments again, against the final dictionary
+        args = [_merge_dicts(v, base)[0] for v in unified]
+        dictionary = args[0].dictionary
+    n = max([v.data.shape[0] for v in args if v.data.ndim == 1],
+            default=1)
+    datas, valids = [], []
+    for v in args:
+        datas.append(v.data.expand(n) if v.data.ndim == 0 else v.data)
+        va = v.valid
+        if va is None:
+            va = torch.ones(n, dtype=torch.bool, device=dev)
+        elif va.ndim == 0:
+            va = va.expand(n)
+        valids.append(va)
+    lengths = torch.full((n,), len(args), dtype=torch.int32, device=dev)
+    return Val(e.dtype, torch.stack(datas, dim=1), None, dictionary,
+               lengths, torch.stack(valids, dim=1))
+
+
+def _wanted(vd, want):
+    """Element values [n, cap] against a scalar or per-row value."""
+    return vd == (want[:, None] if want.ndim == 1 else want)
+
+
+def _elem_codes(v: Val, x: Val):
+    """(element values, probe value) comparable for equality: string
+    elements translate into the probe's code space."""
+    if _elem_string(v.dtype.element) and x.is_string:
+        vd, _ = _align_strings(Val(T.VARCHAR, v.data, None, v.dictionary),
+                               x)
+        return vd, x.data
+    return v.data, x.data
+
+
+@scalar("element_at")
+@scalar("subscript")
+def _element_at(e, args):
+    v, idx = args
+    if isinstance(v.dtype, T.MapType):
+        # map lookup: the first matching key's position
+        keys = v.map_keys
+        kd, want = _elem_codes(keys, idx)
+        hit = _wanted(kd, want) & keys.elem_mask()
+        pos = torch.argmax(hit.to(torch.uint8), dim=1)
+        found = hit.any(dim=1)
+        ev = (found if v.elem_valid is None
+              else found & _gather_pos(v.elem_valid, pos))
+        return Val(e.dtype, _gather_pos(v.data, pos), and_valid(v.valid, ev),
+                   v.dictionary)
+    # SQL arrays are 1-based; out of range is NULL
+    i0 = idx.data.to(torch.int64) - 1
+    n = _rows_of(v.data, i0)
+    i0 = i0.expand(n) if i0.ndim == 0 else i0
+    in_range = (i0 >= 0) & (i0 < v.lengths.to(torch.int64))
+    if v.elem_valid is not None:
+        in_range = in_range & _gather_pos(v.elem_valid, i0)
+    return Val(e.dtype, _gather_pos(v.data, i0),
+               and_valid(v.valid, and_valid(idx.valid, in_range)),
+               v.dictionary)
+
+
+@scalar("cardinality")
+def _cardinality(e, args):
+    (v,) = args
+    return Val(e.dtype, v.lengths.to(torch.int64), v.valid)
+
+
+def _array_contains(e, args):
+    v, x = args
+    vd, want = _elem_codes(v, x)
+    hit = _wanted(vd, want) & v.elem_mask()
+    return Val(e.dtype, hit.any(dim=1), and_valid(v.valid, x.valid))
+
+
+@scalar("transform")
+def _transform(e, args):
+    v = args[0]
+    body = _bind_lambda(e.args[1], [v])
+    data = body.data
+    if data.ndim != 2:
+        data = data.expand(v.data.shape)
+    # an outer-column capture widens a literal array's one row to the
+    # table's rows: the companions follow the body's shape
+    n = data.shape[0]
+    valid = v.valid
+    if valid is not None and valid.ndim and valid.shape[0] != n:
+        valid = valid.expand(n)
+    ev = body.valid
+    if ev is not None and ev.shape != data.shape:
+        ev = ev.expand(data.shape)
+    return Val(e.dtype, data, valid, body.dictionary,
+               _at_rows(v.lengths, n), ev)
+
+
+@scalar("filter")
+def _filter_array(e, args):
+    v = args[0]
+    body = _bind_lambda(e.args[1], [v])
+    keep = body.data if body.valid is None else (body.data & body.valid)
+    # PRESENT positions only: a NULL element the lambda accepts stays
+    # (filter(array[1, null], x -> x is null) keeps the NULL)
+    cap = v.data.shape[1]
+    present = (torch.arange(cap, device=v.data.device)[None, :]
+               < v.lengths[:, None])
+    keep = (keep & present).expand(
+        _rows_of(keep if keep.ndim == 2 else None, present), cap)
+    data, ev = _compact_elems(keep, v.data, v.elem_valid)
+    return Val(e.dtype, data, v.valid, v.dictionary,
+               keep.sum(dim=1).to(torch.int32), ev)
+
+
+@scalar("reduce")
+def _reduce_array(e, args):
+    v, init = args[0], args[1]
+    lam = e.args[2]  # (acc, x) -> expr
+    out_lam = e.args[3] if len(e.args) > 3 else None
+    outer = _compilers()[-1]
+    n, cap = v.data.shape
+    acc_data = init.data.expand(n) if init.data.ndim == 0 else init.data
+    acc = Val(init.dtype, acc_data, init.valid)
+    mask = v.elem_mask()
+    ones = torch.ones(n, dtype=torch.bool, device=v.data.device)
+    for j in range(cap):
+        cols = dict(outer.columns)
+        cols[lam.params[0]] = acc
+        cols[lam.params[1]] = Val(v.dtype.element, v.data[:, j], None,
+                                  v.dictionary)
+        stepped = ExprCompiler(cols, outer.device).compile(lam.body)
+        take = mask[:, j]
+        sd = stepped.data.expand(n) if stepped.data.ndim == 0 \
+            else stepped.data
+        new_valid = None
+        if acc.valid is not None or stepped.valid is not None:
+            new_valid = torch.where(
+                take, ones if stepped.valid is None else stepped.valid,
+                ones if acc.valid is None else acc.valid)
+        acc = Val(init.dtype, torch.where(take, sd, acc.data), new_valid)
+    if out_lam is not None:
+        cols = dict(outer.columns)
+        cols[out_lam.params[0]] = acc
+        acc = ExprCompiler(cols, outer.device).compile(out_lam.body)
+    return Val(e.dtype, acc.data, and_valid(v.valid, acc.valid))
+
+
+def _match_reduce(e, args, op: str) -> Val:
+    v = args[0]
+    body = _bind_lambda(e.args[1], [v])
+    hit = body.data if body.valid is None else (body.data & body.valid)
+    m = v.elem_mask()
+    if op == "any":
+        out = (hit & m).any(dim=1)
+    else:
+        out = torch.where(m, hit, True).all(dim=1)
+    return Val(e.dtype, out, v.valid)
+
+
+@scalar("any_match")
+def _any_match(e, args):
+    return _match_reduce(e, args, "any")
+
+
+@scalar("all_match")
+def _all_match(e, args):
+    return _match_reduce(e, args, "all")
+
+
+@scalar("none_match")
+def _none_match(e, args):
+    r = _match_reduce(e, args, "any")
+    return Val(e.dtype, ~r.data, r.valid)
+
+
+@scalar("array_position")
+def _array_position(e, args):
+    v, x = args
+    vd, want = _elem_codes(v, x)
+    hit = _wanted(vd, want) & v.elem_mask()
+    # argmax over uint8: the FIRST matching position (argmax of a bool
+    # tensor is not supported everywhere)
+    pos = torch.argmax(hit.to(torch.uint8), dim=1) + 1
+    found = hit.any(dim=1)
+    return Val(e.dtype, torch.where(found, pos, 0).to(torch.int64),
+               and_valid(v.valid, x.valid))
+
+
+def _extreme(dtype: torch.dtype, largest: bool):
+    """The largest (or least) value of ``dtype``: dead padding for a
+    min (max) or a sort."""
+    if dtype == torch.bool:
+        return largest
+    if dtype.is_floating_point:
+        return float("inf") if largest else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if largest else info.min
+
+
+@scalar("array_max")
+@scalar("array_min")
+def _array_minmax(e, args):
+    (v,) = args
+    is_max = e.fn == "array_max"
+    m = v.elem_mask()
+    masked = torch.where(m, v.data, _extreme(v.data.dtype, not is_max))
+    out = masked.amax(dim=1) if is_max else masked.amin(dim=1)
+    return Val(e.dtype, out, and_valid(v.valid, m.any(dim=1)),
+               v.dictionary)
+
+
+@scalar("array_sum")
+def _array_sum(e, args):
+    (v,) = args
+    m = v.elem_mask()
+    return Val(e.dtype, torch.where(m, v.data, 0).sum(dim=1), v.valid)
+
+
+@scalar("array_concat_fn")
+def _array_concat_fn(e, args):
+    a, b = args
+    if _elem_string(e.dtype.element):
+        av, bv = _merge_dicts(Val(T.VARCHAR, a.data, None, a.dictionary),
+                              Val(T.VARCHAR, b.data, None, b.dictionary))
+        a = dataclasses.replace(a, data=av.data, dictionary=av.dictionary)
+        b = dataclasses.replace(b, data=bv.data, dictionary=bv.dictionary)
+    n = _rows_of(a.data, b.data)
+    data = torch.cat([_at_rows(a.data, n), _at_rows(b.data, n)], dim=1)
+    am, bm = _at_rows(a.elem_mask(), n), _at_rows(b.elem_mask(), n)
+    # a's live elements, then b's, in order (NULL elements drop, as in
+    # the reference)
+    keep = torch.cat([am, bm], dim=1)
+    (data,) = _compact_elems(keep, data)
+    lengths = (am.sum(dim=1) + bm.sum(dim=1)).to(torch.int32)
+    return Val(e.dtype, data, and_valid(a.valid, b.valid), a.dictionary,
+               lengths, None)
+
+
+def _sorted_elems(v: Val):
+    """(each row's live elements sorted, dead padding last as the
+    largest value; the live count)."""
+    m = v.elem_mask()
+    big = torch.where(m, v.data, _extreme(v.data.dtype, True))
+    return torch.sort(big, dim=1)[0], m.sum(dim=1)
+
+
+@scalar("array_distinct")
+def _array_distinct(e, args):
+    """Distinct live elements in VALUE order (the reference's
+    documented divergence: Trino keeps first-occurrence order)."""
+    (v,) = args
+    sdata, cnt = _sorted_elems(v)
+    n, cap = sdata.shape
+    first = torch.cat([torch.ones((n, 1), dtype=torch.bool,
+                                  device=sdata.device),
+                       sdata[:, 1:] != sdata[:, :-1]], dim=1)
+    keep = first & (torch.arange(cap, device=sdata.device)[None, :]
+                    < cnt[:, None])
+    (data,) = _compact_elems(keep, sdata)
+    return Val(e.dtype, data, v.valid, v.dictionary,
+               keep.sum(dim=1).to(torch.int32), None)
+
+
+@scalar("array_sort_fn")
+def _array_sort_fn(e, args):
+    (v,) = args
+    sdata, cnt = _sorted_elems(v)
+    return Val(e.dtype, sdata, v.valid, v.dictionary, cnt.to(torch.int32),
+               None)
+
+
+@scalar("sequence")
+def _sequence(e, args):
+    lo, hi = e.args[0], e.args[1]
+    if not (isinstance(lo, ir.Literal) and isinstance(hi, ir.Literal)):
+        raise NotImplementedError(
+            "sequence() requires literal bounds (static array capacity)")
+    step = int(e.args[2].value) if len(e.args) > 2 else 1
+    vals = np.arange(int(lo.value),
+                     int(hi.value) + (1 if step > 0 else -1), step,
+                     dtype=np.int64)
+    dev = _compilers()[-1].device
+    n = max([v.data.shape[0] for v in args if v.data.ndim == 1],
+            default=1)
+    data = HS.upload(vals, dev, "literal")[None, :].expand(n, len(vals))
+    return Val(e.dtype, data, None, None,
+               torch.full((n,), len(vals), dtype=torch.int32, device=dev),
+               None)
+
+
+@scalar("split")
+def _split(e, args):
+    """split(string, delim): each dictionary entry split on the host
+    into a padded [k, cap] table of word codes (one sorted vocabulary),
+    rows gathered by code on the device (a dictionary transform with an
+    array output)."""
+    v = args[0]
+    if not isinstance(e.args[1], ir.Literal):
+        raise NotImplementedError("split() delimiter must be a literal")
+    delim = str(e.args[1].value)
+    parts = [str(s).split(delim) for s in v.dictionary]
+    lens = np.fromiter(map(len, parts), np.int32, len(parts))
+    cap = max(int(lens.max()) if len(parts) else 1, 1)
+    flat = list(itertools.chain.from_iterable(parts))
+    vocab = sorted(set(flat))
+    code_of = {w: i for i, w in enumerate(vocab)}
+    k = max(len(parts), 1)
+    lut = np.zeros((k, cap), np.int32)
+    total = len(flat)
+    rows = np.repeat(np.arange(len(parts)), lens)
+    cols = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+    lut[rows, cols] = np.fromiter(map(code_of.__getitem__, flat), np.int32,
+                                  total)
+    codes = v.data if v.data.ndim else v.data[None]
+    codes = torch.clamp(codes.to(torch.int64), 0, k - 1)
+    if not len(parts):
+        lens = np.zeros(1, np.int32)
+    return Val(e.dtype, _by_code(_lut(lut, codes), codes), v.valid,
+               np.array(vocab, dtype=object),
+               _by_code(_lut(lens, codes), codes), None)
+
+
+@scalar("map_ctor")
+def _map_ctor(e, args):
+    karr, varr = args
+    return Val(e.dtype, varr.data, and_valid(karr.valid, varr.valid),
+               varr.dictionary, varr.lengths, varr.elem_valid,
+               map_keys=karr)
+
+
+@scalar("map_keys")
+def _map_keys(e, args):
+    (v,) = args
+    k = v.map_keys
+    return Val(e.dtype, k.data, v.valid, k.dictionary, k.lengths,
+               k.elem_valid)
+
+
+@scalar("map_values")
+def _map_values(e, args):
+    (v,) = args
+    return Val(e.dtype, v.data, v.valid, v.dictionary, v.lengths,
+               v.elem_valid)

@@ -9,7 +9,12 @@ Q1 on both backends, and dynamic filtering and segmented plans without
 a synchronizing call; the function library's aggregates and chip_smoke's
 functions-phase queries on both backends (F1 and F4 also without a
 synchronizing call) and min_by ties resolved to one row on every
-backend. Elsewhere every test skips with its reason. This
+backend; ARRAY values, lambdas, UNNEST, the variable-length aggregates
+and MATCH_RECOGNIZE (the queries of the CPU tests and of chip_smoke's
+arrays phase) on both backends against the port on the CPU, an UNNEST
+and a lambda query without a synchronizing call, and the compaction of
+an array's [n, 5] int32 and bool columns. Elsewhere every test skips
+with its reason. This
 file imports neither jax nor presto_tpu, so it runs where only the port
 is installed:
 
@@ -34,6 +39,7 @@ from presto_tpu_torch.kernels import multijoin as MJ
 from presto_tpu_torch.kernels import segagg as SA
 from presto_tpu_torch.ops import hash as H
 
+import torch_array_cases as AC
 import torch_kernel_cases as KC
 
 pytestmark = pytest.mark.cuda
@@ -1090,3 +1096,161 @@ def test_min_by_ties_pick_one_row_on_every_backend(tpch_pair, block):
     for backend in ("cuda", "torch"):
         card.session.set("kernel_backend", backend)
         assert card.execute(globally) == want
+
+
+# -- ARRAY values, lambdas, UNNEST, varlen, MATCH_RECOGNIZE (items 3e, 4) --------
+
+
+@pytest.mark.parametrize("n", [1000, 300_007])
+def test_filter_compact_array_columns(cuda, n):
+    # an ARRAY column's [n, 5] int32 data (20-byte rows), its [n, 5]
+    # bool element mask (5-byte rows), its int32 lengths and a [n, 3]
+    # int64 array beside them
+    rng = np.random.default_rng(n)
+    live = _t(rng.random(n) < 0.3, cuda)
+    arrays = {"d": _t(rng.integers(-(1 << 30), 1 << 30, (n, 5))
+                      .astype(np.int32), cuda),
+              "e": _t(rng.random((n, 5)) < 0.7, cuda),
+              "l": _t(rng.integers(0, 6, n).astype(np.int32), cuda),
+              "w": _t(rng.integers(-(1 << 62), 1 << 62, (n, 3)), cuda)}
+    for view in ("aligned", "offset"):
+        tl = live if view == "aligned" else live[1:]
+        ta = arrays if view == "aligned" else {k: a[1:]
+                                               for k, a in arrays.items()}
+        capacity = int(tl.sum())
+        want = CP.filter_compact_torch(tl, ta, capacity)
+        before = B.LAUNCHES.snapshot()["filter_compact"]
+        got = CP.filter_compact_cuda(tl, ta, capacity)
+        torch.cuda.synchronize()
+        assert B.LAUNCHES.snapshot()["filter_compact"] == before + 1
+        for k in ta:
+            assert got[k].shape == want[k].shape
+            assert torch.equal(got[k], want[k]), (view, k)
+
+
+def _card_and_host(tables: dict):
+    """A card engine and a CPU engine over the memory tables."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on "
+                    "the card (this host has no CUDA device)")
+    from presto_tpu_torch.connectors.memory import MemoryConnector
+    return tuple(AC.memory_engine(e, MemoryConnector(), T, tables)
+                 for e in (Engine(), Engine(device="cpu")))
+
+
+def _rows_close(got, want) -> bool:
+    """Equal rows; doubles (also inside arrays) within 1e-9 relative:
+    the card sums in another order."""
+    def close(a, b):
+        if isinstance(b, list):
+            return (isinstance(a, list) and len(a) == len(b)
+                    and all(close(x, y) for x, y in zip(a, b)))
+        if isinstance(b, (float, np.floating)):
+            return a is not None and abs(a - b) <= 1e-9 * max(abs(b), 1.0)
+        return a == b
+    return len(got) == len(want) and all(
+        len(g) == len(w) and all(close(a, b) for a, b in zip(g, w))
+        for g, w in zip(got, want))
+
+
+def _both_backends(card, host, sql):
+    want = host.execute(sql)
+    for backend in ("cuda", "torch"):
+        card.session.set("kernel_backend", backend)
+        got = card.execute(sql)
+        assert _rows_close(got, want), (backend, got[:3], want[:3])
+    return want
+
+
+@pytest.mark.parametrize("sql", AC.ARRAY_SQL + AC.VARLEN_SQL
+                         + [AC.ORDERS_BY_CUSTOMER_SQL])
+def test_array_sql_backends_agree(tpch_pair, sql):
+    _both_backends(*tpch_pair, sql)
+
+
+@pytest.fixture(scope="module")
+def random_arrays_card():
+    return _card_and_host({"t": AC.random_arrays(T)})
+
+
+@pytest.mark.parametrize("name", sorted(AC.RANDOM_SQL))
+def test_array_scalars_backends_agree(random_arrays_card, name):
+    _both_backends(*random_arrays_card, AC.RANDOM_SQL[name])
+
+
+@pytest.fixture(scope="module")
+def nulls_card():
+    return _card_and_host({"t": AC.nulls_and_ties(T)})
+
+
+@pytest.mark.parametrize("name", sorted(AC.NULLS_SQL))
+def test_varlen_nulls_backends_agree(nulls_card, name):
+    _both_backends(*nulls_card, AC.NULLS_SQL[name])
+
+
+@pytest.fixture(scope="module")
+def series_card():
+    return _card_and_host({"ticks": AC.bigint_table(T, AC.TICKS),
+                           "series": AC.bigint_table(T, AC.random_series())})
+
+
+@pytest.mark.parametrize("name", sorted(AC.MR_HAND) + [
+    f"random_{q}" for q in sorted(AC.MR_RANDOM_SQL)])
+def test_match_recognize_backends_agree(series_card, name):
+    if name.startswith("random_"):
+        sql = AC.MR_RANDOM_SQL[name[len("random_"):]]
+        want = None
+    else:
+        sql, want = AC.MR_HAND[name]
+    rows = _both_backends(*series_card, sql)
+    assert rows and (want is None or rows == want)
+
+
+ARRAY_NO_SYNC_SQL = {
+    "unnest": "select n_name, x, o from nation, unnest(split(n_comment, "
+              "' ')) with ordinality t(x, o) where o < 4",
+    "lambda": "select p_partkey, transform(split(p_type, ' '), "
+              "s -> upper(s)), reduce(filter(array[p_size, p_partkey % 7, "
+              "3], x -> x % 2 = 1), 0, (a, x) -> a + x), "
+              "any_match(array[p_size], x -> x > 40), "
+              "array_position(array_sort(array[p_size % 5, 2, 1]), 2), "
+              "cardinality(array_distinct(array[p_size % 3, p_size % 2])), "
+              "element_at(map(array['SM CASE', 'LG BOX'], array[1, 2]), "
+              "p_container) from part where p_partkey < 200",
+}
+
+
+@pytest.mark.parametrize("name", sorted(ARRAY_NO_SYNC_SQL))
+def test_array_paths_add_no_stream_sync(tpch_pair, name, monkeypatch):
+    card, host = tpch_pair
+    sql = ARRAY_NO_SYNC_SQL[name]
+    card.session.set("kernel_backend", "cuda")
+    want = card.execute(sql)  # uploads the columns, builds the kernels
+    got = _run_without_syncs(card, sql, monkeypatch)
+    assert got == want == host.execute(sql) and got
+
+
+def test_array_queries_backends_agree(tpch_sf01):
+    # chip_smoke's arrays phase at SF0.1 (every customer is inside A5's
+    # cut), held to its numpy checks
+    cs = _chip_smoke()
+    conn = tpch_sf01.catalogs["tpch"]
+    cut = cs.cut_orders(conn)
+    tpch_sf01.register_catalog("cut", cut)
+    rows = {}
+    for name, sql in cs.ARRAY_QUERIES.items():
+        by_backend, notes = {}, {}
+        for backend in ("cuda", "torch"):
+            tpch_sf01.session.set("kernel_backend", backend)
+            by_backend[backend] = tpch_sf01.execute(sql)
+            notes[backend] = {t for tags in
+                              tpch_sf01.last_kernel_notes.values()
+                              for t in tags}
+        assert by_backend["cuda"] and \
+            by_backend["cuda"] == by_backend["torch"], name
+        # A2's carrier is cut (and compacted) only past
+        # AGG_SPLIT_MIN_ROWS scan rows, which SF0.1 does not reach
+        if name in cs.ARRAY_QUERY_KERNELS and name != "A2":
+            assert cs.ARRAY_QUERY_KERNELS[name] in notes["cuda"], name
+        rows[name] = by_backend["cuda"]
+    cs.check_arrays(conn, cut, rows)
