@@ -7,7 +7,9 @@ general cross join (which reaches the compaction kernel) at SF10 on
 both kernel backends; then the TPC-DS queries at scale 10, and the
 function library's aggregates, sketches and scalar functions at SF10,
 and ARRAY and MAP values, lambdas, UNNEST, the variable-length
-aggregates and MATCH_RECOGNIZE at SF10.
+aggregates and MATCH_RECOGNIZE at SF10, and the session's paths at
+SF10: spill, grouped execution, the capacity memory, templates,
+PREPARE/EXECUTE, EXPLAIN ANALYZE and cancellation.
 
     python3 chip_smoke.py [--scale 10] [--seed 19920101]
 
@@ -89,17 +91,43 @@ Phases (any failure exits non-zero before the result line):
    launched; numpy (and plain python for the names and the V shapes)
    checks every answer (``check_arrays``).
 
-    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions,arrays
+7. Session: the TPC-H tables again, each case on a fresh engine, on
+   both backends (the cuda runs between a reset and a read of the
+   launch counts, which the summary adds): S1 lineitem_partsupp under
+   ``query_max_memory_bytes`` set to a quarter of its
+   ``estimate_plan_memory`` total spills its join in at least 2
+   partitions through ``cuda:join_lookup``, rows equal to the whole run
+   (the estimate, partitions, build rows and both peaks printed); S2 a
+   group-by of orders by its 10,000 clerks spills its aggregate
+   (``cuda:agg_sum``) and, with ``spill_enabled=false``, raises
+   MemoryLimitExceeded; S3 orders joined to lineitem with grouped
+   execution in 8 buckets equals the default route; S4 Q18 repeated
+   takes 0 rungs, every program's capacities from memory, and with
+   HAVING > 312 hits its template with 0 rungs and rows equal to a
+   fresh engine's; Q6 prepared with its dates as parameters equals its
+   literal SQL for two date pairs; S5 EXPLAIN ANALYZE of Q5 and Q21
+   shows one section per segment, every node's rows equal to a plain
+   run's node rows, Q21's carriers compacted by filter_compact; S6 Q9
+   under ``query_max_run_time=0.001`` raises TimeLimitExceeded, a
+   cancelled token QueryCanceled, and Q1 then equals its phase-3 rows.
+   Every case's rows are identical on both backends.
+
+The query lines of phases 3-6 carry the first (cold) pass's time and
+capacity rungs (``cold_s``, ``cold_rungs``) beside the timed pass's:
+the timed pass starts every program from the capacities the first
+remembered (``from_memory``).
+
+    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions,arrays,session
 
 (the default) runs the named phases only (a shorter call while a phase
-is worked on; the summary line needs all five).
+is worked on; the summary line needs all seven).
 
 The queries are the repository's TPC-H texts (tests/tpch_queries.py),
 TPC-DS texts (tests/test_tpcds.py), ``FUNCTION_QUERIES`` and
 ``ARRAY_QUERIES``. The last
 lines are the card, a JSON summary of the kernels (each with the PR
 that last redesigned it, ``redesigned_in``, and its launches summed
-over phases 3 to 6) and ``{"ok": true, "device": {...}}``.
+over phases 3 to 7) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -108,6 +136,7 @@ import argparse
 import decimal
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -177,7 +206,7 @@ TPCDS_OVER_MEMORY = {
            "output before the rest of the plan)",
 }
 TPCDS_SCALE = 10.0
-PHASES = ("kernels", "tpch", "tpcds", "functions", "arrays")
+PHASES = ("kernels", "tpch", "tpcds", "functions", "arrays", "session")
 TPCDS_SEED = 20030527  # the connector's default, as tests/test_tpcds.py
 
 
@@ -634,18 +663,24 @@ def check_q11(conn, got) -> None:
 
 
 def sweep(engine, queries: dict[str, str]):
-    """The cuda pass that uploads the columns (uncounted), the timed
-    cuda pass between a reset and a read of the launch counts, and the
-    plain pass: (rows, secs, notes, launches, plain rows, plain secs,
-    plain notes)."""
+    """The cuda pass that uploads the columns and learns each program's
+    capacities (uncounted), the timed cuda pass between a reset and a
+    read of the launch counts, and the plain pass: (rows, secs, notes,
+    launches, plain rows, plain secs, plain notes). Each query's notes
+    carry the first pass's wall time (``cold_s``) and capacity rungs
+    (``cold_rungs``): the timed pass starts every program from the
+    capacities the first remembered."""
     from presto_tpu_torch.kernels import build as B
     t = time.perf_counter()
-    run_queries(engine, queries, "cuda")
+    _rows, cold_secs, cold_notes = run_queries(engine, queries, "cuda")
     log(f"first pass (column upload included): "
         f"{time.perf_counter() - t:.1f} s")
     B.LAUNCHES.reset()
     rows, secs, notes = run_queries(engine, queries, "cuda")
     launches = B.LAUNCHES.snapshot()
+    for q in queries:
+        notes[q] = {**notes[q], "cold_s": cold_secs[q],
+                    "cold_rungs": cold_notes[q]["rungs"]}
     return (rows, secs, notes, launches,
             *run_queries(engine, queries, "torch"))
 
@@ -680,6 +715,8 @@ def run_queries(engine, queries: dict[str, str],
             "blocks": engine.last_streamed_blocks,
             # extra interpreter passes, summed over the query's programs
             "rungs": engine.last_run.rungs,
+            # programs that started from remembered capacities
+            "from_memory": sum(engine.last_run.from_memory),
             # resident scan columns included
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     return rows, secs, notes
@@ -729,7 +766,7 @@ def query_phase(conn) -> tuple[dict, dict]:
     log("independent numpy checks of Q1, Q6 and Q11: ok")
     paths_check(engine, rows, notes)
     log("launches " + json.dumps(launches))
-    return launches, queries
+    return launches, queries, rows
 
 
 def paths_check(engine, rows: dict, notes: dict) -> None:
@@ -1691,6 +1728,285 @@ def arrays_phase(conn) -> dict:
     return launches
 
 
+# -- phase 7: the session's paths at SF10 ------------------------------------
+
+# S2: a grouped aggregate with no join over orders (15M rows, under
+# scan_block_rows, so it does not stream), by its 10,000 clerks: a
+# dictionary key, so each partition groups by the direct path, whose
+# counts and sums fold through segment_sum
+SPILL_AGG_SQL = """
+select o_clerk, count(*) as c, sum(o_totalprice) as s
+from orders
+group by o_clerk
+order by s desc, o_clerk
+limit 10"""
+# S3: tests/test_connector_partitioning.py's grouped-execution query
+GROUPED_SQL = """
+select o_orderpriority, count(*) as c, sum(l_quantity) as q
+from orders, lineitem
+where o_orderkey = l_orderkey
+group by o_orderpriority order by o_orderpriority"""
+# S4: Q6 with its two dates as parameters ({lo} and {hi})
+Q6_DATED = TPCH["q06"].replace(
+    "date '1994-01-01' + interval '1' year", "{hi}").replace(
+    "date '1994-01-01'", "{lo}")
+Q6_DATES = (("1994-01-01", "1995-01-01"), ("1996-01-01", "1997-01-01"))
+Q18_VARIANT = ("> 300", "> 312")
+SEGMENT_LINE = re.compile(r"^Segment (\d+) \(([\d.]+) ms, (\d+) live rows "
+                          r"-> (s\d+\[\d+\])\)$", re.M)
+NODE_ROWS = re.compile(r"  \[rows: (\d+)(?: \(est \d+\))?\]$", re.M)
+
+
+def timed(engine, sql: str, **props) -> dict:
+    """One run of ``sql`` with session ``props`` set for it (restored
+    after): rows, wall seconds (a synchronize on either side), rungs,
+    programs from memory, kernels, peak device GB."""
+    import torch
+    before = {k: engine.session.get(k) for k in props}
+    for k, v in props.items():
+        engine.session.set(k, v)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        rows = engine.execute(sql)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    finally:
+        for k, v in before.items():
+            engine.session.set(k, v)
+    run = engine.last_run
+    return {"rows": rows, "s": secs, "rungs": run.rungs,
+            "programs": len(run.programs),
+            "from_memory": sum(run.from_memory),
+            "kernels": sorted({t for tags in
+                               engine.last_kernel_notes.values()
+                               for t in tags}),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _line(case: str, backend: str, got: dict, **more) -> None:
+    log("session " + json.dumps({
+        "case": case, "backend": backend,
+        **{k: v for k, v in got.items() if k != "rows"},
+        "result_rows": len(got["rows"]), **more}))
+
+
+def explained_rows(text: str) -> list[int]:
+    """Every annotated node's actual rows, in the order printed."""
+    return [int(r) for r in NODE_ROWS.findall(text)]
+
+
+def plain_node_rows(engine) -> list[int]:
+    """The node rows of the engine's last run, program by program in
+    preorder: the order EXPLAIN ANALYZE prints them."""
+    from presto_tpu_torch.exec import executor as EX
+    run = engine.last_run
+    return [run.node_rows[(i, pos)]
+            for i, plan in enumerate(run.programs)
+            for pos, _node in enumerate(EX._preorder(plan))]
+
+
+def session_cases(conn, backend: str, q01_rows) -> dict:
+    """S1-S6 on one backend, each on a fresh engine over ``conn``:
+    {case: rows}. Faults raise."""
+    from presto_tpu_torch import Engine
+    from presto_tpu_torch import templates as TPL
+    from presto_tpu_torch.exec import cancel as C
+    from presto_tpu_torch.memory import (MemoryLimitExceeded,
+                                         estimate_plan_memory)
+
+    def engine():
+        e = Engine()
+        e.register_catalog("tpch", conn)
+        e.session.set("kernel_backend", backend)
+        return e
+
+    cuda = backend == "cuda"
+    out = {}
+
+    # S1: the join of lineitem_partsupp under a quarter of its estimate
+    e = engine()
+    sql = QUERIES["lineitem_partsupp"]
+    total, _ = estimate_plan_memory(e.plan_sql(sql)[0], e)
+    whole = timed(e, sql)
+    spilled = timed(e, sql, query_max_memory_bytes=total // 4)
+    spill = e.last_spill
+    if not spill or spill["partitions"] < 2:
+        raise AssertionError(f"S1 did not spill: {spill}")
+    if spilled["rows"] != whole["rows"]:
+        raise AssertionError("S1: spilled rows differ from the whole run")
+    if cuda and "cuda:join_lookup" not in spilled["kernels"]:
+        raise AssertionError(f"S1 did not run cuda:join_lookup: {spilled}")
+    _line("S1 whole", backend, whole, estimated_bytes=total)
+    _line("S1 spilled", backend, spilled, **spill)
+    out["S1"] = spilled["rows"]
+
+    # S2: an aggregation spill over orders; without spill it must fail
+    total, _ = estimate_plan_memory(e.plan_sql(SPILL_AGG_SQL)[0], e)
+    whole = timed(e, SPILL_AGG_SQL)
+    spilled = timed(e, SPILL_AGG_SQL, query_max_memory_bytes=total // 4)
+    spill = e.last_spill
+    if not spill or spill.get("kind") != "aggregate":
+        raise AssertionError(f"S2 did not spill the aggregate: {spill}")
+    if spilled["rows"] != whole["rows"]:
+        raise AssertionError("S2: spilled rows differ from the whole run")
+    if cuda and "cuda:agg_sum" not in spilled["kernels"]:
+        raise AssertionError(f"S2 did not run cuda:agg_sum: {spilled}")
+    try:
+        timed(e, SPILL_AGG_SQL, query_max_memory_bytes=total // 4,
+              spill_enabled=False)
+    except MemoryLimitExceeded as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("S2 ran over its budget with spill disabled")
+    _line("S2 whole", backend, whole, estimated_bytes=total)
+    _line("S2 spilled", backend, spilled, **spill, without_spill=refused)
+    out["S2"] = spilled["rows"]
+    del e
+
+    # S3: grouped execution, 8 buckets, against the default route
+    e = engine()
+    whole = timed(e, GROUPED_SQL)
+    grouped = timed(e, GROUPED_SQL, grouped_execution=True,
+                    grouped_execution_partitions=8)
+    if not e.last_grouped or e.last_grouped["partitions"] != 8:
+        raise AssertionError(f"S3 did not run grouped: {e.last_grouped}")
+    if grouped["rows"] != whole["rows"]:
+        raise AssertionError("S3: grouped rows differ from the default")
+    _line("S3 default", backend, whole)
+    _line("S3 grouped", backend, grouped, **e.last_grouped)
+    out["S3"] = grouped["rows"]
+    del e
+
+    # S4: the capacity memory and templates
+    e = engine()
+    q18 = TPCH["q18"]
+    variant = q18.replace(*Q18_VARIANT)
+    first = timed(e, q18)
+    again = timed(e, q18)
+    hits = TPL._TPL_HITS.value()
+    var = timed(e, variant)
+    hit = TPL._TPL_HITS.value() > hits
+    fresh = timed(engine(), variant)
+    # the repeat starts every program from memory; the variant's
+    # literal moves the rows its later programs read, so a program past
+    # a carrier whose width changed keys afresh (the carrier-width floor
+    # is left out), but none may climb
+    if again["rungs"] or again["from_memory"] != again["programs"]:
+        raise AssertionError(f"S4 Q18 repeat climbed the ladder: {again}")
+    if var["rungs"] or not var["from_memory"]:
+        raise AssertionError(f"S4 Q18 variant climbed the ladder: {var}")
+    if again["rows"] != first["rows"] or not hit \
+            or var["rows"] != fresh["rows"]:
+        raise AssertionError(f"S4: repeat rows, template hit {hit} or "
+                             "the variant's rows against a fresh engine")
+    _line("S4 q18 first", backend, first)
+    _line("S4 q18 repeat", backend, again)
+    _line("S4 q18 variant", backend, var, template_hit=hit)
+    _line("S4 q18 variant, fresh engine", backend, fresh)
+    e.execute("prepare q6 from " + Q6_DATED.format(lo="?", hi="?"))
+    prepared = []
+    for lo, hi in Q6_DATES:
+        got = timed(e, f"execute q6 using date '{lo}', date '{hi}'")
+        literal = e.execute(Q6_DATED.format(lo=f"date '{lo}'",
+                                            hi=f"date '{hi}'"))
+        if got["rows"] != literal:
+            raise AssertionError(f"S4: EXECUTE q6 {lo} {hi} differs from "
+                                 "its literal SQL")
+        _line(f"S4 execute q6 {lo} {hi}", backend, got)
+        prepared.append(got["rows"])
+    out["S4"] = [first["rows"], var["rows"], prepared]
+    del e
+
+    # S5: EXPLAIN ANALYZE against a plain run's node rows
+    e = engine()
+    explained = {}
+    for q in ("q05", "q21"):
+        t = time.perf_counter()
+        text = e.execute("explain analyze " + TPCH[q])[0][0]
+        secs = time.perf_counter() - t
+        segments = SEGMENT_LINE.findall(text)
+        carriers = {tag for (i, key), tags in e.last_kernel_notes.items()
+                    if key == "carrier" for tag in tags}
+        want_segments = sum(map(len, e.last_run.segments))
+        shown = explained_rows(text)
+        e.execute(TPCH[q])
+        if len(segments) != want_segments or not segments:
+            raise AssertionError(f"S5 {q}: {len(segments)} segment "
+                                 f"sections for {want_segments} segments")
+        if shown != plain_node_rows(e):
+            raise AssertionError(f"S5 {q}: annotated rows differ from the "
+                                 "plain run's node rows")
+        if cuda and q == "q21" and "cuda:compact" not in carriers:
+            raise AssertionError(f"S5 q21's carriers were not compacted by "
+                                 f"filter_compact: {carriers}")
+        log("session " + json.dumps({
+            "case": f"S5 explain analyze {q}", "backend": backend,
+            "s": secs, "segments": len(segments), "nodes": len(shown),
+            "carrier_kernels": sorted(carriers)}))
+        for line in text.splitlines()[:6]:
+            log(f"  {line[:160]}")
+        explained[q] = shown
+    out["S5"] = explained
+    del e
+
+    # S6: cancellation, then Q1 as before
+    e = engine()
+    before = e.execute(TPCH["q01"])
+    try:
+        timed(e, TPCH["q09"], query_max_run_time=0.001)
+    except C.TimeLimitExceeded as exc:
+        limited = str(exc)
+    else:
+        raise AssertionError("S6: q09 outran query_max_run_time=0.001")
+    token = C.CancelToken()
+    token.cancel()
+    try:
+        e.execute(TPCH["q09"], cancel_token=token)
+    except C.QueryCanceled as exc:
+        if isinstance(exc, C.TimeLimitExceeded):
+            raise
+        canceled = str(exc)
+    else:
+        raise AssertionError("S6: a cancelled token did not stop q09")
+    after = e.execute(TPCH["q01"])
+    if after != before or (q01_rows is not None and after != q01_rows):
+        raise AssertionError("S6: Q1 after the cancellations differs")
+    log("session " + json.dumps({"case": "S6", "backend": backend,
+                                 "time_limit": limited,
+                                 "canceled": canceled,
+                                 "q01_after_equal": True}))
+    out["S6"] = after
+    return out
+
+
+def session_phase(conn, q01_rows=None) -> dict:
+    """S1-S6 on both backends at SF10: the cuda runs between a reset
+    and a read of the launch counts, then the plain runs; every case's
+    rows identical between them."""
+    from presto_tpu_torch.kernels import build as B
+    B.LAUNCHES.reset()
+    t = time.perf_counter()
+    got = session_cases(conn, "cuda", q01_rows)
+    launches = B.LAUNCHES.snapshot()
+    log(f"session cuda cases: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    plain = session_cases(conn, "torch", q01_rows)
+    log(f"session plain cases: {time.perf_counter() - t:.1f} s")
+    differ = [case for case in got if got[case] != plain[case]]
+    if differ:
+        raise AssertionError(f"session cases differ between backends: "
+                             f"{differ}")
+    log("session launches " + json.dumps(launches))
+    for name in ("segment_sum", "build_table", "probe_table",
+                 "multijoin_walk", "filter_compact"):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"{name} never launched in the session "
+                                 f"phase: {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -1716,7 +2032,7 @@ def main() -> int:
     log(f"kernel build: {B.LIBRARY.build_seconds:.1f} s ({B.LIBRARY.path})")
     dev = torch.device("cuda")
 
-    kernels, launches, conn = {}, {}, None
+    kernels, launches, conn, tpch_rows = {}, {}, None, {}
 
     def add(more: dict) -> dict:
         return {name: launches.get(name, 0) + more.get(name, 0)
@@ -1728,7 +2044,7 @@ def main() -> int:
     if "tpch" in phases:
         t = time.perf_counter()
         conn = tpch_data(args.scale, args.seed)
-        launches, _queries = query_phase(conn)
+        launches, _queries, tpch_rows = query_phase(conn)
         del _queries
         log(f"query phase: {time.perf_counter() - t:.1f} s")
     if "tpcds" in phases:
@@ -1753,6 +2069,14 @@ def main() -> int:
         launches = add(arrays_phase(conn or tpch_data(args.scale,
                                                       args.seed)))
         log(f"arrays phase: {time.perf_counter() - t:.1f} s")
+    if "session" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        launches = add(session_phase(conn or tpch_data(args.scale,
+                                                       args.seed),
+                                     tpch_rows.get("q01")))
+        log(f"session phase: {time.perf_counter() - t:.1f} s")
     if phases != set(PHASES):
         log(f"phases {sorted(phases)} passed; no summary without all "
             f"{len(PHASES)}")

@@ -6,12 +6,23 @@ all in one process, on one device. ``Engine()`` runs on the GPU and
 raises when CUDA is not available; the CPU is used only when the
 caller passes ``device="cpu"``.
 
-Statements other than queries, EXPLAIN (without ANALYZE), SET SESSION,
-SHOW CATALOGS and SHOW SESSION raise ``NotImplementedError`` in this
-slice.
+It runs queries, EXPLAIN and EXPLAIN ANALYZE of a query, SET SESSION,
+SHOW CATALOGS, SHOW SESSION, and PREPARE / EXECUTE ... USING /
+DEALLOCATE PREPARE. An EXECUTE resolves to the statement it names
+before anything else looks at it, so a prepared statement runs exactly
+as the same statement sent directly would. A query runs under a
+cancellation scope: the caller's ``cancel_token`` and the session's
+``query_max_run_time`` deadline are checked at the executor's
+checkpoints (``exec/cancel.py``).
+
+CREATE TABLE AS, INSERT, DELETE, UPDATE, DROP TABLE and transactions
+raise ``NotImplementedError``; they come with the serving tier.
 """
 
 from __future__ import annotations
+
+import contextlib
+import time
 
 import numpy as np
 import torch
@@ -65,6 +76,18 @@ class Engine:
         self.last_backend: str | None = None
         self.last_run = None
         self.last_streamed_blocks = 0
+        # what each program learned (exec/progcache.py): its meta in a
+        # bounded LRU, and its successful capacity vector under the
+        # same key, so a repeat query climbs no capacity ladder
+        from presto_tpu_torch.exec.progcache import ProgramCache
+        self._program_cache = ProgramCache()
+        self._caps_memory: dict = {}
+        # set by the spill driver when the last query ran
+        # host-partitioned under its memory budget, and by grouped
+        # execution (exec/spill.py)
+        self.last_spill: dict | None = None
+        self.last_grouped: dict | None = None
+        self._in_spill = False
 
     def register_catalog(self, name: str, connector: Connector) -> None:
         self.catalogs[name] = connector
@@ -118,29 +141,62 @@ class Engine:
             self.last_warnings = wc.list()
             W.pop()
 
-    def execute(self, sql: str) -> list[tuple]:
-        """Run SQL, return result rows as Python tuples."""
+    def execute(self, sql: str, cancel_token=None) -> list[tuple]:
+        """Run SQL, return result rows as Python tuples.
+        ``cancel_token`` (exec/cancel.CancelToken) interrupts the query
+        at the executor's checkpoints."""
         from presto_tpu_torch.sql import ast as A
 
         def run():
-            stmt = self._parse(sql)
-            if isinstance(stmt, A.QueryStatement):
-                return self._execute_query(stmt.query).to_pylist()
-            return self._execute_statement(stmt)
+            stmt = self._parse_resolved(sql)
+            with self._cancel_scope(cancel_token):
+                if isinstance(stmt, A.QueryStatement):
+                    return self._execute_query(stmt.query).to_pylist()
+                return self._execute_statement(stmt)
 
         return self._collecting(run)
 
-    def execute_table(self, sql: str) -> Table:
+    def execute_table(self, sql: str, cancel_token=None) -> Table:
         """Run a SELECT, return the result as a host Table."""
         from presto_tpu_torch.sql import ast as A
 
         def run():
-            stmt = self._parse(sql)
+            stmt = self._parse_resolved(sql)
             if not isinstance(stmt, A.QueryStatement):
                 raise ValueError("execute_table expects a SELECT query")
-            return self._execute_query(stmt.query)
+            with self._cancel_scope(cancel_token):
+                return self._execute_query(stmt.query)
 
         return self._collecting(run)
+
+    def _parse_resolved(self, sql: str):
+        """The statement of ``sql``; an EXECUTE becomes the statement
+        it names, its literals spliced over the ``?`` markers of the
+        prepared text (templates/prepared.py)."""
+        from presto_tpu_torch.sql import ast as A
+        from presto_tpu_torch.templates.prepared import resolve_execute
+        stmt = self._parse(sql)
+        if isinstance(stmt, A.ExecutePrepared):
+            stmt = self._parse(resolve_execute(
+                self.session.prepared_statements, stmt))
+        return stmt
+
+    @contextlib.contextmanager
+    def _cancel_scope(self, token):
+        """Install the cancellation token, with the session's
+        query_max_run_time deadline, for the duration of one query."""
+        from presto_tpu_torch.exec import cancel as C
+
+        limit = float(self.session.get("query_max_run_time") or 0)
+        if token is None and limit > 0:
+            token = C.CancelToken()
+        if token is not None and limit > 0 and token.deadline is None:
+            token.deadline = time.monotonic() + limit
+        C.install(token)
+        try:
+            yield
+        finally:
+            C.install(None)
 
     def plan_sql(self, sql: str):
         from presto_tpu_torch.plan.optimizer import optimize
@@ -172,18 +228,32 @@ class Engine:
 
     def _execute_query(self, query) -> Table:
         from presto_tpu_torch.exec.executor import execute_plan
+        self.last_spill = None
         return execute_plan(self, self._plan_query(query))
 
     def _execute_statement(self, stmt) -> list[tuple]:
         from presto_tpu_torch.plan.printer import format_plan
         from presto_tpu_torch.sql import ast as A
 
-        if isinstance(stmt, A.ExplainStatement) and not stmt.analyze \
-                and isinstance(stmt.statement, A.QueryStatement):
-            from presto_tpu_torch.cost import explain_estimates
+        if isinstance(stmt, A.ExplainStatement):
+            if not isinstance(stmt.statement, A.QueryStatement):
+                raise ValueError("EXPLAIN expects a query")
             plan = self._plan_query(stmt.statement.query)
+            if stmt.analyze:
+                from presto_tpu_torch.exec.profile import explain_analyze
+                return [(explain_analyze(self, plan),)]
+            from presto_tpu_torch.cost import explain_estimates
             return [(format_plan(
                 plan, estimates=explain_estimates(plan, self)),)]
+        if isinstance(stmt, A.Prepare):
+            self.session.prepared_statements[stmt.name] = stmt.sql
+            return []
+        if isinstance(stmt, A.Deallocate):
+            if self.session.prepared_statements.pop(stmt.name,
+                                                    None) is None:
+                raise ValueError(
+                    f"prepared statement not found: {stmt.name}")
+            return []
         if isinstance(stmt, A.ShowCatalogs):
             return [(name,) for name in sorted(self.catalogs)]
         if isinstance(stmt, A.ShowSession):

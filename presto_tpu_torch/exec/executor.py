@@ -36,10 +36,25 @@ node of the probe subtree that outputs the key.
 A carrier ships each symbol's data with its companions: ``$valid``,
 and an ARRAY's ``$len`` and ``$emask`` (``carrier_arrays``).
 
-Left out so far (ROADMAP): the AOT program cache, plan templates
-(carrier widths take the reference's exact rule, ``cap_floor=None``),
-spill and grouped execution, the parallel segment pool (segments run
-in order on one stream), and every plan node outside TableScan,
+Under a memory budget (session ``query_max_memory_bytes``) a plan
+whose estimate exceeds it runs its dominant join or grouped aggregate
+host-partitioned, and with ``grouped_execution`` a join of co-bucketed
+tables runs bucket by bucket (``exec/spill.py``); both come after
+streaming and before segmentation, as in the reference.
+
+Repeat queries: each program's successful capacity vector is
+remembered under its cache key (``engine._caps_memory``), so the next
+run of the same program, or of a literal variant of it when
+``plan_templates`` is on, starts from it instead of climbing the
+ladder again; the program cache (``exec/progcache.py``) holds each
+program's meta under the same key. A cancellation token or the
+``query_max_run_time`` deadline is checked at every rung, streamed
+block, segment and spill partition (``exec/cancel.py``).
+
+Left out (ROADMAP): the AOT disk tier, the template carrier-width
+floor (carriers keep the reference's exact rule, ``cap_floor=None``),
+the parallel segment pool (segments run in order on one stream), and
+every plan node outside TableScan,
 Values, Filter, Project, Aggregate, Join, MultiJoin, SemiJoin,
 CrossJoin, Union, Window, MarkDistinct, Distinct, Unnest,
 MatchRecognize, Sort, TopN, Limit, Exchange and Output (each raises
@@ -49,6 +64,7 @@ NotImplementedError).
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -111,6 +127,9 @@ class QueryRun:
     # the subtrees materialized as carriers, wave by wave
     segments: list[list[N.PlanNode]] = dataclasses.field(
         default_factory=list)
+    # per program: did its first pass start from remembered capacities
+    # (the capacity memory, keyed like the program cache)?
+    from_memory: list[bool] = dataclasses.field(default_factory=list)
 
     @property
     def rungs(self) -> int:
@@ -512,7 +531,11 @@ def execute_part(engine, plan: N.PlanNode) -> Table:
     MATCH_RECOGNIZE (its input on the device, the automaton on the
     host), around a variable-length aggregate (host-finalized), else
     block-streamed when its one scan exceeds the session block size and
-    its shape allows, else segmented when it has a split, else whole."""
+    its shape allows, else host-partitioned when its estimate exceeds
+    the memory budget, else bucket by bucket under grouped execution,
+    else segmented when it has a split, else whole."""
+    from presto_tpu_torch.exec.spill import (try_execute_grouped,
+                                             try_execute_spilled)
     from presto_tpu_torch.exec.streaming import try_execute_streamed
     from presto_tpu_torch.exec.varlen import (execute_with_varlen,
                                               find_varlen_aggregate)
@@ -522,9 +545,13 @@ def execute_part(engine, plan: N.PlanNode) -> Table:
     vl = find_varlen_aggregate(plan)
     if vl is not None:
         return execute_with_varlen(engine, plan, vl)
-    streamed = try_execute_streamed(engine, plan)
-    if streamed is not None:
-        return streamed
+    # streaming first: a block-streamed scan bounds its own working set,
+    # so the memory budget must not veto it
+    for route in (try_execute_streamed, try_execute_spilled,
+                  try_execute_grouped):
+        done = route(engine, plan)
+        if done is not None:
+            return done
     if _find_split(plan, engine) is not None:
         return _execute_segmented(engine, plan)
     return run_plan(engine, plan, collect_scans(plan, engine))
@@ -549,31 +576,85 @@ class Program:
                  for k, c in zip(self.row_keys, counts)})
 
 
+def _cache_key(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
+               backend: str) -> tuple:
+    """Program-cache key without its capacities (the reference's
+    ``_cache_key``): the plan's fingerprint, the scan shapes (row
+    counts as pow2 buckets under ``template_shape_bucketing``), the
+    scanned dictionaries' contents, the session properties the
+    interpreter reads, and the platform (torch, device, kernel
+    backend)."""
+    from presto_tpu_torch import templates as TPL
+    from presto_tpu_torch.exec import progcache as PC
+    from presto_tpu_torch.plan.fingerprint import plan_fingerprint
+    inputs = list(scans.values())
+    return (plan_fingerprint(plan),
+            TPL.scan_shape_key(inputs, TPL.shape_bucketing(engine.session)),
+            PC.scan_dictionary_key(inputs),
+            PC.trace_session_key(engine.session),
+            PC.platform_fingerprint(str(engine.device), backend))
+
+
 def prepare_plan(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
                  capacities: dict[tuple, int] | None = None,
                  site: str = "ok-ladder",
                  collect_rows: bool = True) -> Program:
     """One interpreter pass per capacity rung over ``scans``; a pass's
     ok flags and node row counts come back in one host sync (a program
-    without ok flags takes none). ``capacities`` carries grown
-    capacities in and out (block streaming shares them across blocks).
-    Kernel notes, passes and rows add up on ``engine.last_run`` across
-    the programs of a query."""
+    without ok flags takes none). Kernel notes, passes and rows add up
+    on ``engine.last_run`` across the programs of a query.
+
+    Without ``capacities`` the program takes part in the program cache
+    and the capacity memory, as the reference's ``prepare_plan`` does:
+    its first pass starts from the capacity vector remembered under
+    its cache key, and its successful vector is remembered after the
+    last. With ``plan_templates`` on, the key is the fingerprint of the
+    plan's template (templates/), whose plan runs with this query's
+    literal values bound, so a literal variant starts from what an
+    earlier variant learned. ``capacities`` given carries grown
+    capacities in and out instead, shared across the programs of one
+    ladder (streamed blocks, spill partitions), outside the cache."""
     from presto_tpu_torch import kernels as K
+    from presto_tpu_torch import templates as TPL
+    from presto_tpu_torch.exec import progcache as PC
+    from presto_tpu_torch.exec.cancel import checkpoint
+    from presto_tpu_torch.templates import runtime as TR
     backend = K.resolve(engine.session, engine.device)
-    order = preorder_index(plan)
-    capacities = {} if capacities is None else capacities
     run = engine.last_run
     index = len(run.programs)
     run.programs.append(plan)
     run.passes.append(0)
-    for _attempt in range(MAX_ATTEMPTS):
+    cached = capacities is None
+    tpl, entry = None, None
+    if cached:
+        if TPL.enabled(engine.session):
+            tpl = TPL.parameterize(plan)
+        cache = engine._program_cache
+        cache.configure(engine.session)
+        base_key = _cache_key(engine, plan if tpl is None else tpl.plan,
+                              scans, backend)
+        known = engine._caps_memory.get(base_key)
+        # {} is a real answer: no capacity needs an override
+        capacities = dict(known or {})
+        run.from_memory.append(known is not None)
+    else:
+        run.from_memory.append(False)
+    runs, values = ((plan, []) if tpl is None
+                    else (tpl.plan, [p.value for p in tpl.params]))
+    order = preorder_index(runs)
+    for attempt in range(MAX_ATTEMPTS):
+        checkpoint()
         run.passes[index] += 1
+        if cached:
+            entry = cache.lookup((base_key, PC.bucket_capacities(capacities)))
+            if tpl is not None and attempt == 0:
+                TPL.note_lookup(hit=entry is not None,
+                                params=len(tpl.params))
         interp = PlanInterpreter(scans, capacities, engine.session,
                                  engine.device, order)
         interp.collect_rows = collect_rows
-        with K.use_backend(backend):
-            out = interp.run(plan)
+        with K.use_backend(backend), TR.active(values):
+            out = interp.run(runs)
         counts = (torch.stack([c for _k, c in interp.row_counts])
                   if interp.row_counts else None)
         if not interp.ok_flags:
@@ -586,6 +667,15 @@ def prepare_plan(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
                         interp.used_capacity, RETRY_GROWTH)
     else:
         raise HashChainOverflow("hash table capacity retry limit exceeded")
+    if cached:
+        if entry is None:
+            cache.insert((base_key, PC.bucket_capacities(capacities)), {
+                "out": [(sym, v.dtype, v.valid is not None)
+                        for sym, v in out.cols.items()],
+                "ok_keys": list(interp.ok_keys),
+                "used_capacity": dict(interp.used_capacity),
+                "kernels": dict(interp.kernel_used)})
+        engine._caps_memory[base_key] = dict(capacities)
     engine.last_kernel_notes.update(
         {(index, pos): tags for pos, tags in interp.kernel_used.items()})
     engine.last_backend = backend
@@ -596,14 +686,21 @@ def run_plan(engine, plan: N.PlanNode,
              scans: dict[int, ScanInput]) -> Table:
     """Run a program and fetch its result columns (with its node rows)
     in one more host sync."""
-    prog = prepare_plan(engine, plan, scans)
+    return fetch_table(engine, plan, prepare_plan(engine, plan, scans),
+                       "result-demux")
+
+
+def fetch_table(engine, plan: N.PlanNode, prog: Program,
+                site: str) -> Table:
+    """A program's output as a host Table, its columns, live mask and
+    node rows in one host sync against ``site``."""
     out = prog.out
     # an ARRAY ships its lengths and element mask after (data, valid)
     res = [[v.data, v.valid] + ([v.lengths, v.elem_mask()] if v.is_array
                                 else [])
            for v in out.cols.values()]
     live_np, res_np, counts = HS.fetch(
-        (out.live_mask(), res, prog.counts), site="result-demux")
+        (out.live_mask(), res, prog.counts), site=site)
     prog.note_rows(engine, counts)
     cols: dict[str, Column] = {}
     live_rows = np.flatnonzero(live_np)
@@ -841,16 +938,40 @@ def _plan_segments(plan: N.PlanNode, engine) -> tuple:
         plan = probe
 
 
-def _segment_carriers(engine, plan: N.PlanNode) -> tuple:
+def _run_segment(engine, mat: N.PlanNode, scans: dict[int, ScanInput],
+                 cnode: N.TableScan) -> tuple:
+    """The default segment runner: (the carrier, no node rows)."""
+    return run_plan_device(engine, mat, scans, cnode), None
+
+
+def _segment_carriers(engine, plan: N.PlanNode, observer=None,
+                      runner=None) -> tuple:
     """Materialize the segments in order, each as a device-resident
-    carrier. Returns (the plan that remains, carriers by name)."""
+    carrier. Returns (the plan that remains, carriers by name).
+
+    ``runner(engine, mat, scans, cnode) -> (carrier, node rows or
+    None)`` runs one segment (EXPLAIN ANALYZE passes a runner that
+    returns the segment's rows by node); ``observer(seg, mat, carrier,
+    wall_s, node_rows)`` fires after each, in segment order, with the
+    host time from the segment's start to its counted live-rows fetch
+    (``device_outputs``)."""
+    from presto_tpu_torch.exec.cancel import checkpoint
+    run = runner or _run_segment
     rest, waves = _plan_segments(plan, engine)
     engine.last_run.segments = [[mat for mat, _c in w] for w in waves]
     carriers: dict[str, ScanInput] = {}
+    seg = 0
     for wave in waves:
         for mat, cnode in wave:
-            carriers[cnode.table] = run_plan_device(
+            checkpoint()
+            t0 = time.perf_counter()
+            carrier, node_rows = run(
                 engine, mat, collect_scans(mat, engine, carriers), cnode)
+            if observer is not None:
+                observer(seg, mat, carrier, time.perf_counter() - t0,
+                         node_rows)
+            carriers[cnode.table] = carrier
+            seg += 1
     return rest, carriers
 
 

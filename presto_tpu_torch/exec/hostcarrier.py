@@ -6,11 +6,13 @@ lists) and run the rest of the plan over the result on the device.
 
 A carrier is a TableScan of the segment catalog, so ``collect_scans``
 finds it by name after column pruning, beside the plan's connector
-scans. Its columns go up through ``hostsync.upload`` once per run and
-are not pinned in the engine's column cache (they live for one
-query). An ARRAY column of host lists goes up in the padded 2-D layout
-with its ``$len`` and ``$emask`` companions; other host values (a
-listagg's strings, a map_agg's dicts) cannot feed a plan.
+scans. The spill driver (``exec/spill.py``) serves its partitions and
+its joined or aggregated rows the same way. Its columns go up through
+``hostsync.upload`` once per run and are not pinned in the engine's
+column cache (they live for one query). An ARRAY column of host lists
+goes up in the padded 2-D layout with its ``$len`` and ``$emask``
+companions; other host values (a listagg's strings, a map_agg's
+dicts) cannot feed a plan.
 """
 
 from __future__ import annotations
@@ -39,17 +41,26 @@ def compact_table(tbl: Table) -> Table:
     return Table(cols, int(m.sum()), None)
 
 
-def carrier_scan(engine, name: str, tbl: Table) -> tuple:
+def carrier_scan(engine, name: str, tbl: Table, pad_to: int | None = None,
+                 site: str = "host-carrier") -> tuple:
     """(TableScan node, ScanInput) serving the live rows of host table
-    ``tbl`` on the engine's device."""
+    ``tbl`` on the engine's device, its arrays uploaded against
+    ``site``. ``pad_to`` pads them to that many rows (at least one),
+    the pad rows dead in the carrier's live mask, as the reference pads
+    its spill partitions."""
     from presto_tpu_torch.exec.executor import SEGMENT_CATALOG, ScanInput
     tbl = compact_table(tbl)
+    n = tbl.nrows
+    total = n if pad_to is None else max(pad_to, 1)
     types = {s: c.dtype for s, c in tbl.columns.items()}
     node = N.TableScan(SEGMENT_CATALOG, f"{name}{next(_NAMES)}",
                        {s: s for s in types}, types)
 
     def up(a):
-        return HS.upload(np.asarray(a), engine.device, "host-carrier")
+        a = np.asarray(a)
+        if total > n:
+            a = np.pad(a, [(0, total - n)] + [(0, 0)] * (a.ndim - 1))
+        return HS.upload(a, engine.device, site)
 
     arrays, dicts = {}, {}
     for s, c in tbl.columns.items():
@@ -69,4 +80,5 @@ def carrier_scan(engine, name: str, tbl: Table) -> tuple:
             dicts[s] = c.dictionary
         if c.valid is not None:
             arrays[f"{s}$valid"] = up(c.valid)
-    return node, ScanInput(node, arrays, dicts, types, tbl.nrows)
+    live = None if pad_to is None else up(np.ones(n, bool))
+    return node, ScanInput(node, arrays, dicts, types, total, live)

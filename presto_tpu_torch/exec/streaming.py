@@ -88,6 +88,7 @@ def _block_input(engine, node: N.TableScan, tbl, lo: int, hi: int):
 def try_execute_streamed(engine, plan: N.PlanNode):
     """Execute ``plan`` block-streamed, or return None if inapplicable."""
     from presto_tpu_torch.exec import operators as OP
+    from presto_tpu_torch.exec.cancel import checkpoint
     from presto_tpu_torch.exec.executor import (
         ScanInput, carrier_arrays, prepare_plan, run_plan)
 
@@ -109,6 +110,7 @@ def try_execute_streamed(engine, plan: N.PlanNode):
     capacities: dict[tuple, int] = {}
     parts = []
     for i in range(nblocks):
+        checkpoint()
         scan = _block_input(engine, scan_node, tbl, i * block,
                             min((i + 1) * block, tbl.nrows))
         parts.append(prepare_plan(

@@ -283,6 +283,14 @@ class ExprCompiler:
         return Val(e.dtype, self._tensor(
             np.asarray(e.value, dtype=e.dtype.physical_dtype)))
 
+    def _c_parameter(self, e: ir.Parameter) -> Val:
+        # a literal hoisted into a plan template (templates/): it
+        # compiles exactly as the literal it replaced, its value read on
+        # the host from the active binding, so a templated run makes
+        # the same uploads and syncs as an untemplated one
+        from presto_tpu_torch.templates.runtime import current_value
+        return self._c_literal(ir.Literal(e.dtype, current_value(e.index)))
+
     # -- structured forms
 
     def _c_cast(self, e: ir.Cast) -> Val:

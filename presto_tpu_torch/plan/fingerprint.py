@@ -1,0 +1,73 @@
+"""Stable structural fingerprints of logical plans.
+
+Key for the engine's compiled-program cache (exec/executor.py): two
+plans with identical structure, expressions, literals, and capacity
+hints hash identically, so a repeated query (or a capacity-retry rerun
+of the same plan) reuses the already-compiled XLA executable — the
+analog of the reference's compiled-artifact caches keyed by expression
+(sql/gen/PageFunctionCompiler.java:101,127).
+
+Symbol names participate in the hash; the planner allocates them
+deterministically per statement, so identical SQL fingerprints
+identically while structurally-equal plans over different symbols
+(which would trace identically anyway) may not — a cache miss, never a
+wrong hit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import hashlib
+
+import numpy as np
+
+# This dispatch site is total over plan-node types by construction:
+# _tok walks dataclasses.fields() generically, so a new PlanNode
+# subclass fingerprints without registration. The lint's
+# dispatch-exhaustiveness rule (lint/dispatch.py) verifies this claim
+# mechanically instead of asking for per-node cases.
+GENERIC_PLAN_DISPATCH = True
+
+
+def plan_fingerprint(plan) -> str:
+    h = hashlib.blake2b(digest_size=16)
+    _tok(plan, h.update)
+    return h.hexdigest()
+
+
+def _tok(x, emit) -> None:
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        emit(b"(")
+        emit(type(x).__name__.encode())
+        for f in dataclasses.fields(x):
+            emit(f.name.encode())
+            _tok(getattr(x, f.name), emit)
+        emit(b")")
+    elif isinstance(x, (list, tuple)):
+        emit(b"[")
+        for v in x:
+            _tok(v, emit)
+        emit(b"]")
+    elif isinstance(x, dict):
+        # plan dicts (assignments, types, aggs) are insertion-ordered
+        # deterministically by the planner
+        emit(b"{")
+        for k, v in x.items():
+            _tok(k, emit)
+            _tok(v, emit)
+        emit(b"}")
+    elif isinstance(x, (set, frozenset)):
+        emit(b"<")
+        for r in sorted(repr(v) for v in x):
+            emit(r.encode())
+        emit(b">")
+    elif isinstance(x, enum.Enum):
+        emit(repr(x).encode())
+    elif isinstance(x, np.ndarray):
+        emit(str(x.dtype).encode())
+        emit(str(x.shape).encode())
+        emit(x.tobytes() if x.nbytes <= 4096
+             else hashlib.blake2b(x.tobytes(), digest_size=16).digest())
+    else:
+        emit(repr(x).encode())

@@ -13,8 +13,10 @@ backend; ARRAY values, lambdas, UNNEST, the variable-length aggregates
 and MATCH_RECOGNIZE (the queries of the CPU tests and of chip_smoke's
 arrays phase) on both backends against the port on the CPU, an UNNEST
 and a lambda query without a synchronizing call, and the compaction of
-an array's [n, 5] int32 and bool columns. Elsewhere every test skips
-with its reason. This
+an array's [n, 5] int32 and bool columns; a spilled join and a spilled
+aggregate on both backends, a repeat query and a literal variant with
+0 capacity rungs, and templated and prepared queries without a
+synchronizing call. Elsewhere every test skips with its reason. This
 file imports neither jax nor presto_tpu, so it runs where only the port
 is installed:
 
@@ -1254,3 +1256,92 @@ def test_array_queries_backends_agree(tpch_sf01):
             assert cs.ARRAY_QUERY_KERNELS[name] in notes["cuda"], name
         rows[name] = by_backend["cuda"]
     cs.check_arrays(conn, cut, rows)
+
+
+# -- spill, the capacity memory and templates (ROADMAP Queue 1 items 4, 5)
+
+SPILL_CASES = {
+    # (the SQL, query_max_memory_bytes): tests/test_torch_spill.py's
+    "join": ("select o_orderpriority, count(*) as c, sum(l_quantity) as q "
+             "from orders, lineitem where o_orderkey = l_orderkey and "
+             "l_shipdate > date '1995-01-01' group by o_orderpriority "
+             "order by o_orderpriority", 200_000),
+    "aggregate": ("select l_orderkey, l_linenumber, count(*) as c, "
+                  "sum(l_quantity) as q, min(l_shipdate) as d from lineitem "
+                  "group by l_orderkey, l_linenumber "
+                  "order by l_orderkey, l_linenumber limit 50", 400_000),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPILL_CASES))
+def test_spill_backends_agree(tpch_pair, name):
+    # host-partitioned under the budget on both backends, rows equal to
+    # the unspilled run on the CPU
+    card, host = tpch_pair
+    sql, budget = SPILL_CASES[name]
+    want = host.execute(sql)
+    rows = {}
+    try:
+        card.session.set("query_max_memory_bytes", budget)
+        for backend in ("cuda", "torch"):
+            card.session.set("kernel_backend", backend)
+            rows[backend] = card.execute(sql)
+            assert card.last_spill["partitions"] >= 2, card.last_spill
+            notes = {t for tags in card.last_kernel_notes.values()
+                     for t in tags}
+            assert all(t.startswith(backend + ":") for t in notes), notes
+    finally:
+        card.session.set("query_max_memory_bytes", 0)
+    assert rows["cuda"] == rows["torch"] == want and want
+
+
+def test_repeat_and_variant_take_no_rungs(tpch_pair):
+    # Q18 overflows a 16-slot group table on its first run; the repeat
+    # and the literal variant start from the remembered capacities
+    card, host = tpch_pair
+    sql = _tpch_sql("q18")
+    variant = sql.replace("> 300", "> 312")
+    assert variant != sql
+    card.session.set("kernel_backend", "cuda")
+    card.session.set("groupby_table_size", 16)
+    try:
+        first = card.execute(sql)
+        assert card.last_run.rungs > 0
+        assert card.execute(sql) == first
+        assert card.last_run.rungs == 0 and all(card.last_run.from_memory)
+        got = card.execute(variant)
+        assert card.last_run.rungs == 0 and all(card.last_run.from_memory)
+    finally:
+        card.session.set("groupby_table_size", 0)
+    assert first == host.execute(sql)
+    assert got == host.execute(variant)
+
+
+TEMPLATE_NO_SYNC = {
+    # (the first statement, the variant run without a synchronizing
+    # call): a date, decimal and varchar parameter of a template hit
+    "q05": ("q05", ("ASIA", "EUROPE")),
+    "q06": ("q06", ("0.05 and 0.07", "0.03 and 0.05")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TEMPLATE_NO_SYNC) + ["prepared"])
+def test_templated_query_adds_no_stream_sync(tpch_pair, name, monkeypatch):
+    card, host = tpch_pair
+    card.session.set("kernel_backend", "cuda")
+    if name == "prepared":
+        card.execute("prepare card_q from select count(*) from orders "
+                     "where o_orderdate < ? and o_orderpriority = ?")
+        card.execute("execute card_q using date '1995-01-01', '1-URGENT'")
+        sql = "execute card_q using date '1996-01-01', '2-HIGH'"
+        want = host.execute("select count(*) from orders where o_orderdate "
+                            "< date '1996-01-01' and o_orderpriority = "
+                            "'2-HIGH'")
+    else:
+        qname, (old, new) = TEMPLATE_NO_SYNC[name]
+        card.execute(_tpch_sql(qname))
+        sql = _tpch_sql(qname).replace(old, new)
+        want = host.execute(sql)
+    got = _run_without_syncs(card, sql, monkeypatch)
+    assert all(card.last_run.from_memory)
+    assert got == want and got

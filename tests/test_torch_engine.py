@@ -162,15 +162,20 @@ def test_table_to_host_matches_reference(engine, port):
 
 
 def test_unported_features_raise(port):
-    # prepared statements, EXPLAIN ANALYZE and the statements that write
-    # (ROADMAP Queue 1 items 5 and 6) are still to port; the
-    # variable-length aggregates and ARRAY values run since item 3e
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port.execute("prepare q from select 1")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port.execute("explain analyze select 1")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port.execute("create table x as select 1 as a")
+    # the statements that write and transactions (ROADMAP Queue 1 item
+    # 6) are still to port; PREPARE, EXECUTE and EXPLAIN ANALYZE run
+    # since item 5 (tests/test_torch_templates.py, test_torch_profile.py),
+    # the variable-length aggregates and ARRAY values since item 3e
+    for sql in ("create table x as select 1 as a",
+                "insert into x select 1",
+                "delete from x",
+                "update x set a = 2",
+                "drop table x",
+                "start transaction",
+                "commit",
+                "rollback"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            port.execute(sql)
     assert port.execute("select cardinality(array_agg(r_name)) from "
                         "region") == [(5,)]
     assert port.execute("select cardinality(split(r_name, ' ')) from "
@@ -263,3 +268,32 @@ def test_scalar_constants_upload_nothing(case):
     lo = got[:, 0].numpy().astype(np.uint64).astype(object)
     hi = got[:, 1].numpy().astype(object)
     assert [int(h) * (1 << 64) + int(low) for low, h in zip(lo, hi)] == want
+
+
+# -- hand-built plans ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["q01", "q06"])
+def test_hand_built_plans_give_the_sql_rows(port, engine, name):
+    # handq's Q1 and Q6 plans run through execute_plan like any plan:
+    # equal to the reference's hand-built plans (float averages within
+    # their last bits, R2) and to the SQL's rows (whose averages round
+    # to the decimal's scale, 2)
+    from presto_tpu.benchmarks import handq as ref_handq
+    from presto_tpu.exec.executor import execute_plan as ref_execute_plan
+
+    from presto_tpu_torch.benchmarks import handq
+    from presto_tpu_torch.exec.executor import execute_plan
+
+    build = {"q01": "q1_plan", "q06": "q6_plan"}[name]
+    got = execute_plan(port, getattr(handq, build)()).to_pylist()
+    want = ref_execute_plan(engine, getattr(ref_handq, build)()).to_pylist()
+    sql = port.execute(QUERIES[name])
+    assert len(got) == len(want) == len(sql)
+    for g, w, s in zip(got, want, sql):
+        for a, b, c in zip(g, w, s):
+            if isinstance(a, str):
+                assert a == b == c
+                continue
+            assert abs(float(a) - float(b)) <= 1e-12 * abs(float(b))
+            assert abs(float(a) - float(c)) <= 0.005 + 1e-9 * abs(float(c))
