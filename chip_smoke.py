@@ -9,7 +9,10 @@ function library's aggregates, sketches and scalar functions at SF10,
 and ARRAY and MAP values, lambdas, UNNEST, the variable-length
 aggregates and MATCH_RECOGNIZE at SF10, and the session's paths at
 SF10: spill, grouped execution, the capacity memory, templates,
-PREPARE/EXECUTE, EXPLAIN ANALYZE and cancellation.
+PREPARE/EXECUTE, EXPLAIN ANALYZE and cancellation; and the statement
+surface at SF10: CREATE TABLE AS, INSERT, DELETE, UPDATE, DROP TABLE,
+transactions, the metadata catalogs, the query events and the bound of
+the device cache.
 
     python3 chip_smoke.py [--scale 10] [--seed 19920101]
 
@@ -111,23 +114,51 @@ Phases (any failure exits non-zero before the result line):
    under ``query_max_run_time=0.001`` raises TimeLimitExceeded, a
    cancelled token QueryCanceled, and Q1 then equals its phase-3 rows.
    Every case's rows are identical on both backends.
+8. Statements: the TPC-H tables again, each case on a fresh engine
+   over one memory catalog, all of a backend's engines sharing one
+   event manager, on both backends (the cuda runs between a reset and
+   a read of the launch counts, which the summary adds). ST1 CREATE
+   TABLE AS: memory.li from lineitem's eight numeric columns
+   (59,986,052 rows), memory.ord from orders with its two VARCHAR
+   columns (15M rows) and memory.ord_cut, the orders of o_custkey <=
+   ``ST_CUT_CUSTKEY``; each with its row count, more than one writer
+   task (``engine.last_write``) and the seconds of its query, its
+   decode and its sink (``WriteClock``), and one scan of memory.ord
+   timed, which re-encodes its strings on the host. ST2 ``ST_Q1`` (Q1's
+   aggregates, ``cuda:agg_sum``) and ``ST_JOIN`` (memory.li joined to
+   partsupp, ``cuda:join_lookup``) equal the same reads of lineitem.
+   ST3 ``ST_UPDATE`` counts what numpy counts, the mutated l_quantity
+   is no longer resident, and ST_Q1 then equals numpy over the updated
+   column. ST5 ``ST_GROUP`` over memory.ord_cut: a repeat at the
+   default limit holds two copies of the re-encoded column; under
+   dev_cache_limit set to one and a half copies, ``ST_REPEATS``
+   repeats keep the cached bytes under it and the peak after the last
+   within 5% of the peak after the second. ST4 a DELETE in a rolled
+   back transaction, an INSERT that doubles memory.ord_cut and DROP
+   TABLE of every table, counts equal to numpy's, SHOW TABLES FROM
+   memory empty. ST7 Q5 under query_max_planning_time=1e-9 raises
+   TimeLimitExceeded with no kernel launched, then equals its phase-3
+   rows. ST6 SHOW CATALOGS, DESCRIBE lineitem equal to SHOW COLUMNS,
+   and system.runtime.queries holding every statement of the phase in
+   order, ST7's Q5 the one FAILED. Every case's rows are identical on
+   both backends; agg_sum and join_lookup must launch.
 
 The query lines of phases 3-6 carry the first (cold) pass's time and
 capacity rungs (``cold_s``, ``cold_rungs``) beside the timed pass's:
 the timed pass starts every program from the capacities the first
 remembered (``from_memory``).
 
-    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions,arrays,session
+    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions,arrays,session,statements
 
 (the default) runs the named phases only (a shorter call while a phase
-is worked on; the summary line needs all seven).
+is worked on; the summary line needs all eight).
 
 The queries are the repository's TPC-H texts (tests/tpch_queries.py),
 TPC-DS texts (tests/test_tpcds.py), ``FUNCTION_QUERIES`` and
 ``ARRAY_QUERIES``. The last
 lines are the card, a JSON summary of the kernels (each with the PR
 that last redesigned it, ``redesigned_in``, and its launches summed
-over phases 3 to 7) and ``{"ok": true, "device": {...}}``.
+over phases 3 to 8) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -206,7 +237,8 @@ TPCDS_OVER_MEMORY = {
            "output before the rest of the plan)",
 }
 TPCDS_SCALE = 10.0
-PHASES = ("kernels", "tpch", "tpcds", "functions", "arrays", "session")
+PHASES = ("kernels", "tpch", "tpcds", "functions", "arrays", "session",
+          "statements")
 TPCDS_SEED = 20030527  # the connector's default, as tests/test_tpcds.py
 
 
@@ -2007,6 +2039,371 @@ def session_phase(conn, q01_rows=None) -> dict:
     return launches
 
 
+# -- phase 8: the statement surface ---------------------------------------------
+
+ST_LI_COLUMNS = ("l_orderkey, l_partkey, l_suppkey, l_linenumber, "
+                 "l_quantity, l_extendedprice, l_discount, l_tax")
+ST_ORD_COLUMNS = ("o_orderkey, o_custkey, o_totalprice, o_orderdate, "
+                  "o_orderpriority, o_orderstatus")
+# ST4 and ST5 scan a memory VARCHAR table again and again, and every scan
+# re-encodes its strings on the host (block.dictionary_encode): they run
+# over the orders of o_custkey <= ST_CUT_CUSTKEY (1,500,000 rows), the
+# cut of A5; ST1 times one scan of all 15M
+ST_CUT_CUSTKEY = 150_000
+# Q1's aggregates over the eight numeric columns of memory.li, grouped
+# by a dictionary column (a numeric key groups by sorting, which no
+# kernel serves): the orders' priority, through the dense join on the
+# order key
+ST_Q1 = """
+select o_orderpriority, sum(l_quantity) as sum_qty,
+  sum(l_extendedprice) as sum_base_price,
+  sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
+  sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
+  avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price,
+  avg(l_discount) as avg_disc, count(*) as count_order
+from {li}, tpch.orders
+where l_orderkey = o_orderkey
+group by o_orderpriority
+order by o_orderpriority"""
+# memory.li probes partsupp's unique key; unfiltered, because memory.li
+# has no column statistics and a filter on it turns the join around at
+# SF1 and above (the filtered lineitem becomes the build of an
+# expanding join, which no kernel serves)
+ST_JOIN = """
+select ps_supplycost, sum(l_quantity) as q, count(*) as c
+from {li}, tpch.partsupp
+where l_partkey = ps_partkey and l_suppkey = ps_suppkey
+group by ps_supplycost
+order by q desc, ps_supplycost
+limit 5"""
+ST_UPDATE = ("update memory.li set l_quantity = l_quantity + 100 "
+             "where l_orderkey % 7 = 0")
+ST_GROUP = ("select o_orderpriority, count(*) as c from memory.ord_cut "
+            "group by o_orderpriority order by o_orderpriority")
+ST_REPEATS = 10
+
+
+class WriteClock:
+    """Host seconds of a write's two steps after its query: the result's
+    columns to host arrays (``engine._table_to_host``, strings decoded,
+    on the writer tasks) and the connector's sink
+    (``engine._stream_to_sink``), summed while installed."""
+
+    def __init__(self):
+        self.decode_s = self.sink_s = 0.0
+
+    def __enter__(self):
+        from presto_tpu_torch import engine as PE
+        self._saved = PE._table_to_host, PE._stream_to_sink
+
+        def timed_call(fn, attr):
+            def run(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    setattr(self, attr, getattr(self, attr)
+                            + time.perf_counter() - t)
+            return run
+
+        PE._table_to_host = timed_call(self._saved[0], "decode_s")
+        PE._stream_to_sink = timed_call(self._saved[1], "sink_s")
+        return self
+
+    def __exit__(self, *exc):
+        from presto_tpu_torch import engine as PE
+        PE._table_to_host, PE._stream_to_sink = self._saved
+
+
+def _st_line(case: str, backend: str, secs: float, **more) -> None:
+    log("statements " + json.dumps({"case": case, "backend": backend,
+                                    "s": secs, **more}))
+
+
+def statement_cases(conn, backend: str, q05_rows) -> dict:
+    """ST1-ST7 on one backend, each on a fresh engine over ``conn`` and
+    one memory connector, all sharing one event manager: {case: rows}.
+    Faults raise."""
+    import torch
+
+    from presto_tpu_torch import Engine
+    from presto_tpu_torch.connectors.memory import MemoryConnector
+    from presto_tpu_torch.events import EventListenerManager
+    from presto_tpu_torch.exec import cancel as C
+    from presto_tpu_torch.kernels import build as B
+
+    mem, events, executed = MemoryConnector(), EventListenerManager(), []
+    cuda = backend == "cuda"
+
+    def engine():
+        # the last case's engine is let go first: its planner's closures
+        # hold it in reference cycles, so its device copies would live
+        # until the cycle collector ran
+        gc.collect()
+        e = Engine()
+        e.register_catalog("tpch", conn)
+        e.register_catalog("memory", mem)
+        e.session.set("kernel_backend", backend)
+        e.events = events
+        return e
+
+    def run(e, sql):
+        executed.append(sql)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rows = e.execute(sql)
+        torch.cuda.synchronize()
+        return rows, time.perf_counter() - t
+
+    def notes(e) -> list:
+        return sorted({tag for tags in e.last_kernel_notes.values()
+                       for tag in tags})
+
+    out = {}
+    orders_custkey = _host(conn, "orders", "o_custkey")[0]
+    cut = orders_custkey <= ST_CUT_CUSTKEY
+    priority = _host(conn, "orders", "o_orderpriority")[0][cut]
+
+    # ST1: CREATE TABLE AS, writer tasks and the host's share
+    t0 = time.perf_counter()
+    e = engine()
+    made = {}
+    for name, sql in (
+            ("li", f"create table memory.li as select {ST_LI_COLUMNS} "
+                   "from lineitem"),
+            ("ord", f"create table memory.ord as select {ST_ORD_COLUMNS} "
+                    "from orders"),
+            ("ord_cut", f"create table memory.ord_cut as select "
+                        f"{ST_ORD_COLUMNS} from orders where o_custkey <= "
+                        f"{ST_CUT_CUSTKEY}")):
+        with WriteClock() as clock:
+            rows, secs = run(e, sql)
+        want = {"li": conn.table("lineitem").nrows,
+                "ord": conn.table("orders").nrows,
+                "ord_cut": int(cut.sum())}[name]
+        write = dict(e.last_write)
+        if rows != [(want,)] or write["rows"] != want:
+            raise AssertionError(f"ST1 {name}: {rows}, {write}, want {want}")
+        if write["writer_tasks"] < 2:
+            raise AssertionError(f"ST1 {name}: one writer task: {write}")
+        _st_line(f"ST1 create {name}", backend, secs, **write,
+                 decode_s=clock.decode_s, sink_s=clock.sink_s,
+                 query_s=secs - clock.decode_s - clock.sink_s,
+                 write_share=(clock.decode_s + clock.sink_s) / secs)
+        made[name] = rows
+    if cuda:
+        # the host cost of every later scan of a VARCHAR memory table:
+        # its string columns are encoded again (both, 15M rows each)
+        t = time.perf_counter()
+        mem.table("ord")
+        _st_line("ST1 scan memory.ord (re-encode)", backend,
+                 time.perf_counter() - t)
+    out["ST1"] = made
+    _st_line("ST1", backend, time.perf_counter() - t0)
+    del e
+
+    # ST2: reads of the written tables equal the same reads of lineitem
+    t0 = time.perf_counter()
+    e = engine()
+    got = {}
+    for name, text, kernel in (("q1", ST_Q1, "cuda:agg_sum"),
+                               ("join", ST_JOIN, "cuda:join_lookup")):
+        rows, secs = run(e, text.format(li="memory.li"))
+        kernels = notes(e)
+        want, want_secs = run(e, text.format(li="tpch.lineitem"))
+        if rows != want or not rows:
+            raise AssertionError(f"ST2 {name}: memory.li's rows differ "
+                                 "from lineitem's")
+        if cuda and kernel not in kernels:
+            raise AssertionError(f"ST2 {name} did not run {kernel}: "
+                                 f"{kernels}")
+        _st_line(f"ST2 {name}", backend, secs, lineitem_s=want_secs,
+                 kernels=kernels, blocks=e.last_streamed_blocks,
+                 result_rows=len(rows))
+        got[name] = rows
+    out["ST2"] = got
+    _st_line("ST2", backend, time.perf_counter() - t0)
+    del e
+
+    # ST3: UPDATE drops the resident column; the repeat equals numpy
+    t0 = time.perf_counter()
+    e = engine()
+    li = mem._data["li"]
+    qty, okey = li["l_quantity"], li["l_orderkey"]
+    before, _ = run(e, ST_Q1.format(li="memory.li"))
+    if e.resident(qty) is None:
+        raise AssertionError("ST3: l_quantity is not resident after a read")
+    hit = okey % 7 == 0
+    updated, secs = run(e, ST_UPDATE)
+    if updated != [(int(hit.sum()),)]:
+        raise AssertionError(f"ST3: UPDATE counted {updated}, numpy "
+                             f"{int(hit.sum())}")
+    if li["l_quantity"] is not qty or e.resident(qty) is not None:
+        raise AssertionError("ST3: the mutated l_quantity is still resident "
+                             "(or was replaced, not mutated)")
+    after, after_secs = run(e, ST_Q1.format(li="memory.li"))
+    # numpy: each line's order priority by its order key, then the
+    # quantities (scaled by 100; whole numbers, so float sums are exact)
+    # and the lines per priority
+    orders = conn.table("orders")
+    okeys = np.asarray(orders.columns["o_orderkey"].data)
+    prio = orders.columns["o_orderpriority"]
+    by_key = np.argsort(okeys, kind="stable")
+    code = np.asarray(prio.data)[
+        by_key[np.searchsorted(okeys[by_key], okey)]]
+    k = len(prio.dictionary)
+    sums = np.bincount(code, weights=qty.astype(np.float64), minlength=k)
+    counts = np.bincount(code, minlength=k)
+    want = [(prio.dictionary[i], int(sums[i]), int(counts[i]))
+            for i in range(k) if counts[i]]
+    if [(r[0], round(float(r[1]) * 100), int(r[-1])) for r in after] \
+            != want:
+        raise AssertionError("ST3: the group-by after the UPDATE differs "
+                             "from numpy")
+    if after == before:
+        raise AssertionError("ST3: the UPDATE changed no group")
+    _st_line("ST3 update", backend, secs, rows=updated[0][0])
+    _st_line("ST3 repeat", backend, after_secs, kernels=notes(e))
+    out["ST3"] = [updated, after]
+    _st_line("ST3", backend, time.perf_counter() - t0)
+    del e
+
+    # ST5: repeats over a VARCHAR memory table stay under the bound
+    t0 = time.perf_counter()
+    e = engine()
+    first, _ = run(e, ST_GROUP)
+    one = e._dev_cache_bytes
+    again, _ = run(e, ST_GROUP)
+    grown = e._dev_cache_bytes
+    if again != first or grown != 2 * one:
+        raise AssertionError(f"ST5: a repeat at the default limit held "
+                             f"{grown} bytes, not {2 * one}")
+    e.dev_cache_limit = one + one // 2
+    peaks, secs = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(ST_REPEATS):
+        rows, s = run(e, ST_GROUP)
+        if rows != first:
+            raise AssertionError("ST5: a repeat's rows differ")
+        if e._dev_cache_bytes > e.dev_cache_limit:
+            raise AssertionError(f"ST5: {e._dev_cache_bytes} cached bytes "
+                                 f"over the limit {e.dev_cache_limit}")
+        peaks.append(torch.cuda.max_memory_allocated())
+        secs.append(s)
+    if cuda and "cuda:agg_sum" not in notes(e):
+        raise AssertionError(f"ST5 did not run cuda:agg_sum: {notes(e)}")
+    if peaks[-1] > 1.05 * peaks[1]:
+        raise AssertionError(f"ST5: peak {peaks[-1]} after the last repeat "
+                             f"over 5% above {peaks[1]} after the second")
+    _st_line("ST5 bound", backend, sum(secs), repeats=ST_REPEATS,
+             repeat_s=secs, copy_bytes=one, default_limit_bytes=grown,
+             limit=e.dev_cache_limit, cached_bytes=e._dev_cache_bytes,
+             peak_2nd=peaks[1], peak_last=peaks[-1])
+    out["ST5"] = first
+    _st_line("ST5", backend, time.perf_counter() - t0)
+    del e
+
+    # ST4: DELETE in a transaction rolled back, INSERT, DROP TABLE
+    t0 = time.perf_counter()
+    e = engine()
+    n = int(cut.sum())
+    urgent = int((priority == "1-URGENT").sum())
+    count = "select count(*) from memory.ord_cut"
+    steps = [(count, n), ("start transaction", None),
+             ("delete from memory.ord_cut where o_orderpriority = "
+              "'1-URGENT'", urgent), (count, n - urgent),
+             ("rollback", None), (count, n),
+             ("insert into memory.ord_cut select * from memory.ord_cut", n),
+             (count, 2 * n)]
+    for sql, want in steps:
+        rows, secs = run(e, sql)
+        if rows != ([] if want is None else [(want,)]):
+            raise AssertionError(f"ST4 {sql}: {rows}, numpy {want}")
+        _st_line(f"ST4 {sql}", backend, secs)
+    for table in ("ord_cut", "ord", "li"):
+        run(e, f"drop table memory.{table}")
+    tables, _ = run(e, "show tables from memory")
+    if tables or mem.table_names():
+        raise AssertionError(f"ST4: tables left after DROP: {tables}")
+    out["ST4"] = [n, urgent]
+    _st_line("ST4", backend, time.perf_counter() - t0)
+    del e
+
+    # ST7: the planning-time limit stops Q5 before any kernel
+    t0 = time.perf_counter()
+    e = engine()
+    e.session.set("query_max_planning_time", 1e-9)
+    launched = B.LAUNCHES.snapshot()
+    try:
+        run(e, TPCH["q05"])
+    except C.TimeLimitExceeded as exc:
+        limited = str(exc)
+    else:
+        raise AssertionError("ST7: Q5 outran query_max_planning_time")
+    if B.LAUNCHES.snapshot() != launched:
+        raise AssertionError("ST7: a kernel launched before the limit")
+    e.session.set("query_max_planning_time", 0)
+    q5, secs = run(e, TPCH["q05"])
+    if not q5 or (q05_rows is not None and q5 != q05_rows):
+        raise AssertionError("ST7: Q5 differs from its phase-3 rows")
+    _st_line("ST7", backend, time.perf_counter() - t0, time_limit=limited,
+             q05_s=secs)
+    out["ST7"] = q5
+    del e
+
+    # ST6: catalogs, DESCRIBE, and every statement of the phase in
+    # system.runtime.queries (ST7's Q5 the one FAILED)
+    t0 = time.perf_counter()
+    e = engine()
+    catalogs, _ = run(e, "show catalogs")
+    if catalogs != [("information_schema",), ("memory",), ("system",),
+                    ("tpch",)]:
+        raise AssertionError(f"ST6: catalogs {catalogs}")
+    described, _ = run(e, "describe lineitem")
+    shown, _ = run(e, "show columns from lineitem")
+    if described != shown or len(described) != 16:
+        raise AssertionError("ST6: DESCRIBE lineitem differs from SHOW "
+                             "COLUMNS")
+    seen = list(executed)
+    queries, _ = run(e, "select query, state from system.runtime.queries "
+                        "order by query_id")
+    if [q for q, _ in queries] != seen:
+        raise AssertionError("ST6: system.runtime.queries does not hold "
+                             "the phase's statements in order")
+    failed = [q for q, state in queries if state == "FAILED"]
+    if failed != [TPCH["q05"]]:
+        raise AssertionError(f"ST6: FAILED statements {failed}")
+    _st_line("ST6", backend, time.perf_counter() - t0,
+             statements=len(queries), failed=len(failed))
+    out["ST6"] = [catalogs, described, [state for _, state in queries]]
+    return out
+
+
+def statements_phase(conn, q05_rows=None) -> dict:
+    """ST1-ST7 on both backends at SF10: the cuda runs between a reset
+    and a read of the launch counts, then the plain runs; every case's
+    rows identical between them."""
+    from presto_tpu_torch.kernels import build as B
+    B.LAUNCHES.reset()
+    t = time.perf_counter()
+    got = statement_cases(conn, "cuda", q05_rows)
+    launches = B.LAUNCHES.snapshot()
+    log(f"statements cuda cases: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    plain = statement_cases(conn, "torch", q05_rows)
+    log(f"statements plain cases: {time.perf_counter() - t:.1f} s")
+    differ = [case for case in got if got[case] != plain[case]]
+    if differ:
+        raise AssertionError(f"statement cases differ between backends: "
+                             f"{differ}")
+    log("statements launches " + json.dumps(launches))
+    for name in ("segment_sum", "build_table", "probe_table"):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"{name} never launched in the statements "
+                                 f"phase: {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -2077,6 +2474,14 @@ def main() -> int:
                                                        args.seed),
                                      tpch_rows.get("q01")))
         log(f"session phase: {time.perf_counter() - t:.1f} s")
+    if "statements" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        launches = add(statements_phase(conn or tpch_data(args.scale,
+                                                          args.seed),
+                                        tpch_rows.get("q05")))
+        log(f"statements phase: {time.perf_counter() - t:.1f} s")
     if phases != set(PHASES):
         log(f"phases {sorted(phases)} passed; no summary without all "
             f"{len(PHASES)}")

@@ -7,16 +7,24 @@ raises when CUDA is not available; the CPU is used only when the
 caller passes ``device="cpu"``.
 
 It runs queries, EXPLAIN and EXPLAIN ANALYZE of a query, SET SESSION,
-SHOW CATALOGS, SHOW SESSION, and PREPARE / EXECUTE ... USING /
-DEALLOCATE PREPARE. An EXECUTE resolves to the statement it names
-before anything else looks at it, so a prepared statement runs exactly
-as the same statement sent directly would. A query runs under a
-cancellation scope: the caller's ``cancel_token`` and the session's
-``query_max_run_time`` deadline are checked at the executor's
-checkpoints (``exec/cancel.py``).
+SHOW CATALOGS / SESSION / TABLES / COLUMNS and DESCRIBE (the last three
+rewritten to the ``information_schema`` catalog), PREPARE / EXECUTE
+... USING / DEALLOCATE PREPARE, CREATE TABLE AS, INSERT, DELETE,
+UPDATE, DROP TABLE and START TRANSACTION / COMMIT / ROLLBACK. An
+EXECUTE resolves to the statement it names before anything else looks
+at it, so a prepared statement runs exactly as the same statement sent
+directly would. A statement runs under a cancellation scope (the
+caller's ``cancel_token``, the session's ``query_max_run_time``
+deadline at the executor's checkpoints and its
+``query_max_planning_time`` at the planner's; ``exec/cancel.py``) and
+under query monitoring (``events.monitored``: lifecycle events, the
+history behind ``system.runtime.queries``, a root span).
 
-CREATE TABLE AS, INSERT, DELETE, UPDATE, DROP TABLE and transactions
-raise ``NotImplementedError``; they come with the serving tier.
+Every write checks ``access_control.check_can_write`` and snapshots
+its connector into the open transaction, and every statement that may
+change table data drops the engine's device copies of host arrays
+(``invalidate_device_cache``): the memory connector mutates its arrays
+in place, and the caches key on the host array's identity.
 """
 
 from __future__ import annotations
@@ -31,17 +39,8 @@ from presto_tpu_torch import types as T
 from presto_tpu_torch.block import Table, _decode_column, pad_object_lists
 from presto_tpu_torch.connectors.base import Connector
 from presto_tpu_torch.exec import hostsync as HS
+from presto_tpu_torch.obs.trace import TRACER
 from presto_tpu_torch.session import SYSTEM_SESSION_PROPERTIES, Session
-
-
-class AllowAllAccessControl:
-    """Table-level authorization that allows everything."""
-
-    def check_can_select(self, user: str, catalog: str, table: str) -> None:
-        pass
-
-    def check_can_write(self, user: str, catalog: str, table: str) -> None:
-        pass
 
 
 def resolve_device(device=None) -> torch.device:
@@ -58,16 +57,38 @@ def resolve_device(device=None) -> torch.device:
 
 class Engine:
     def __init__(self, session: Session | None = None, device=None):
+        from presto_tpu_torch.connectors.information_schema import (
+            InformationSchemaConnector, SystemConnector)
+        from presto_tpu_torch.events import EventListenerManager
+        from presto_tpu_torch.security import AllowAllAccessControl
+        from presto_tpu_torch.transaction import TransactionManager
+
         self.device = resolve_device(device)
         self.session = session or Session()
         self.catalogs: dict[str, Connector] = {}
+        # table-level authorization, consulted by the planner at scans
+        # and by every write
         self.access_control = AllowAllAccessControl()
+        # session-scoped transactions over connector snapshots
+        self.transactions = TransactionManager()
+        # query lifecycle events and the history behind
+        # system.runtime.queries
+        self.events = EventListenerManager()
         # host array id -> (host ref, device tensor): scan columns go to
         # the device once per (table, column); the strong host ref pins
-        # the id so a recycled address cannot alias
+        # the id so a recycled address cannot alias. The host bytes are
+        # kept in a ledger, and the oldest copies are let go (FIFO) above
+        # dev_cache_limit: a memory table re-encodes its VARCHAR columns
+        # at every scan, so each scan brings a fresh codes array
         self._dev_cache: dict[int, tuple[np.ndarray, torch.Tensor]] = {}
+        self._dev_cache_bytes = 0
+        self.dev_cache_limit = 8 << 30
         # host list column id -> (host ref, its padded 2-D layout)
         self._lists_cache: dict[int, tuple[np.ndarray, tuple]] = {}
+        # run after every statement that may change table data
+        self._invalidation_listeners: list = []
+        # rows and writer tasks of the last write (_table_to_host)
+        self.last_write: dict | None = None
         self.last_warnings: list = []
         # the last query: kernel notes by (program, node position), its
         # backend, its programs (exec/executor.QueryRun) and the blocks
@@ -88,9 +109,19 @@ class Engine:
         self.last_spill: dict | None = None
         self.last_grouped: dict | None = None
         self._in_spill = False
+        # the engine's own catalogs (the reference's information_schema
+        # and system connectors are engine-side, not plugins)
+        self.catalogs["information_schema"] = \
+            InformationSchemaConnector(self)
+        self.catalogs["system"] = SystemConnector(self)
 
     def register_catalog(self, name: str, connector: Connector) -> None:
         self.catalogs[name] = connector
+
+    def add_invalidation_listener(self, fn) -> None:
+        """``fn()`` runs after every statement that may change table
+        data (the same set that drops the device copies)."""
+        self._invalidation_listeners.append(fn)
 
     def resident(self, a) -> torch.Tensor | None:
         """The device copy of a host scan array if the engine holds one."""
@@ -98,7 +129,10 @@ class Engine:
         return hit[1] if hit is not None and hit[0] is a else None
 
     def device_array(self, a) -> torch.Tensor:
-        """The device copy of a host scan array, uploaded once."""
+        """The device copy of a host scan array, uploaded once and kept
+        until a write drops it or, above ``dev_cache_limit`` bytes, newer
+        copies push it out (oldest first). A copy that a running program
+        still holds lives on until its last reference goes."""
         dev = self.resident(a)
         if dev is not None:
             return dev
@@ -111,7 +145,24 @@ class Engine:
             host = host.copy()
         dev = HS.upload(host, self.device, "scan-column")
         self._dev_cache[id(a)] = (a, dev)
+        self._dev_cache_bytes += host.nbytes
+        while (self._dev_cache_bytes > self.dev_cache_limit
+               and len(self._dev_cache) > 1):
+            old, _ = self._dev_cache.pop(next(iter(self._dev_cache)))
+            self._dev_cache_bytes -= np.asarray(old).nbytes
         return dev
+
+    def invalidate_device_cache(self) -> None:
+        """Drop every device copy of a host array: the scan columns and
+        the padded ARRAY columns. The other caches keyed on a host
+        array's identity need no purge: ``ops/hash.DictionaryHashes``
+        and ``exec/progcache.dictionary_token`` key on string
+        dictionaries, which a connector never mutates in place (a
+        memory table's are made afresh at every scan, by
+        ``block.column_from_numpy``)."""
+        self._dev_cache.clear()
+        self._dev_cache_bytes = 0
+        self._lists_cache.clear()
 
     def host_lists(self, element: T.DataType, a) -> tuple:
         """An ARRAY column of host lists (an object array) in the padded
@@ -144,42 +195,48 @@ class Engine:
     def execute(self, sql: str, cancel_token=None) -> list[tuple]:
         """Run SQL, return result rows as Python tuples.
         ``cancel_token`` (exec/cancel.CancelToken) interrupts the query
-        at the executor's checkpoints."""
+        at the planner's and the executor's checkpoints."""
+        from presto_tpu_torch.events import monitored
         from presto_tpu_torch.sql import ast as A
 
         def run():
-            stmt = self._parse_resolved(sql)
+            text, stmt = self._parse_resolved(sql)
             with self._cancel_scope(cancel_token):
                 if isinstance(stmt, A.QueryStatement):
-                    return self._execute_query(stmt.query).to_pylist()
-                return self._execute_statement(stmt)
+                    return monitored(
+                        self, text,
+                        lambda: self._execute_query(stmt.query).to_pylist())
+                return monitored(self, text,
+                                 lambda: self._execute_statement(stmt))
 
         return self._collecting(run)
 
     def execute_table(self, sql: str, cancel_token=None) -> Table:
         """Run a SELECT, return the result as a host Table."""
+        from presto_tpu_torch.events import monitored
         from presto_tpu_torch.sql import ast as A
 
         def run():
-            stmt = self._parse_resolved(sql)
+            text, stmt = self._parse_resolved(sql)
             if not isinstance(stmt, A.QueryStatement):
                 raise ValueError("execute_table expects a SELECT query")
             with self._cancel_scope(cancel_token):
-                return self._execute_query(stmt.query)
+                return monitored(self, text,
+                                 lambda: self._execute_query(stmt.query))
 
         return self._collecting(run)
 
     def _parse_resolved(self, sql: str):
-        """The statement of ``sql``; an EXECUTE becomes the statement
+        """(text, statement) of ``sql``; an EXECUTE becomes the statement
         it names, its literals spliced over the ``?`` markers of the
         prepared text (templates/prepared.py)."""
         from presto_tpu_torch.sql import ast as A
         from presto_tpu_torch.templates.prepared import resolve_execute
         stmt = self._parse(sql)
         if isinstance(stmt, A.ExecutePrepared):
-            stmt = self._parse(resolve_execute(
-                self.session.prepared_statements, stmt))
-        return stmt
+            sql = resolve_execute(self.session.prepared_statements, stmt)
+            stmt = self._parse(sql)
+        return sql, stmt
 
     @contextlib.contextmanager
     def _cancel_scope(self, token):
@@ -203,10 +260,28 @@ class Engine:
         from presto_tpu_torch.plan.planner import LogicalPlanner
         from presto_tpu_torch.sql.analyzer import Analyzer
         from presto_tpu_torch.sql.parser import parse_statement
-        stmt = parse_statement(sql)
-        analysis = Analyzer(self).analyze(stmt)
-        plan = LogicalPlanner(self, analysis).plan(stmt)
-        return optimize(plan, self), analysis
+        t0 = time.monotonic()
+        with TRACER.span("plan"):
+            stmt = parse_statement(sql)
+            analysis = Analyzer(self).analyze(stmt)
+            self._planning_checkpoint(t0)
+            plan = LogicalPlanner(self, analysis).plan(stmt)
+            self._planning_checkpoint(t0)
+            plan = optimize(plan, self)
+            self._planning_checkpoint(t0)
+        return plan, analysis
+
+    def _planning_checkpoint(self, t0: float) -> None:
+        """A seam of the planning phase: observe the cancellation token
+        and enforce the session's ``query_max_planning_time`` (seconds
+        since ``t0``; 0 means no limit)."""
+        from presto_tpu_torch.exec import cancel as C
+
+        C.checkpoint()
+        limit = float(self.session.get("query_max_planning_time") or 0)
+        if limit and time.monotonic() - t0 > limit:
+            raise C.TimeLimitExceeded(
+                f"query exceeded query_max_planning_time ({limit:g}s)")
 
     def explain(self, sql: str) -> str:
         from presto_tpu_torch.cost import explain_estimates
@@ -221,9 +296,13 @@ class Engine:
         from presto_tpu_torch.plan.planner import LogicalPlanner
         from presto_tpu_torch.plan.sanity import validate_plan
         from presto_tpu_torch.sql import ast as A
-        plan = LogicalPlanner(self, None).plan(A.QueryStatement(query))
-        plan = optimize(plan, self)
-        validate_plan(plan)
+        t0 = time.monotonic()
+        with TRACER.span("plan"):
+            plan = LogicalPlanner(self, None).plan(A.QueryStatement(query))
+            self._planning_checkpoint(t0)
+            plan = optimize(plan, self)
+            self._planning_checkpoint(t0)
+            validate_plan(plan)
         return plan
 
     def _execute_query(self, query) -> Table:
@@ -232,6 +311,22 @@ class Engine:
         return execute_plan(self, self._plan_query(query))
 
     def _execute_statement(self, stmt) -> list[tuple]:
+        from presto_tpu_torch.sql import ast as A
+        try:
+            return self._execute_statement_inner(stmt)
+        finally:
+            # writes mutate connector arrays in place (the same object,
+            # the same id), and COMMIT / ROLLBACK swap snapshots in, so
+            # no device copy of a host array may outlive them
+            if isinstance(stmt, (A.CreateTableAs, A.InsertStatement,
+                                 A.DeleteStatement, A.UpdateStatement,
+                                 A.DropTable, A.CommitStatement,
+                                 A.RollbackStatement)):
+                self.invalidate_device_cache()
+                for fn in list(self._invalidation_listeners):
+                    fn()
+
+    def _execute_statement_inner(self, stmt) -> list[tuple]:
         from presto_tpu_torch.plan.printer import format_plan
         from presto_tpu_torch.sql import ast as A
 
@@ -245,6 +340,15 @@ class Engine:
             from presto_tpu_torch.cost import explain_estimates
             return [(format_plan(
                 plan, estimates=explain_estimates(plan, self)),)]
+        if isinstance(stmt, A.StartTransaction):
+            self.transactions.begin()
+            return []
+        if isinstance(stmt, A.CommitStatement):
+            self.transactions.commit()
+            return []
+        if isinstance(stmt, A.RollbackStatement):
+            self.transactions.rollback()
+            return []
         if isinstance(stmt, A.Prepare):
             self.session.prepared_statements[stmt.name] = stmt.sql
             return []
@@ -264,9 +368,101 @@ class Engine:
         if isinstance(stmt, A.SetSession):
             self.session.set(stmt.name, _literal_value(stmt.value))
             return []
+
+        if isinstance(stmt, (A.CreateTableAs, A.InsertStatement,
+                             A.DeleteStatement, A.UpdateStatement,
+                             A.DropTable)):
+            catalog, table = self._resolve_table(stmt.table)
+            self.access_control.check_can_write(
+                self.session.user, catalog, table)
+            conn = self._connector(catalog)
+            if isinstance(stmt, A.DropTable):
+                if table not in conn.table_names():
+                    if stmt.if_exists:
+                        return []
+                    raise ValueError(f"table {table} does not exist")
+                self.transactions.touch(conn)
+                conn.drop_table(table)
+                return []
+            self.transactions.touch(conn)
+            return [(self._write(stmt, conn, table),)]
+
         raise NotImplementedError(
-            f"statement {type(stmt).__name__} is not ported to "
-            "presto_tpu_torch yet")
+            f"statement {type(stmt).__name__} not supported")
+
+    def _write(self, stmt, conn: Connector, table: str) -> int:
+        """CREATE TABLE AS, INSERT, DELETE or UPDATE of ``table`` in
+        ``conn``, authorized and snapshotted: the rows written."""
+        from presto_tpu_torch.sql import ast as A
+
+        if isinstance(stmt, A.CreateTableAs):
+            result = self._execute_query(stmt.query)
+            schema, data, valid = _table_to_host(result, self)
+            return _stream_to_sink(conn.begin_write(table, schema),
+                                   data, valid)
+        if isinstance(stmt, A.InsertStatement):
+            result = self._execute_query(stmt.query)
+            _, data, valid = _table_to_host(result, self)
+            names = stmt.columns or list(conn.table_schema(table))
+            return _stream_to_sink(
+                conn.begin_write(table, None),
+                dict(zip(names, data.values())),
+                dict(zip(names, valid.values())))
+        if isinstance(stmt, A.DeleteStatement):
+            # the predicate per row in table order, as a delete mask
+            return conn.delete_rows(
+                table, self._row_mask(stmt.table, stmt.where))
+        # UPDATE: one scan computes the new values AND the WHERE mask,
+        # so both come from the same row order
+        target = conn.table_schema(table)
+        items = []
+        for col, expr in stmt.assignments:
+            if col not in target:
+                raise ValueError(f"unknown column {col}")
+            items.append(A.SelectItem(
+                A.CastExpression(expr, str(target[col])), col))
+        pred = (A.BooleanLiteral(True) if stmt.where is None
+                else A.FunctionCall(
+                    "coalesce", (stmt.where, A.BooleanLiteral(False))))
+        items.append(A.SelectItem(pred, "__pred__"))
+        result = self._execute_query(A.Query(A.QuerySpec(
+            tuple(items), False, A.TableRef(stmt.table))))
+        _, data, valid = _table_to_host(result, self)
+        mask = np.asarray(data["__pred__"], dtype=bool)
+        return conn.update_rows(
+            table, {col: data[col] for col, _ in stmt.assignments},
+            {col: valid[col] for col, _ in stmt.assignments}, mask)
+
+    def _row_mask(self, table_parts, where):
+        """bool[n] in table row order: WHERE evaluates TRUE (NULL and
+        FALSE rows are untouched, SQL DELETE/UPDATE semantics); None
+        means every row. The projection over one scan keeps the
+        table's order, its dead rows dropped by the result's mask."""
+        from presto_tpu_torch.sql import ast as A
+
+        if where is None:
+            return None
+        pred = A.FunctionCall(
+            "coalesce", (where, A.BooleanLiteral(False)))
+        result = self._execute_query(A.Query(A.QuerySpec(
+            (A.SelectItem(pred, "__pred__"),), False,
+            A.TableRef(table_parts))))
+        col = next(iter(result.columns.values()))
+        data = np.asarray(col.data, dtype=bool)
+        if result.mask is not None:
+            data = data[np.asarray(result.mask)]
+        return data
+
+    def _connector(self, catalog: str) -> Connector:
+        conn = self.catalogs.get(catalog)
+        if conn is None:
+            raise ValueError(f"catalog '{catalog}' does not exist")
+        return conn
+
+    def _resolve_table(self, parts: tuple[str, ...]) -> tuple[str, str]:
+        if len(parts) == 1:
+            return self.session.catalog, parts[0]
+        return parts[0], parts[-1]
 
 
 def _literal_value(e):
@@ -283,20 +479,82 @@ def _literal_value(e):
     raise ValueError("SET SESSION value must be a literal")
 
 
-def _table_to_host(table: Table):
+# one writer task per this many result cells (rows x columns); the task
+# count grows with the data written, up to WRITER_MAX_TASKS (the
+# reference's scaled writers, applied to the write side's host work:
+# reading and decoding the result columns)
+WRITER_SCALING_CELLS = 1 << 20
+WRITER_MAX_TASKS = 8
+
+
+def _table_to_host(table: Table, engine=None):
     """Result Table -> (schema, host column arrays, validity masks) of
     its live rows. VARCHAR decodes to strings; other types keep their
-    physical values (decimals stay scaled)."""
-    schema: dict[str, T.DataType] = {}
-    data: dict[str, np.ndarray] = {}
-    valid: dict[str, np.ndarray | None] = {}
+    physical values (decimals stay scaled). A large result converts on
+    a scaled pool of writer tasks, one column each; with ``engine``,
+    ``engine.last_write`` records the rows and writer tasks."""
     mask = (np.ones(table.nrows, dtype=bool) if table.mask is None
             else np.asarray(table.mask))
-    for name, col in table.columns.items():
+
+    def convert(item):
+        name, col = item
         raw = np.asarray(col.data)[mask]
-        schema[name] = col.dtype
-        data[name] = (_decode_column(col.dtype, raw, col.dictionary)
-                      if isinstance(col.dtype, T.VarcharType) else raw)
-        valid[name] = None if col.valid is None \
-            else np.asarray(col.valid)[mask]
+        out = (_decode_column(col.dtype, raw, col.dictionary)
+               if isinstance(col.dtype, T.VarcharType) else raw)
+        v = None if col.valid is None else np.asarray(col.valid)[mask]
+        return name, col.dtype, out, v
+
+    cells = table.nrows * max(len(table.columns), 1)
+    writers = min(WRITER_MAX_TASKS, max(1, cells // WRITER_SCALING_CELLS))
+    items = list(table.columns.items())
+    if writers > 1 and len(items) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        # convert() is host numpy only: no span, checkpoint or session
+        # read happens on the writer threads
+        with ThreadPoolExecutor(max_workers=writers) as pool:
+            results = list(pool.map(convert, items))
+    else:
+        writers = 1
+        results = [convert(i) for i in items]
+    if engine is not None:
+        engine.last_write = {"writer_tasks": writers,
+                             "rows": int(mask.sum())}
+    schema = {name: dtype for name, dtype, _, _ in results}
+    data = {name: out for name, _, out, _ in results}
+    valid = {name: v for name, _, _, v in results}
     return schema, data, valid
+
+
+# rows per page through a connector's write sink
+WRITE_PAGE_ROWS = 1 << 20
+
+
+def _stream_to_sink(sink, data: dict, valid: dict) -> int:
+    """Feed a write's columns to a PageSink page by page and commit on
+    finish (the reference's TableWriterOperator feeding a
+    ConnectorPageSink). The sink is aborted on failure, so a connector
+    never sees a partial commit. The default buffering sink would only
+    concatenate the pages again, so it takes the whole arrays as one
+    page; a connector's own sink takes pages of WRITE_PAGE_ROWS."""
+    from presto_tpu_torch.connectors.base import _BufferingPageSink
+
+    total = len(next(iter(data.values()), []))
+    try:
+        if isinstance(sink, _BufferingPageSink):
+            sink.append_page(data, valid)
+            return sink.finish()
+        start = 0
+        while True:
+            stop = min(start + WRITE_PAGE_ROWS, total)
+            sink.append_page(
+                {c: a[start:stop] for c, a in data.items()},
+                {c: None if v is None else v[start:stop]
+                 for c, v in valid.items()})
+            start = stop
+            if start >= total:
+                break
+        return sink.finish()
+    except Exception:
+        sink.abort()
+        raise

@@ -1,0 +1,144 @@
+"""Query lifecycle events + pluggable listeners (the port of
+``presto_tpu/events.py``).
+
+Analog of the reference's event system (event/QueryMonitor.java:134,210
+queryCreatedEvent/queryCompletedEvent -> EventListenerManager -> SPI
+spi/eventlistener/EventListener.java): the engine emits a created event
+when a query is admitted and a completed event with statistics when it
+finishes; listeners are plain callables registered on the engine.
+Recent completed events also back the system.runtime.queries table.
+
+``monitored()`` is also the engine-level tracing entry: it opens the
+query's root span (obs/trace.py) when no trace is active, so a direct
+Engine query is traced as an admitted one would be.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from collections import deque
+from typing import Callable
+
+import numpy as np
+
+from presto_tpu_torch.obs.jsonlog import LOG
+from presto_tpu_torch.obs.trace import TRACER
+
+
+@dataclasses.dataclass
+class QueryCreatedEvent:
+    query_id: str
+    sql: str
+    user: str
+    create_time: float
+
+
+@dataclasses.dataclass
+class QueryCompletedEvent:
+    query_id: str
+    sql: str
+    user: str
+    state: str           # FINISHED | FAILED
+    create_time: float
+    end_time: float
+    output_rows: int
+    error: str | None = None
+
+    @property
+    def elapsed_ms(self) -> float:
+        return (self.end_time - self.create_time) * 1000.0
+
+
+class EventListenerManager:
+    """Dispatches lifecycle events to registered listeners and keeps a
+    bounded history for system.runtime.queries (reference
+    EventListenerManager + QuerySystemTable). Thread-safe: the HTTP
+    server runs queries on a pool, so id allocation, listener
+    registration, and the history ring are all lock-guarded."""
+
+    def __init__(self, history: int = 1000):
+        self._lock = threading.Lock()
+        self._listeners: list[Callable] = []
+        self._history: deque = deque(maxlen=history)
+        self._seq = 0
+
+    def add_listener(self, fn: Callable) -> None:
+        with self._lock:
+            self._listeners.append(fn)
+
+    def next_query_id(self) -> str:
+        with self._lock:
+            self._seq += 1
+            return f"q_{self._seq:08d}"
+
+    @property
+    def history(self) -> list:
+        """Snapshot of recent completed events (system.runtime.queries
+        reads this while pool threads append)."""
+        with self._lock:
+            return list(self._history)
+
+    def query_created(self, event: QueryCreatedEvent) -> None:
+        self._emit(event)
+
+    def query_completed(self, event: QueryCompletedEvent) -> None:
+        with self._lock:
+            self._history.append(event)
+        LOG.log("query_completed", query_id=event.query_id,
+                user=event.user, state=event.state,
+                elapsed_ms=round(event.elapsed_ms, 3),
+                rows=event.output_rows, error=event.error)
+        self._emit(event)
+
+    def _emit(self, event) -> None:
+        with self._lock:
+            listeners = list(self._listeners)
+        for fn in listeners:
+            try:
+                fn(event)
+            except Exception:
+                # a broken listener must not fail the query (reference
+                # EventListenerManager swallows listener errors too)
+                pass
+
+
+def monitored(engine, sql: str, run: Callable):
+    """Run ``run()`` under query monitoring: emits created/completed
+    events, records history and opens the query's root span (a child
+    span when a trace is already active). Returns run()'s result.
+
+    The reference's ``monitored`` also opens the query's runtime-stats
+    scope (``obs/qstats``) and its device-profile capture
+    (``obs/devprof``); neither is in the port yet (ROADMAP Queue 1 item
+    11), so this opens neither. It reads no tensor: the output rows are
+    counted from the host result (a list of rows, or a host Table and
+    its numpy mask)."""
+    mgr: EventListenerManager = engine.events
+    qid = mgr.next_query_id()
+    t0 = time.time()
+    user = engine.session.user
+    mgr.query_created(QueryCreatedEvent(qid, sql, user, t0))
+    with TRACER.root_or_span(qid, "query", query_id=qid, user=user,
+                             sql=sql[:200]) as sp:
+        try:
+            result = run()
+        except Exception as exc:
+            if sp is not None:
+                sp.attrs["error"] = f"{type(exc).__name__}: {exc}"
+            mgr.query_completed(QueryCompletedEvent(
+                qid, sql, user, "FAILED", t0, time.time(), 0,
+                error=f"{type(exc).__name__}: {exc}"))
+            raise
+        if isinstance(result, list):
+            rows = len(result)
+        else:
+            mask = getattr(result, "mask", None)
+            if mask is not None:
+                rows = int(np.asarray(mask).sum())
+            else:
+                rows = getattr(result, "nrows", 0)
+        mgr.query_completed(QueryCompletedEvent(
+            qid, sql, user, "FINISHED", t0, time.time(), rows))
+    return result

@@ -182,21 +182,19 @@ def collect_scans(plan: N.PlanNode, engine,
     that a scan node rebuilt by column pruning still finds it (the
     reference's _collect_with_carriers). A table's columns go to the
     device once per (table, column) and stay cached by the engine."""
+    # a loop, not a recursive closure: a closure that calls itself is a
+    # reference cycle, and ``out``'s device tensors would outlive the
+    # query until the cycle collector ran
     out: dict[int, ScanInput] = {}
-
-    def visit(node):
-        if isinstance(node, N.TableScan):
-            if node.catalog == SEGMENT_CATALOG:
-                out[id(node)] = _rebind_carrier(carriers[node.table], node)
-            else:
-                tbl = engine.catalogs[node.catalog].table(node.table)
-                out[id(node)] = _scan_input(engine, node, tbl,
-                                            engine.device_array, tbl.nrows)
+    for node in _preorder(plan):
+        if not isinstance(node, N.TableScan):
+            continue
+        if node.catalog == SEGMENT_CATALOG:
+            out[id(node)] = _rebind_carrier(carriers[node.table], node)
         else:
-            for s in node.sources():
-                visit(s)
-
-    visit(plan)
+            tbl = engine.catalogs[node.catalog].table(node.table)
+            out[id(node)] = _scan_input(engine, node, tbl,
+                                        engine.device_array, tbl.nrows)
     return out
 
 

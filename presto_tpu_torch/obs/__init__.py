@@ -1,4 +1,6 @@
 """Observability of the port: the thread-safe metrics registry
-(``obs.metrics``, a copy of ``presto_tpu/obs/metrics.py``). The program
+(``obs.metrics``), the span tracer (``obs.trace``) and the structured
+JSON log (``obs.jsonlog``), copies of ``presto_tpu/obs``'s. The program
 cache and the plan templates count their hits, misses and evictions
-through it."""
+through the registry; ``events.monitored`` opens each query's root span
+and logs its completion."""

@@ -16,7 +16,10 @@ and a lambda query without a synchronizing call, and the compaction of
 an array's [n, 5] int32 and bool columns; a spilled join and a spilled
 aggregate on both backends, a repeat query and a literal variant with
 0 capacity rungs, and templated and prepared queries without a
-synchronizing call. Elsewhere every test skips with its reason. This
+synchronizing call; an UPDATE of a memory table drops its resident CUDA
+columns (whole and streamed, both backends; the repeat equals numpy),
+and dev_cache_limit bounds the resident bytes. Elsewhere every test
+skips with its reason. This
 file imports neither jax nor presto_tpu, so it runs where only the port
 is installed:
 
@@ -1345,3 +1348,80 @@ def test_templated_query_adds_no_stream_sync(tpch_pair, name, monkeypatch):
     got = _run_without_syncs(card, sql, monkeypatch)
     assert all(card.last_run.from_memory)
     assert got == want and got
+
+
+# -- writes and the device cache (ROADMAP Queue 1 item 6, P9) -----------------
+
+
+def _memory_engine(backend: str, block_rows: int = 0) -> Engine:
+    from presto_tpu_torch.connectors.memory import MemoryConnector
+    e = Engine()
+    e.register_catalog("tpch", TpchConnector(scale=0.01))
+    e.register_catalog("memory", MemoryConnector())
+    e.session.set("kernel_backend", backend)
+    e.session.set("scan_block_rows", block_rows)
+    return e
+
+
+@pytest.mark.parametrize("block_rows", [0, 1 << 14])
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_update_drops_the_resident_cuda_column(cuda, backend, block_rows):
+    # the UPDATE mutates the host column in place: a stale CUDA copy
+    # would give the old sums, whole or sliced into streamed blocks (a
+    # streamed scan slices the resident copy when there is one)
+    e = _memory_engine(backend)
+    e.execute("create table memory.li as select l_orderkey, l_quantity "
+              "from lineitem")
+    sql = ("select l_orderkey % 7, sum(l_quantity), count(*) "
+           "from memory.li group by 1 order by 1")
+    first = e.execute(sql)
+    data = e.catalogs["memory"]._data["li"]
+    qty, key = data["l_quantity"], data["l_orderkey"]
+    assert e.resident(qty) is not None and e.resident(qty).is_cuda
+    e.session.set("scan_block_rows", block_rows)
+    assert e.execute(sql) == first
+    hit = key % 7 == 0
+    assert e.execute("update memory.li set l_quantity = l_quantity + 100 "
+                     "where l_orderkey % 7 = 0") == [(int(hit.sum()),)]
+    assert data["l_quantity"] is qty  # mutated in place
+    assert e.resident(qty) is None and e._dev_cache_bytes == 0
+    got = e.execute(sql)
+    if block_rows:
+        assert e.last_streamed_blocks > 1
+    want = [(g, int(qty[key % 7 == g].sum()), int((key % 7 == g).sum()))
+            for g in range(7)]
+    assert [(int(g), round(float(s) * 100), int(c))
+            for g, s, c in got] == want
+    assert int(qty[hit].min()) >= 100 * 100  # quantities of 1-50, +100
+
+
+def test_dev_cache_limit_bounds_card_memory(cuda):
+    # each scan of a VARCHAR memory column uploads a fresh codes array;
+    # under dev_cache_limit the resident bytes level off, at the default
+    # they grow by one copy a run
+    import gc
+    sql = ("select o_orderpriority, count(*), sum(o_totalprice) "
+           "from memory.o group by 1 order by 1")
+    codes = 4 * 15_000
+    growth = {}
+    for bounded in (False, True):
+        e = _memory_engine("cuda")
+        e.execute("create table memory.o as select o_orderpriority, "
+                  "o_totalprice from orders")
+        first = e.execute(sql)
+        if bounded:
+            e.dev_cache_limit = e._dev_cache_bytes + codes
+        allocated = []
+        for _ in range(6):
+            assert e.execute(sql) == first
+            assert e._dev_cache_bytes <= e.dev_cache_limit
+            assert e._dev_cache_bytes == sum(
+                int(d.numel()) * d.element_size()
+                for _, d in e._dev_cache.values())
+            gc.collect()
+            torch.cuda.synchronize()
+            allocated.append(torch.cuda.memory_allocated())
+        growth[bounded] = allocated[-1] - allocated[1]
+        del e
+    assert growth[False] >= 4 * codes
+    assert growth[True] <= codes + 4096  # small tensors of the run

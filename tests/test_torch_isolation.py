@@ -36,6 +36,12 @@ def test_no_module_of_the_port_imports_jax_or_presto_tpu():
                                           REPO / "profile_port.py",
                                           REPO / "kernel_ab.py"]
     assert len(files) > 40
+    # the statement surface's modules are among them
+    for module in ("events.py", "security.py", "transaction.py",
+                   "obs/trace.py", "obs/jsonlog.py",
+                   "connectors/information_schema.py",
+                   "connectors/blackhole.py"):
+        assert PORT / module in files, module
     bad = [f"{f.relative_to(REPO)}:{line}: {mod}"
            for f in files for line, mod in _imports(f) if _forbidden(mod)]
     assert not bad, bad
@@ -63,6 +69,38 @@ print(json.dumps({"rows": len(rows), "bad": bad}))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"rows": 1, "bad": []}
+
+
+def test_statements_in_a_fresh_process_load_neither_jax_nor_presto_tpu():
+    code = """
+import json, sys
+from presto_tpu_torch import Engine
+from presto_tpu_torch.connectors.blackhole import BlackholeConnector
+from presto_tpu_torch.connectors.memory import MemoryConnector
+from presto_tpu_torch.connectors.tpch import TpchConnector
+from presto_tpu_torch.security import AccessRule, RuleBasedAccessControl
+e = Engine(device="cpu")
+e.register_catalog("tpch", TpchConnector(scale=0.01))
+e.register_catalog("memory", MemoryConnector())
+e.register_catalog("blackhole", BlackholeConnector())
+e.access_control = RuleBasedAccessControl([AccessRule()])
+for sql in ("create table memory.n as select n_name, n_regionkey from nation",
+            "start transaction", "update memory.n set n_regionkey = 9",
+            "rollback", "delete from memory.n where n_regionkey = 0",
+            "create table blackhole.x as select 1 as a", "show catalogs",
+            "describe memory.n", "drop table memory.n"):
+    e.execute(sql)
+rows = e.execute("select count(*) from system.runtime.queries")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "presto_tpu"))
+print(json.dumps({"rows": int(rows[0][0]), "bad": bad}))
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"rows": 9, "bad": []}
 
 
 def test_engine_without_a_device_needs_cuda():

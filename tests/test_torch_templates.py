@@ -382,14 +382,19 @@ def test_execute_table_resolves_prepared(torch_tpch):
 
 def test_execute_cannot_smuggle_guarded_statements(torch_tpch):
     # EXECUTE resolves to the statement it names before anything looks
-    # at it: a prepared transaction statement meets the same refusal as
+    # at it: a prepared transaction statement meets the same checks as
     # a direct one, and a prepared EXECUTE is not resolved twice
+    from presto_tpu_torch.transaction import TransactionError
     e = port_engine(torch_tpch)
     e.execute("prepare tx from start transaction")
-    with pytest.raises(NotImplementedError, match="StartTransaction"):
-        e.execute("start transaction")
-    with pytest.raises(NotImplementedError, match="StartTransaction"):
+    e.execute("start transaction")
+    with pytest.raises(TransactionError, match="already in progress"):
         e.execute("execute tx")
+    e.execute("rollback")
+    e.execute("execute tx")
+    with pytest.raises(TransactionError, match="already in progress"):
+        e.execute("start transaction")
+    e.execute("rollback")
     e.execute("prepare inner from select 1")
     e.execute("prepare outer from execute inner")
     with pytest.raises(NotImplementedError, match="ExecutePrepared"):
