@@ -12,7 +12,8 @@ SF10: spill, grouped execution, the capacity memory, templates,
 PREPARE/EXECUTE, EXPLAIN ANALYZE and cancellation; and the statement
 surface at SF10: CREATE TABLE AS, INSERT, DELETE, UPDATE, DROP TABLE,
 transactions, the metadata catalogs, the query events and the bound of
-the device cache.
+the device cache; and distributed execution over 8 shards of the card
+at SF10.
 
     python3 chip_smoke.py [--scale 10] [--seed 19920101]
 
@@ -142,23 +143,46 @@ Phases (any failure exits non-zero before the result line):
    and system.runtime.queries holding every statement of the phase in
    order, ST7's Q5 the one FAILED. Every case's rows are identical on
    both backends; agg_sum and join_lookup must launch.
+9. Distributed: the TPC-H tables again (phase 3's rows and times beside
+   them; made and run once when phase 3 did not run), over
+   ``LocalShardGroup(DIST_SHARDS, "cuda")``: 8 shards on the one card,
+   each kernel launched once per shard on its rows. On each backend,
+   on a fresh engine (the cuda runs between a reset and a read of the
+   launch counts, which the summary adds): D1 the reference's
+   ``DIST_QUERIES`` (tests/test_distributed.py), a cold run and a
+   timed repeat, rows equal to phase 3's (floats within
+   FLOAT_STATE_RTOL), the repeat with no rung and no scan upload; D2 Q3
+   under PARTITIONED joins (``probe_exch`` and ``build_exch`` used,
+   all_to_all called) and BROADCAST (neither), and lineitem_partsupp
+   PARTITIONED through join_lookup; D3 ``DIST_SORT_SQL`` with
+   distributed_sort on (one merge of 8 runs) and off, the same rows;
+   D4 ``DIST_ORDERKEY_JOIN`` over bucket-sharded orders and lineitem
+   with neither exchange, its repeat uploading no scan column nor row
+   order; D6 EXPLAIN ANALYZE of Q5 over the shards; D5 a hybrid skew
+   join and a salted join of Q3 on ``DIST_SKEW`` data at SF1 (reduced:
+   a second SF10 dataset would double the generation time), rows equal
+   to the local engine's. Every line carries the cold and timed
+   seconds, rungs, syncs, uploads, collective calls and bytes by kind,
+   the peak device GB and phase 3's local seconds; agg_sum,
+   join_lookup and multijoin must run, and the two backends' rows
+   agree.
 
 The query lines of phases 3-6 carry the first (cold) pass's time and
 capacity rungs (``cold_s``, ``cold_rungs``) beside the timed pass's:
 the timed pass starts every program from the capacities the first
 remembered (``from_memory``).
 
-    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions,arrays,session,statements
+    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions,arrays,session,statements,distributed
 
 (the default) runs the named phases only (a shorter call while a phase
-is worked on; the summary line needs all eight).
+is worked on; the summary line needs all nine).
 
 The queries are the repository's TPC-H texts (tests/tpch_queries.py),
 TPC-DS texts (tests/test_tpcds.py), ``FUNCTION_QUERIES`` and
 ``ARRAY_QUERIES``. The last
 lines are the card, a JSON summary of the kernels (each with the PR
 that last redesigned it, ``redesigned_in``, and its launches summed
-over phases 3 to 8) and ``{"ok": true, "device": {...}}``.
+over phases 3 to 9) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -238,7 +262,7 @@ TPCDS_OVER_MEMORY = {
 }
 TPCDS_SCALE = 10.0
 PHASES = ("kernels", "tpch", "tpcds", "functions", "arrays", "session",
-          "statements")
+          "statements", "distributed")
 TPCDS_SEED = 20030527  # the connector's default, as tests/test_tpcds.py
 
 
@@ -2136,10 +2160,9 @@ def statement_cases(conn, backend: str, q05_rows) -> dict:
     cuda = backend == "cuda"
 
     def engine():
-        # the last case's engine is let go first: its planner's closures
-        # hold it in reference cycles, so its device copies would live
-        # until the cycle collector ran
-        gc.collect()
+        # no gc.collect() first: an Engine is no reference cycle, so the
+        # last case's engine and its device copies went at its last
+        # reference
         e = Engine()
         e.register_catalog("tpch", conn)
         e.register_catalog("memory", mem)
@@ -2404,6 +2427,347 @@ def statements_phase(conn, q05_rows=None) -> dict:
     return launches
 
 
+# -- phase 9: distributed execution over 8 shards on the one card ----------
+
+# tests/test_distributed.py's DIST_QUERIES, SORT_SQL and
+# tests/test_connector_partitioning.py's ORDERKEY_JOIN
+DIST_QUERIES = ("q01", "q03", "q05", "q06", "q10", "q12", "q13", "q14",
+                "q18", "q19")
+DIST_SHARDS = 8
+DIST_SORT_SQL = ("select l_orderkey, l_extendedprice from lineitem "
+                 "where l_quantity < 10 "
+                 "order by l_extendedprice desc, l_orderkey")
+DIST_ORDERKEY_JOIN = (
+    "select o_orderpriority, count(*) as c "
+    "from orders, lineitem where o_orderkey = l_orderkey "
+    "and l_quantity < 2500 group by o_orderpriority "
+    "order by o_orderpriority")
+# D5's skewed data: SF1, not SF10 (a second SF10 dataset would double
+# the phase's generation time)
+DIST_SKEW_SCALE = 1.0
+DIST_SKEW = "zipf:1.3"
+DIST_SKEW_PROPS = {"multiway_join": False,
+                   "broadcast_join_threshold_rows": 64,
+                   "skew_hot_key_threshold": 64}
+DIST_KERNELS = ("cuda:agg_sum", "cuda:join_lookup", "cuda:multijoin")
+
+
+def values_close(a, b) -> bool:
+    """Equal, but floats within FLOAT_STATE_RTOL and FLOAT_STATE_ATOL:
+    a distributed aggregate merges partial float states in another
+    order than one device sums them."""
+    if isinstance(a, float) or isinstance(b, float):
+        return floats_agree(a, b)
+    return a == b
+
+
+def rows_close(got: list, want: list) -> bool:
+    """Rows equal in order with values_close; where the order differs,
+    equal as multisets, which is what rows tied under their ORDER BY
+    may do between a merge of sorted shards and one sort."""
+    if len(got) != len(want):
+        return False
+    if all(len(g) == len(w) and all(map(values_close, g, w))
+           for g, w in zip(got, want)):
+        return True
+    return rows_close(sorted(got, key=repr), sorted(want, key=repr))
+
+
+def dist_run(engine, group, sql: str, table: bool = False, **props) -> dict:
+    """One distributed run of ``sql`` over ``group`` with session
+    ``props`` (restored after): rows (or the host Table), seconds (a
+    device synchronize on either side), rungs, host syncs, uploads (all
+    and scan columns), collective calls and bytes by kind, peak device
+    GB, kinds of the capacities used and the kernels noted."""
+    import torch
+
+    from presto_tpu_torch.exec import hostsync as HS
+    from presto_tpu_torch.parallel.group import COLLECTIVES
+    before = {k: engine.session.get(k) for k in props}
+    for k, v in props.items():
+        engine.session.set(k, v)
+    syncs0, up0 = HS.SYNCS.total(), HS.UPLOADS.total()
+    scan0 = sum(HS.UPLOADS.by_site.get(site, 0)
+                for site in ("scan-column", "shard-order"))
+    COLLECTIVES.reset()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        rows = (engine.execute_table(sql, mesh=group) if table
+                else engine.execute(sql, mesh=group))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    finally:
+        for k, v in before.items():
+            engine.session.set(k, v)
+    coll = COLLECTIVES.snapshot()
+    return {"rows": rows, "s": secs, "rungs": engine.last_run.rungs,
+            "host_syncs": HS.SYNCS.total() - syncs0,
+            "uploads": HS.UPLOADS.total() - up0,
+            # scan columns and bucket-sharded scans' row orders
+            "scan_uploads": sum(HS.UPLOADS.by_site.get(site, 0)
+                                for site in ("scan-column", "shard-order"))
+            - scan0,
+            "collective_calls": coll["calls"],
+            "collective_bytes": coll["bytes"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "kinds": sorted({k for _p, k in
+                             engine.last_dist_meta["used_capacity"]}),
+            "kernels": sorted({t for tags in
+                               engine.last_kernel_notes.values()
+                               for t in tags})}
+
+
+def _dist_line(case: str, backend: str, got: dict, **more) -> None:
+    log("distributed " + json.dumps({
+        "case": case, "backend": backend, "shards": DIST_SHARDS,
+        **{k: v for k, v in got.items() if k not in ("rows", "kinds")},
+        **more}))
+
+
+def _sort_arrays(table) -> list:
+    """The live rows of a host Table, column by column."""
+    live = (np.ones(table.nrows, bool) if table.mask is None
+            else np.asarray(table.mask))
+    return [np.asarray(c.data)[live] for c in table.columns.values()]
+
+
+def _force_joins(plan, distribution: str, **fields):
+    """Every equi Join of ``plan`` (every unique-build one under
+    ``hybrid``) with ``distribution`` and ``fields`` (the white-box
+    rewrite of tests/test_skew_join.py: the cost model picks neither
+    path for Q3 at SF1, where no key passes a shard's share of rows)."""
+    import dataclasses
+
+    from presto_tpu_torch.plan import nodes as N
+
+    def visit(node):
+        if (isinstance(node, N.Join) and node.criteria
+                and (distribution != "hybrid" or node.build_unique)):
+            return dataclasses.replace(node, distribution=distribution,
+                                       **fields)
+        return node
+    return N.rewrite_bottom_up(plan, visit)
+
+
+def distributed_cases(conn, skew_conn, backend: str, local_rows: dict,
+                      local_secs: dict, device="cuda") -> dict:
+    """D1-D6 on one backend over LocalShardGroup(DIST_SHARDS, device):
+    {case: rows}. Each engine is fresh and dropped before the next."""
+    from presto_tpu_torch import Engine
+    from presto_tpu_torch.parallel.executor import execute_plan_distributed
+    from presto_tpu_torch.parallel.group import LocalShardGroup
+
+    group = LocalShardGroup(DIST_SHARDS, device)
+
+    def engine(c, **props):
+        e = Engine(device=device)
+        e.register_catalog("tpch", c)
+        e.session.set("kernel_backend", backend)
+        for k, v in props.items():
+            e.session.set(k, v)
+        return e
+
+    out, notes = {}, set()
+    e = engine(conn)
+    # D1: the distributed queries, a cold run and a timed repeat
+    for q in DIST_QUERIES:
+        cold = dist_run(e, group, QUERIES[q])
+        got = dist_run(e, group, QUERIES[q])
+        if not rows_close(got["rows"], local_rows[q]):
+            raise AssertionError(f"D1 {q}: {DIST_SHARDS} shards differ "
+                                 "from phase 3's rows")
+        if got["rows"] != cold["rows"]:
+            raise AssertionError(f"D1 {q}: the repeat differs")
+        if got["rungs"] or got["scan_uploads"]:
+            raise AssertionError(f"D1 {q}: the repeat climbed "
+                                 f"{got['rungs']} rungs, uploaded "
+                                 f"{got['scan_uploads']} scan columns")
+        notes.update(got["kernels"])
+        out[q] = got["rows"]
+        _dist_line(f"D1 {q}", backend, got, cold_s=cold["s"],
+                   cold_rungs=cold["rungs"],
+                   cold_host_syncs=cold["host_syncs"],
+                   cold_uploads=cold["uploads"],
+                   local_s=local_secs.get(q))
+    # D2: Q3 partitioned and broadcast, the partsupp join partitioned
+    def twice(sql, **props):
+        """A cold run, then the timed repeat with the cold figures."""
+        cold = dist_run(e, group, sql, **props)
+        got = dist_run(e, group, sql, **props)
+        if got["rungs"] or got["scan_uploads"]:
+            raise AssertionError(f"the repeat of {sql[:40]!r} climbed "
+                                 f"{got['rungs']} rungs, uploaded "
+                                 f"{got['scan_uploads']} scan columns")
+        return {**got, "cold_s": cold["s"], "cold_rungs": cold["rungs"],
+                "cold_host_syncs": cold["host_syncs"],
+                "cold_uploads": cold["uploads"]}
+
+    part = twice(QUERIES["q03"], join_distribution_type="PARTITIONED")
+    if not ({"probe_exch", "build_exch"} <= set(part["kinds"])
+            and part["collective_calls"].get("all_to_all", 0) > 0):
+        raise AssertionError(f"D2 q03 PARTITIONED: {part['kinds']} "
+                             f"{part['collective_calls']}")
+    bcast = twice(QUERIES["q03"], join_distribution_type="BROADCAST",
+                  partitioned_agg_min_groups=1 << 30)
+    if ({"probe_exch", "build_exch"} & set(bcast["kinds"])
+            or "all_to_all" in bcast["collective_calls"]):
+        raise AssertionError(f"D2 q03 BROADCAST: {bcast['kinds']} "
+                             f"{bcast['collective_calls']}")
+    ps = twice(QUERIES["lineitem_partsupp"],
+               join_distribution_type="PARTITIONED")
+    if f"{backend}:join_lookup" not in ps["kernels"]:
+        raise AssertionError(f"D2 lineitem_partsupp: {ps['kernels']}")
+    for name, got, q in (("q03 PARTITIONED", part, "q03"),
+                         ("q03 BROADCAST", bcast, "q03"),
+                         ("lineitem_partsupp PARTITIONED", ps,
+                          "lineitem_partsupp")):
+        if not rows_close(got["rows"], local_rows[q]):
+            raise AssertionError(f"D2 {name}: rows differ from phase 3")
+        notes.update(got["kernels"])
+        out[f"D2 {name}"] = got["rows"]
+        _dist_line(f"D2 {name}", backend, got, kinds=got["kinds"],
+                   local_s=local_secs.get(q))
+    # D3: the merge exchange against a gather and one sort
+    on = twice(DIST_SORT_SQL, table=True, distributed_sort=True)
+    merges = e.last_dist_meta["merged_runs"]
+    off = twice(DIST_SORT_SQL, table=True, distributed_sort=False)
+    if len(merges) != 1 or merges[0][1] != DIST_SHARDS \
+            or e.last_dist_meta["merged_runs"]:
+        raise AssertionError(f"D3: merges {merges}, then "
+                             f"{e.last_dist_meta['merged_runs']}")
+    a, b = _sort_arrays(on["rows"]), _sort_arrays(off["rows"])
+    if not all(np.array_equal(x, y) for x, y in zip(a, b)) \
+            or len(a[0]) == 0:
+        raise AssertionError("D3: distributed_sort on and off differ")
+    out["D3"] = [x.tolist()[:100] for x in a]
+    for flag, got in (("on", on), ("off", off)):
+        _dist_line(f"D3 sort distributed_sort={flag}", backend, got,
+                   result_rows=len(a[0]),
+                   merged_runs=merges if flag == "on" else [])
+    # D4: co-partitioned scans skip both exchanges
+    co = dist_run(e, group, DIST_ORDERKEY_JOIN,
+                  join_distribution_type="PARTITIONED")
+    co_again = dist_run(e, group, DIST_ORDERKEY_JOIN,
+                        join_distribution_type="PARTITIONED")
+    want = e.execute(DIST_ORDERKEY_JOIN)
+    if {"probe_exch", "build_exch"} & set(co["kinds"]) \
+            or not rows_close(co["rows"], want) \
+            or co_again["rows"] != co["rows"] or co_again["scan_uploads"]:
+        raise AssertionError(f"D4: {co['kinds']}, repeat scan uploads "
+                             f"{co_again['scan_uploads']}")
+    out["D4"] = co["rows"]
+    _dist_line("D4 orderkey join", backend, co_again, cold_s=co["s"],
+               cold_uploads=co["uploads"], kinds=co["kinds"])
+    # D6: EXPLAIN ANALYZE over the shards
+    text = e.execute("explain analyze " + QUERIES["q05"], mesh=group)[0][0]
+    if not text.startswith(f"Distributed plan over {DIST_SHARDS} devices") \
+            or "[sharded]" not in text:
+        raise AssertionError("D6: " + text[:300])
+    node_rows = e.last_run.node_rows
+    if node_rows[(0, 0)] != len(local_rows["q05"]):
+        raise AssertionError(f"D6: root rows {node_rows[(0, 0)]}")
+    out["D6"] = sorted(node_rows.items())
+    log("distributed " + json.dumps({
+        "case": "D6 explain analyze q05", "backend": backend,
+        "header": text.splitlines()[0], "nodes": len(node_rows)}))
+    del e
+    # D5: skew joins on Zipf data, at SF1, the plans forced as
+    # tests/test_skew_join.py forces them
+    import torch
+    reduced = (f"SF{DIST_SKEW_SCALE:g} {DIST_SKEW}, not SF10: a second "
+               "SF10 dataset would double the phase's generation time")
+    plain = engine(skew_conn).execute(QUERIES["q03"])
+    for case, props, dist, fields, kinds in (
+            ("hybrid", DIST_SKEW_PROPS, "hybrid", {"hot_keys": 1024},
+             {"hot", "htab", "probe_exch", "build_exch"}),
+            ("salted", {"multiway_join": False,
+                        "skew_hot_key_threshold": 0},
+             "partitioned", {"salt_factor": 4},
+             {"probe_exch", "build_exch"})):
+        sk = engine(skew_conn, **props)
+        plan, _ = sk.plan_sql(QUERIES["q03"])
+        from presto_tpu_torch.exec import hostsync as HS
+        from presto_tpu_torch.parallel.group import COLLECTIVES
+        COLLECTIVES.reset()
+        syncs0 = HS.SYNCS.total()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        got = execute_plan_distributed(
+            sk, _force_joins(plan, dist, **fields), group)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        rows = [tuple(r) for r in got.to_pylist()]
+        used = {k for _p, k in sk.last_dist_meta["used_capacity"]}
+        if not kinds <= used or not rows_close(rows, plain):
+            raise AssertionError(f"D5 {case}: {sorted(used)}, rows "
+                                 f"{'equal' if rows_close(rows, plain) else 'differ'}")
+        out[f"D5 {case}"] = rows
+        coll = COLLECTIVES.snapshot()
+        log("distributed " + json.dumps({
+            "case": f"D5 {case} q03", "backend": backend,
+            "shards": DIST_SHARDS, "s": secs,
+            "rungs": sk.last_run.rungs,
+            "host_syncs": HS.SYNCS.total() - syncs0,
+            "collective_calls": coll["calls"],
+            "collective_bytes": coll["bytes"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "kinds": sorted(used), **fields, "reduced": reduced}))
+        del sk
+    out["notes"] = sorted(notes)
+    return out
+
+
+def dist_local_rows(conn) -> tuple[dict, dict]:
+    """Phase 3's rows and timed seconds of the queries the distributed
+    phase holds, on one engine (for ``--phases distributed`` alone)."""
+    from presto_tpu_torch import Engine
+    engine = Engine()
+    engine.register_catalog("tpch", conn)
+    queries = {q: QUERIES[q] for q in DIST_QUERIES + ("lineitem_partsupp",)}
+    run_queries(engine, queries, "cuda")
+    rows, secs, _notes = run_queries(engine, queries, "cuda")
+    return rows, {q: {"s": secs[q]} for q in queries}
+
+
+def distributed_phase(conn, local_rows: dict, local_secs: dict) -> dict:
+    """D1-D6 on both backends over 8 shards of the card (the cuda runs
+    between a reset and a read of the launch counts): rows identical
+    between the backends but for floats within FLOAT_STATE_RTOL."""
+    from presto_tpu_torch.connectors.tpch import TpchConnector
+    from presto_tpu_torch.kernels import build as B
+    t = time.perf_counter()
+    skew_conn = TpchConnector(scale=DIST_SKEW_SCALE, skew=DIST_SKEW)
+    log(f"datagen sf={DIST_SKEW_SCALE:g} {DIST_SKEW}: "
+        f"{time.perf_counter() - t:.1f} s")
+    B.LAUNCHES.reset()
+    t = time.perf_counter()
+    got = distributed_cases(conn, skew_conn, "cuda", local_rows, local_secs)
+    launches = B.LAUNCHES.snapshot()
+    log(f"distributed cuda cases: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    plain = distributed_cases(conn, skew_conn, "torch", local_rows,
+                              local_secs)
+    log(f"distributed plain cases: {time.perf_counter() - t:.1f} s")
+    differ = [case for case in got if case != "notes"
+              and not rows_close(got[case], plain[case])]
+    if differ:
+        raise AssertionError(f"distributed cases differ between backends: "
+                             f"{differ}")
+    missing = [k for k in DIST_KERNELS if k not in got["notes"]]
+    if missing:
+        raise AssertionError(f"the distributed phase did not run {missing}")
+    log("distributed launches " + json.dumps(launches))
+    for name in ("segment_sum", "build_table", "probe_table",
+                 "multijoin_walk"):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"{name} never launched in the "
+                                 f"distributed phase: {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -2429,7 +2793,7 @@ def main() -> int:
     log(f"kernel build: {B.LIBRARY.build_seconds:.1f} s ({B.LIBRARY.path})")
     dev = torch.device("cuda")
 
-    kernels, launches, conn, tpch_rows = {}, {}, None, {}
+    kernels, launches, conn, tpch_rows, tpch_queries = {}, {}, None, {}, {}
 
     def add(more: dict) -> dict:
         return {name: launches.get(name, 0) + more.get(name, 0)
@@ -2441,8 +2805,7 @@ def main() -> int:
     if "tpch" in phases:
         t = time.perf_counter()
         conn = tpch_data(args.scale, args.seed)
-        launches, _queries, tpch_rows = query_phase(conn)
-        del _queries
+        launches, tpch_queries, tpch_rows = query_phase(conn)
         log(f"query phase: {time.perf_counter() - t:.1f} s")
     if "tpcds" in phases:
         # the TPC-H engine and its resident columns are gone by now (its
@@ -2482,6 +2845,17 @@ def main() -> int:
                                                           args.seed),
                                         tpch_rows.get("q05")))
         log(f"statements phase: {time.perf_counter() - t:.1f} s")
+    if "distributed" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        conn = conn or tpch_data(args.scale, args.seed)
+        if not tpch_rows:
+            # phase 3 did not run: its single-engine rows and times
+            tpch_rows, tpch_queries = dist_local_rows(conn)
+        launches = add(distributed_phase(
+            conn, tpch_rows, {q: v["s"] for q, v in tpch_queries.items()}))
+        log(f"distributed phase: {time.perf_counter() - t:.1f} s")
     if phases != set(PHASES):
         log(f"phases {sorted(phases)} passed; no summary without all "
             f"{len(PHASES)}")

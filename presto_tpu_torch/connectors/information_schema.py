@@ -11,6 +11,8 @@ immediately visible in the next SELECT.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 
 from presto_tpu_torch import types as T
@@ -36,7 +38,14 @@ class _ReflectiveConnector(Connector):
     SCHEMAS: dict[str, dict[str, T.DataType]] = {}
 
     def __init__(self, engine):
-        self.engine = engine
+        # weak: the engine holds this connector among its catalogs, and
+        # a strong reference back would make every engine a reference
+        # cycle whose device copies only the cycle collector frees
+        self._engine = weakref.ref(engine)
+
+    @property
+    def engine(self):
+        return self._engine()
 
     def table_names(self) -> list[str]:
         return list(self.SCHEMAS)

@@ -52,8 +52,10 @@ def explain_estimates(plan, engine) -> dict[int, str]:
     stats = StatsCalculator(engine)
     cost = CostCalculator()
     out: dict[int, str] = {}
-
-    def visit(node) -> None:
+    # a loop, not a recursive closure (see row_estimates)
+    stack = [plan]
+    while stack:
+        node = stack.pop()
         try:
             est = stats.stats(node)
             c = cost.cost(node, stats)
@@ -65,10 +67,7 @@ def explain_estimates(plan, engine) -> dict[int, str]:
                 f"network: {_fmt(c.network)}B}}")
         except Exception:
             pass
-        for s in node.sources():
-            visit(s)
-
-    visit(plan)
+        stack.extend(reversed(node.sources()))
     return out
 
 
@@ -77,14 +76,14 @@ def row_estimates(plan, engine) -> dict[int, int]:
     estimated-vs-actual annotations."""
     stats = StatsCalculator(engine)
     out: dict[int, int] = {}
-
-    def visit(node) -> None:
+    # a loop, not a recursive closure: a closure that calls itself is a
+    # reference cycle, and it would hold the engine through ``stats``
+    stack = [plan]
+    while stack:
+        node = stack.pop()
         try:
             out[id(node)] = int(stats.stats(node).row_count)
         except Exception:
             pass
-        for s in node.sources():
-            visit(s)
-
-    visit(plan)
+        stack.extend(reversed(node.sources()))
     return out

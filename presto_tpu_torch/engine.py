@@ -85,6 +85,14 @@ class Engine:
         self.dev_cache_limit = 8 << 30
         # host list column id -> (host ref, its padded 2-D layout)
         self._lists_cache: dict[int, tuple[np.ndarray, tuple]] = {}
+        # a bucket-sharded scan's placement over a shard group (host
+        # order, uploaded once): (partitioning column ids, mask id,
+        # shards, device) -> (rows per shard, per-shard indices, host
+        # table)
+        self._shard_orders: dict[tuple, tuple] = {}
+        # the last distributed query: its capacities by (node, kind),
+        # its shard count and each node's distribution
+        self.last_dist_meta: dict | None = None
         # run after every statement that may change table data
         self._invalidation_listeners: list = []
         # rows and writer tasks of the last write (_table_to_host)
@@ -163,6 +171,7 @@ class Engine:
         self._dev_cache.clear()
         self._dev_cache_bytes = 0
         self._lists_cache.clear()
+        self._shard_orders.clear()
 
     def host_lists(self, element: T.DataType, a) -> tuple:
         """An ARRAY column of host lists (an object array) in the padded
@@ -192,8 +201,12 @@ class Engine:
             self.last_warnings = wc.list()
             W.pop()
 
-    def execute(self, sql: str, cancel_token=None) -> list[tuple]:
-        """Run SQL, return result rows as Python tuples.
+    def execute(self, sql: str, mesh=None, cancel_token=None
+                ) -> list[tuple]:
+        """Run SQL, return result rows as Python tuples. With ``mesh``
+        (a ``parallel.group.ShardGroup``; the reference takes a device
+        mesh) a query runs data-parallel over the group's shards: scans
+        split over them, exchanges as the group's collectives.
         ``cancel_token`` (exec/cancel.CancelToken) interrupts the query
         at the planner's and the executor's checkpoints."""
         from presto_tpu_torch.events import monitored
@@ -205,13 +218,15 @@ class Engine:
                 if isinstance(stmt, A.QueryStatement):
                     return monitored(
                         self, text,
-                        lambda: self._execute_query(stmt.query).to_pylist())
-                return monitored(self, text,
-                                 lambda: self._execute_statement(stmt))
+                        lambda: self._execute_query(
+                            stmt.query, mesh).to_pylist())
+                return monitored(
+                    self, text, lambda: self._execute_statement(stmt, mesh))
 
         return self._collecting(run)
 
-    def execute_table(self, sql: str, cancel_token=None) -> Table:
+    def execute_table(self, sql: str, mesh=None, cancel_token=None
+                      ) -> Table:
         """Run a SELECT, return the result as a host Table."""
         from presto_tpu_torch.events import monitored
         from presto_tpu_torch.sql import ast as A
@@ -221,8 +236,8 @@ class Engine:
             if not isinstance(stmt, A.QueryStatement):
                 raise ValueError("execute_table expects a SELECT query")
             with self._cancel_scope(cancel_token):
-                return monitored(self, text,
-                                 lambda: self._execute_query(stmt.query))
+                return monitored(
+                    self, text, lambda: self._execute_query(stmt.query, mesh))
 
         return self._collecting(run)
 
@@ -305,15 +320,23 @@ class Engine:
             validate_plan(plan)
         return plan
 
-    def _execute_query(self, query) -> Table:
-        from presto_tpu_torch.exec.executor import execute_plan
+    def _execute_query(self, query, mesh=None) -> Table:
+        """Plan and run a query: over the shard group ``mesh`` when one
+        is given (no streaming, spill or segmentation there, as in the
+        reference), else on the engine's device."""
         self.last_spill = None
-        return execute_plan(self, self._plan_query(query))
+        plan = self._plan_query(query)
+        if mesh is not None:
+            from presto_tpu_torch.parallel.executor import (
+                execute_plan_distributed)
+            return execute_plan_distributed(self, plan, mesh)
+        from presto_tpu_torch.exec.executor import execute_plan
+        return execute_plan(self, plan)
 
-    def _execute_statement(self, stmt) -> list[tuple]:
+    def _execute_statement(self, stmt, mesh=None) -> list[tuple]:
         from presto_tpu_torch.sql import ast as A
         try:
-            return self._execute_statement_inner(stmt)
+            return self._execute_statement_inner(stmt, mesh)
         finally:
             # writes mutate connector arrays in place (the same object,
             # the same id), and COMMIT / ROLLBACK swap snapshots in, so
@@ -326,7 +349,7 @@ class Engine:
                 for fn in list(self._invalidation_listeners):
                     fn()
 
-    def _execute_statement_inner(self, stmt) -> list[tuple]:
+    def _execute_statement_inner(self, stmt, mesh=None) -> list[tuple]:
         from presto_tpu_torch.plan.printer import format_plan
         from presto_tpu_torch.sql import ast as A
 
@@ -335,7 +358,11 @@ class Engine:
                 raise ValueError("EXPLAIN expects a query")
             plan = self._plan_query(stmt.statement.query)
             if stmt.analyze:
-                from presto_tpu_torch.exec.profile import explain_analyze
+                from presto_tpu_torch.exec.profile import (
+                    explain_analyze, explain_analyze_distributed)
+                if mesh is not None:
+                    return [(explain_analyze_distributed(self, plan,
+                                                         mesh),)]
                 return [(explain_analyze(self, plan),)]
             from presto_tpu_torch.cost import explain_estimates
             return [(format_plan(
@@ -385,23 +412,24 @@ class Engine:
                 conn.drop_table(table)
                 return []
             self.transactions.touch(conn)
-            return [(self._write(stmt, conn, table),)]
+            return [(self._write(stmt, conn, table, mesh),)]
 
         raise NotImplementedError(
             f"statement {type(stmt).__name__} not supported")
 
-    def _write(self, stmt, conn: Connector, table: str) -> int:
+    def _write(self, stmt, conn: Connector, table: str, mesh=None) -> int:
         """CREATE TABLE AS, INSERT, DELETE or UPDATE of ``table`` in
-        ``conn``, authorized and snapshotted: the rows written."""
+        ``conn``, authorized and snapshotted: the rows written. The
+        queries behind it run over ``mesh`` when one is given."""
         from presto_tpu_torch.sql import ast as A
 
         if isinstance(stmt, A.CreateTableAs):
-            result = self._execute_query(stmt.query)
+            result = self._execute_query(stmt.query, mesh)
             schema, data, valid = _table_to_host(result, self)
             return _stream_to_sink(conn.begin_write(table, schema),
                                    data, valid)
         if isinstance(stmt, A.InsertStatement):
-            result = self._execute_query(stmt.query)
+            result = self._execute_query(stmt.query, mesh)
             _, data, valid = _table_to_host(result, self)
             names = stmt.columns or list(conn.table_schema(table))
             return _stream_to_sink(
@@ -411,7 +439,7 @@ class Engine:
         if isinstance(stmt, A.DeleteStatement):
             # the predicate per row in table order, as a delete mask
             return conn.delete_rows(
-                table, self._row_mask(stmt.table, stmt.where))
+                table, self._row_mask(stmt.table, stmt.where, mesh))
         # UPDATE: one scan computes the new values AND the WHERE mask,
         # so both come from the same row order
         target = conn.table_schema(table)
@@ -426,18 +454,19 @@ class Engine:
                     "coalesce", (stmt.where, A.BooleanLiteral(False))))
         items.append(A.SelectItem(pred, "__pred__"))
         result = self._execute_query(A.Query(A.QuerySpec(
-            tuple(items), False, A.TableRef(stmt.table))))
+            tuple(items), False, A.TableRef(stmt.table))), mesh)
         _, data, valid = _table_to_host(result, self)
         mask = np.asarray(data["__pred__"], dtype=bool)
         return conn.update_rows(
             table, {col: data[col] for col, _ in stmt.assignments},
             {col: valid[col] for col, _ in stmt.assignments}, mask)
 
-    def _row_mask(self, table_parts, where):
+    def _row_mask(self, table_parts, where, mesh=None):
         """bool[n] in table row order: WHERE evaluates TRUE (NULL and
         FALSE rows are untouched, SQL DELETE/UPDATE semantics); None
         means every row. The projection over one scan keeps the
-        table's order, its dead rows dropped by the result's mask."""
+        table's order, its dead rows (and a shard group's padding)
+        dropped by the result's mask."""
         from presto_tpu_torch.sql import ast as A
 
         if where is None:
@@ -446,7 +475,7 @@ class Engine:
             "coalesce", (where, A.BooleanLiteral(False)))
         result = self._execute_query(A.Query(A.QuerySpec(
             (A.SelectItem(pred, "__pred__"),), False,
-            A.TableRef(table_parts))))
+            A.TableRef(table_parts))), mesh)
         col = next(iter(result.columns.values()))
         data = np.asarray(col.data, dtype=bool)
         if result.mask is not None:

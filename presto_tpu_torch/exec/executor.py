@@ -111,6 +111,14 @@ class ScanInput:
     types: dict[str, T.DataType]
     nrows: int
     live: torch.Tensor | None = None
+    # set by the distributed path (parallel/executor.py): the
+    # connector-declared partitioning as this scan's symbols, whether
+    # its rows were placed on the shards by that key's hash (not in
+    # blocks), and the connector's host table, whose partitioning
+    # columns the placement reads
+    part_cols: tuple[str, ...] | None = None
+    bucketed: bool = False
+    host_table: object = None
 
 
 @dataclasses.dataclass
@@ -195,6 +203,7 @@ def collect_scans(plan: N.PlanNode, engine,
             tbl = engine.catalogs[node.catalog].table(node.table)
             out[id(node)] = _scan_input(engine, node, tbl,
                                         engine.device_array, tbl.nrows)
+            out[id(node)].host_table = tbl
     return out
 
 
@@ -225,6 +234,38 @@ def _df_hash(v: Val) -> torch.Tensor:
     if v.is_string:
         return H.hash_string_column(v.data, v.dictionary, v.valid)
     return H.hash_int_column(v.data, v.valid)
+
+
+def bloom_bits(build: DTable, rk: str, max_bits: int) -> torch.Tensor:
+    """A one-hash bloom (bool [m], m a power of two) of the live,
+    non-NULL values of ``build``'s key ``rk``: m is four times the
+    build's rows, at least 64 and at most ``max_bits``."""
+    live = build.live_mask()
+    m = next_pow2(min(4 * max(build.n, 16), max_bits))
+    v = build.cols[rk]
+    w = live if v.valid is None else (live & v.valid)
+    # dead and NULL keys land in slot m, which is dropped
+    slots = (_df_hash(v) & (m - 1)).masked_fill(~w, m)
+    bits = torch.zeros(m + 1, dtype=torch.bool, device=build.device)
+    return bits.index_fill_(0, slots, True)[:m]
+
+
+def apply_blooms(dt: DTable, blooms: dict[str, torch.Tensor]) -> DTable:
+    """``dt`` with the rows whose key misses a bloom of ``blooms``
+    (symbol -> bits) marked dead."""
+    keep = None
+    for sym, bits in blooms.items():
+        v = dt.cols[sym]
+        # the reference's h % m for a pow2 m; the mask bounds the
+        # gather's index to [0, m)
+        k = bits.index_select(0, _df_hash(v) & (bits.shape[0] - 1))
+        if v.valid is not None:
+            k = k & v.valid  # NULL keys never match an inner join
+        keep = k if keep is None else (keep & k)
+    if keep is None:
+        return dt
+    live = keep if dt.live is None else (dt.live & keep)
+    return DTable(dt.cols, live, dt.n, dt.device)
 
 
 def _preorder(node: N.PlanNode):
@@ -283,22 +324,10 @@ class PlanInterpreter:
         return dt
 
     def _apply_dyn_filters(self, dt: DTable) -> DTable:
-        keep = None
-        for sym, bits in self.dyn_filters.items():
-            v = dt.cols.get(sym)
-            if v is None or sym in self._df_applied:
-                continue
-            self._df_applied.add(sym)
-            # the reference's h % m for a pow2 m; the mask bounds the
-            # gather's index to [0, m)
-            k = bits.index_select(0, _df_hash(v) & (bits.shape[0] - 1))
-            if v.valid is not None:
-                k = k & v.valid  # NULL keys never match an inner join
-            keep = k if keep is None else (keep & k)
-        if keep is None:
-            return dt
-        live = keep if dt.live is None else (dt.live & keep)
-        return DTable(dt.cols, live, dt.n, dt.device)
+        blooms = {sym: bits for sym, bits in self.dyn_filters.items()
+                  if sym in dt.cols and sym not in self._df_applied}
+        self._df_applied.update(blooms)
+        return apply_blooms(dt, blooms)
 
     def _collect_dyn_filters(self, criteria: list[tuple[str, str]],
                              build: DTable, max_bits: int = 1 << 22):
@@ -306,15 +335,8 @@ class PlanInterpreter:
         equi-key before the probe subtree runs. A false positive only
         costs pruning (the join re-verifies); a false negative cannot
         happen."""
-        live = build.live_mask()
-        m = next_pow2(min(4 * max(build.n, 16), max_bits))
         for lk, rk in criteria:
-            v = build.cols[rk]
-            w = live if v.valid is None else (live & v.valid)
-            # dead and NULL keys land in slot m, which is dropped
-            slots = (_df_hash(v) & (m - 1)).masked_fill(~w, m)
-            bits = torch.zeros(m + 1, dtype=torch.bool, device=self.device)
-            self.dyn_filters[lk] = bits.index_fill_(0, slots, True)[:m]
+            self.dyn_filters[lk] = bloom_bits(build, rk, max_bits)
 
     def _node_key(self, node, kind: str) -> tuple:
         return (self.node_order.get(id(node), id(node)), kind)

@@ -16,6 +16,8 @@ memory does), and counts it against its call site in :data:`UPLOADS`.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import threading
 
 import numpy as np
@@ -40,6 +42,27 @@ class SyncCounter:
 
 SYNCS = SyncCounter()
 UPLOADS = SyncCounter()  # host->device copies, none of them a sync
+
+# the upload memo of a shared_uploads() scope, or None
+_SHARED: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
+    "presto_tpu_torch_shared_uploads", default=None)
+# the sites whose uploads a shared_uploads() scope shares, and the
+# largest array it keys by content
+SHARED_SITES = ("literal", "dictionary-lut")
+SHARED_MAX_BYTES = 1 << 22
+
+
+@contextlib.contextmanager
+def shared_uploads():
+    """Within this scope, an upload of a literal or a dictionary lookup
+    whose bytes (dtype, shape, device) were uploaded already returns the
+    earlier tensor, uncounted. The shards of a group compile the same
+    expressions once each, and only read what those uploads made."""
+    tok = _SHARED.set({})
+    try:
+        yield
+    finally:
+        _SHARED.reset(tok)
 
 
 def _to_host(tree):
@@ -66,6 +89,19 @@ def upload(array, device, site: str) -> torch.Tensor:
     as a tensor. Counts one upload against ``site``. The tensor keeps
     the array's shape: a 0-d array (a scalar literal) stays 0-d, so the
     operators' scalar broadcasts see it as a scalar."""
+    memo = _SHARED.get()
+    if memo is not None and site in SHARED_SITES:
+        a = np.require(array, requirements="C")
+        if a.dtype != object and a.nbytes <= SHARED_MAX_BYTES:
+            key = (site, str(device), a.dtype.str, a.shape, a.tobytes())
+            hit = memo.get(key)
+            if hit is None:
+                hit = memo[key] = _upload(a, device, site)
+            return hit
+    return _upload(array, device, site)
+
+
+def _upload(array, device, site: str) -> torch.Tensor:
     UPLOADS.inc(site)
     host = torch.from_numpy(np.require(array, requirements="C"))
     device = torch.device(device)

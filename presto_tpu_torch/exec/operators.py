@@ -1132,6 +1132,82 @@ def _sort_keys(dt: DTable, orderings: list[N.Ordering]) -> list:
     return keys
 
 
+def merge_runs_perm(keys: list, k: int, m: int) -> torch.Tensor:
+    """Permutation merging ``k`` presorted runs of ``m`` rows each
+    (stored concatenated) into one sorted order: the kernel behind the
+    merge exchange of a distributed sort (the reference's
+    ``merge_runs_perm``, MergeOperator.java:44).
+
+    Each row's output position is its rank in its own run plus, for
+    every other run, the count of that run's rows ordered before it,
+    found by a vectorised binary search under the full lexicographic
+    comparator: O(N k log m) elementwise work instead of a sort of N
+    rows. Ties break by (run, rank in run), as a stable sort of the
+    concatenation would. ``keys`` are ``_sort_keys`` output: NaN-free
+    (NULL and NaN ride in class-key levels), so the comparator is
+    total. int64 permutation."""
+    n = k * m
+    dev = keys[0].device
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    run_of = idx // m
+    rank = idx % m
+    # a lower-bound search over [0, m] takes floor(log2 m) + 1 halvings
+    steps = m.bit_length()
+    for j in range(k):
+        run_keys = [kk[j * m:(j + 1) * m] for kk in keys]
+        # ties in run j order before rows of later runs (stability)
+        tie_after = run_of > j
+        lo = torch.zeros(n, dtype=torch.int64, device=dev)
+        hi = torch.full((n,), m, dtype=torch.int64, device=dev)
+        for _ in range(steps):
+            mid = (lo + hi) >> 1
+            # a converged lane (lo == hi == m) reads a clamped row and
+            # does not move
+            at = torch.clamp(mid, 0, m - 1)
+            lt = torch.zeros(n, dtype=torch.bool, device=dev)
+            eq = torch.ones(n, dtype=torch.bool, device=dev)
+            for rk, qk in zip(run_keys, keys):
+                c = rk[at]
+                lt = lt | (eq & (c < qk))
+                eq = eq & (c == qk)
+            before = lt | (eq & tie_after)  # run[mid] orders first
+            open_ = lo < hi
+            lo = torch.where(open_ & before, mid + 1, lo)
+            hi = torch.where(open_ & ~before, mid, hi)
+        rank = rank + torch.where(run_of == j, torch.zeros_like(lo), lo)
+    # rank is a permutation of 0..n-1: invert it into a gather index
+    perm = torch.empty_like(rank)
+    perm[rank] = idx
+    return perm
+
+
+def merge_sorted_runs(dt: DTable, orderings: list[N.Ordering],
+                      k: int) -> DTable:
+    """Merge a table holding ``k`` concatenated presorted runs."""
+    assert dt.n % k == 0
+    perm = merge_runs_perm(_sort_keys(dt, orderings), k, dt.n // k)
+    return _gather_table(dt, perm)
+
+
+def head(dt: DTable, count: int) -> DTable:
+    """The first ``count`` rows (a compaction after a sort: the analog
+    of a bounded page flush before an exchange), every companion of a
+    column with them; a scalar column expands to its rows first."""
+    c = min(count, dt.n)
+    idx = torch.arange(c, dtype=torch.int64, device=dt.device)
+    cols = {}
+    for sym, v in dt.cols.items():
+        if v.is_array:
+            v = broadcast_rows(v, dt.n)
+        else:
+            v = dataclasses.replace(
+                v, data=_rows(v.data, dt.n, is_long_dec(v.dtype)),
+                valid=None if v.valid is None else v.valid.expand(dt.n))
+        cols[sym] = take_val(v, idx)
+    live = None if dt.live is None else dt.live[:c]
+    return DTable(cols, live, c, dt.device)
+
+
 def _gather_table(dt: DTable, perm) -> DTable:
     out = {sym: take_val(v, perm) for sym, v in dt.cols.items()}
     live = None if dt.live is None else dt.live[perm]

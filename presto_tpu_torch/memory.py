@@ -57,9 +57,15 @@ def estimate_plan_memory(plan: N.PlanNode, engine
     def rows_of(node: N.PlanNode) -> int:
         return next(m.rows for m in per_node if m.node is node)
 
-    def visit(node: N.PlanNode) -> int:
-        for s in node.sources():
-            visit(s)
+    # post-order by an explicit stack: a nested function that calls
+    # itself is a reference cycle, and this one would hold the engine
+    stack = [(plan, False)]
+    while stack:
+        node, ready = stack.pop()
+        if not ready:
+            stack.append((node, True))
+            stack.extend((s, False) for s in reversed(node.sources()))
+            continue
         width = _row_bytes(node.output_types())
         if isinstance(node, N.TableScan):
             rows = engine.catalogs[node.catalog].row_count_estimate(
@@ -117,9 +123,6 @@ def estimate_plan_memory(plan: N.PlanNode, engine
             rows = max((rows_of(s) for s in node.sources()), default=1)
             resident = rows * width
         per_node.append(NodeMemory(node, max(rows, 1), resident))
-        return rows
-
-    visit(plan)
     return sum(m.resident for m in per_node), per_node
 
 

@@ -406,3 +406,72 @@ def expand_matches(lo, counts, build_sidx, probe_found, probe_live,
                             torch.full_like(k, -1))
     return (safe_probe.to(torch.int32), build_row.to(torch.int32),
             k < total, ok)
+
+
+def partition_id(h: torch.Tensor, nparts: int) -> torch.Tensor:
+    """Destination partition of a 64-bit row key (an int64 bit
+    pattern): fold to 32 bits, golden-ratio multiply mod 2^32, then
+    mod ``nparts`` (the reference's ``partition_id``). The multiply
+    spreads the identity keys of hash_int_column evenly even when they
+    are dense or strided. Held to the numpy twin np_partition_id bit
+    for bit: a bucket-sharded scan places its rows on the host by the
+    same bits. Torch has no ``>>`` or ``%`` on uint64, so the fold is a
+    logical shift and the 32-bit product is an int64 product masked to
+    its low 32 bits (int64 multiplication wraps mod 2^64)."""
+    x = (h ^ srl(h, 32)) & 0xFFFFFFFF
+    x = (x * 0x9E3779B1) & 0xFFFFFFFF
+    return torch.remainder(x, nparts).to(torch.int32)
+
+
+# --- numpy twins (host side, the same bits) --------------------------------
+# A bucket-sharded scan places its rows on the host before they reach the
+# shards; it must put each row on the shard that the device repartition
+# (partition_id of the row key) would, so co-partitioned scans and
+# FIXED_HASH exchange outputs are co-located. They return uint64 where
+# the tensor functions return the same bits as int64.
+
+
+def np_splitmix64(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.uint64, copy=True)
+    with np.errstate(over="ignore"):
+        x += np.uint64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        x = x ^ (x >> np.uint64(31))
+    return x
+
+
+def np_hash_int_column(data: np.ndarray, valid=None) -> np.ndarray:
+    h = (np.asarray(data).astype(np.int64).view(np.uint64)
+         ^ np.uint64(1 << 63))
+    if valid is not None:
+        h = np.where(valid, h, np.uint64(0x9E3779B97F4A7C15))
+    return h
+
+
+def np_hash_string_column(codes, dictionary, valid=None) -> np.ndarray:
+    codes = np.asarray(codes)
+    if len(dictionary) == 0:
+        h = np.zeros(codes.shape, dtype=np.uint64)
+    else:
+        lut = hash_string_dictionary(dictionary)
+        h = lut[np.clip(codes, 0, len(dictionary) - 1)]
+    if valid is not None:
+        h = np.where(valid, h, np.uint64(0x9E3779B97F4A7C15))
+    return h
+
+
+def np_partition_id(h: np.ndarray, nparts: int) -> np.ndarray:
+    x = (h ^ (h >> np.uint64(32))).astype(np.uint32)
+    with np.errstate(over="ignore"):
+        x = x * np.uint32(0x9E3779B1)
+    return (x % np.uint32(nparts)).astype(np.int64)
+
+
+def np_combine_hashes(hashes: list) -> np.ndarray:
+    out = hashes[0]
+    with np.errstate(over="ignore"):
+        for h in hashes[1:]:
+            out = out * np.uint64(0x9E3779B97F4A7C15) ^ h
+    return np.where(out == np.uint64(0xFFFFFFFFFFFFFFFF),
+                    out - np.uint64(1), out)

@@ -614,22 +614,23 @@ def rewrite_bottom_up(plan: PlanNode, fn) -> PlanNode:
     """Rebuild a plan bottom-up, applying ``fn`` to every node after its
     children (functional: unchanged subtrees keep their identity). The
     shared walker behind annotate_dense / late_materialize-class passes
-    (the engine's analog of the reference's SimplePlanRewriter)."""
+    (the engine's analog of the reference's SimplePlanRewriter).
 
-    def visit(node: PlanNode) -> PlanNode:
-        updates = {}
-        for f in dataclasses.fields(node):
-            v = getattr(node, f.name)
-            if isinstance(v, PlanNode):
-                nv = visit(v)
-                if nv is not v:
-                    updates[f.name] = nv
-            elif isinstance(v, list) and v and isinstance(v[0], PlanNode):
-                nv = [visit(x) for x in v]
-                if any(a is not b for a, b in zip(nv, v)):
-                    updates[f.name] = nv
-        if updates:
-            node = dataclasses.replace(node, **updates)
-        return fn(node)
-
-    return visit(plan)
+    The recursion passes ``fn`` down instead of closing over it: a
+    nested function that calls itself is a reference cycle, and it
+    would keep ``fn``'s closure (an optimizer pass's engine, with its
+    device tensors) alive until the cycle collector ran."""
+    updates = {}
+    for f in dataclasses.fields(plan):
+        v = getattr(plan, f.name)
+        if isinstance(v, PlanNode):
+            nv = rewrite_bottom_up(v, fn)
+            if nv is not v:
+                updates[f.name] = nv
+        elif isinstance(v, list) and v and isinstance(v[0], PlanNode):
+            nv = [rewrite_bottom_up(x, fn) for x in v]
+            if any(a is not b for a, b in zip(nv, v)):
+                updates[f.name] = nv
+    if updates:
+        plan = dataclasses.replace(plan, **updates)
+    return fn(plan)

@@ -1054,6 +1054,50 @@ def _expr_name(e: A.Expression) -> str:
 # relation plans
 
 
+def _is_distinct(c: A.FunctionCall) -> bool:
+    """A DISTINCT aggregate that MarkDistinct serves: a varlen DISTINCT
+    (array_agg(distinct x)) dedups host-side in exec/varlen.py."""
+    return c.distinct and c.name not in AGG.VARLEN_FNS
+
+
+def _plain_sym(ctx: ExprCtx, e: A.Expression, what: str) -> str:
+    """The symbol of a MATCH_RECOGNIZE column reference."""
+    planned = ExprPlanner(ctx).plan(e)
+    if not isinstance(planned, ir.ColumnRef):
+        raise SemanticError(f"MATCH_RECOGNIZE {what} must be a column")
+    return planned.name
+
+
+def _rewrite_prev(ctx: ExprCtx, e: A.Expression) -> A.Expression:
+    """PREV(col [, n]) -> column reference {sym}$prev{n}. A module
+    function, not a closure over the planner: a nested function that
+    calls itself is a reference cycle through the planner's engine."""
+    if isinstance(e, A.FunctionCall) and e.name == "prev":
+        col = e.args[0]
+        n = 1
+        if len(e.args) > 1:
+            if not isinstance(e.args[1], A.NumericLiteral):
+                raise SemanticError("PREV offset must be a literal")
+            n = int(e.args[1].text)
+        sym = _plain_sym(ctx, col, "PREV argument")
+        return A.Identifier(f"{sym}$prev{n}")
+    if dataclasses.is_dataclass(e):
+        changed = {}
+        for f in dataclasses.fields(e):
+            v = getattr(e, f.name)
+            if isinstance(v, A.Expression):
+                changed[f.name] = _rewrite_prev(ctx, v)
+            elif isinstance(v, tuple) and any(
+                    isinstance(x, A.Expression) for x in v):
+                changed[f.name] = tuple(
+                    _rewrite_prev(ctx, x)
+                    if isinstance(x, A.Expression) else x
+                    for x in v)
+        if changed:
+            return dataclasses.replace(e, **changed)
+    return e
+
+
 @dataclasses.dataclass
 class RelationPlan:
     node: N.PlanNode
@@ -1279,57 +1323,22 @@ class LogicalPlanner:
         inner = self.plan_relation(rel.input, ctes, outer)
         ctx = ExprCtx(inner.scope, self)
 
-        def plain_sym(e: A.Expression, what: str) -> str:
-            planned = ExprPlanner(ctx).plan(e)
-            if not isinstance(planned, ir.ColumnRef):
-                raise SemanticError(
-                    f"MATCH_RECOGNIZE {what} must be a column")
-            return planned.name
-
-        part_syms = [plain_sym(e, "PARTITION BY")
+        part_syms = [_plain_sym(ctx, e, "PARTITION BY")
                      for e in rel.partition_by]
         orderings = []
         for item in rel.order_by:
             orderings.append(N.Ordering(
-                plain_sym(item.expression, "ORDER BY"),
+                _plain_sym(ctx, item.expression, "ORDER BY"),
                 item.ascending, item.nulls_first))
 
         types = inner.node.output_types()
-
-        def rewrite_prev(e: A.Expression) -> A.Expression:
-            """PREV(col [, n]) -> column reference {sym}$prev{n}."""
-            if isinstance(e, A.FunctionCall) and e.name == "prev":
-                col = e.args[0]
-                n = 1
-                if len(e.args) > 1:
-                    if not isinstance(e.args[1], A.NumericLiteral):
-                        raise SemanticError("PREV offset must be a "
-                                            "literal")
-                    n = int(e.args[1].text)
-                sym = plain_sym(col, "PREV argument")
-                return A.Identifier(f"{sym}$prev{n}")
-            if dataclasses.is_dataclass(e):
-                changed = {}
-                for f in dataclasses.fields(e):
-                    v = getattr(e, f.name)
-                    if isinstance(v, A.Expression):
-                        changed[f.name] = rewrite_prev(v)
-                    elif isinstance(v, tuple) and any(
-                            isinstance(x, A.Expression) for x in v):
-                        changed[f.name] = tuple(
-                            rewrite_prev(x)
-                            if isinstance(x, A.Expression) else x
-                            for x in v)
-                if changed:
-                    return dataclasses.replace(e, **changed)
-            return e
 
         # prev-columns extend the scope with the base column's type
         prev_fields = list(inner.scope.fields)
         import re as _re
         defines: dict[str, ir.Expr] = {}
         for var, cond in rel.defines:
-            rewritten = rewrite_prev(cond)
+            rewritten = _rewrite_prev(ctx, cond)
             for m in _re.finditer(r"([A-Za-z_0-9]+)\$prev(\d+)",
                                   repr(rewritten)):
                 base, _n = m.group(1), m.group(2)
@@ -1717,6 +1726,41 @@ class LogicalPlanner:
 
     # -- FROM + WHERE with join-graph construction --------------------------
 
+    def _flatten_from(self, rel: A.Relation, ctes, outer, legs: list,
+                      on_conjuncts: list, unnest_legs: list) -> None:
+        """Flatten a FROM tree of inner/cross/implicit joins into its
+        legs, its ON conjuncts and its UNNEST legs, left to right (a
+        method: a nested function that calls itself is a reference
+        cycle through the planner and its engine)."""
+        if isinstance(rel, A.JoinRelation) and rel.join_type in (
+                "implicit", "cross", "inner") and not rel.using:
+            for side in (rel.left, rel.right):
+                self._flatten_from(side, ctes, outer, legs, on_conjuncts,
+                                   unnest_legs)
+            if rel.on is not None:
+                on_conjuncts.extend(split_conjuncts(rel.on))
+            return
+        if isinstance(rel, A.JoinRelation) and rel.using:
+            legs.append(self.plan_outer_join(rel, ctes, outer))
+            return
+        un, alias, cols = _unwrap_unnest(rel)
+        if un is not None:
+            unnest_legs.append((un, alias, cols))
+            return
+        legs.append(self.plan_relation(rel, ctes, outer))
+
+    def _join_out_est(self, est: int, b: RelationPlan, criteria) -> int:
+        """Estimated output rows of joining ``est`` rows to leg ``b`` on
+        ``criteria`` ((probe, build) symbol pairs)."""
+        syms = frozenset(bs for _, bs in criteria)
+        if any(k <= syms for k in b.unique):
+            return max(int(est * b.sel), 1)
+        ndv = 1
+        for _, bs in criteria:
+            ndv *= max(self.ndv.get(bs, 32), 1)
+        ndv = min(ndv, max(b.est, 1))
+        return max(int(est * b.est / ndv), 1)
+
     def _plan_from_where(self, spec: A.QuerySpec, ctes, outer,
                          decorrelate: bool) -> QState:
         legs: list[RelationPlan] = []
@@ -1724,23 +1768,6 @@ class LogicalPlanner:
         # UNNEST legs are LATERAL (their array expressions may reference
         # earlier legs): collected here and applied after the join graph
         unnest_legs: list[tuple] = []  # (A.Unnest, alias, col_aliases)
-
-        def flatten(rel: A.Relation):
-            if isinstance(rel, A.JoinRelation) and rel.join_type in (
-                    "implicit", "cross", "inner") and not rel.using:
-                flatten(rel.left)
-                flatten(rel.right)
-                if rel.on is not None:
-                    on_conjuncts.extend(split_conjuncts(rel.on))
-                return
-            if isinstance(rel, A.JoinRelation) and rel.using:
-                legs.append(self.plan_outer_join(rel, ctes, outer))
-                return
-            un, alias, cols = _unwrap_unnest(rel)
-            if un is not None:
-                unnest_legs.append((un, alias, cols))
-                return
-            legs.append(self.plan_relation(rel, ctes, outer))
 
         if spec.from_relation is None:
             node = N.Values(["dual"], {"dual": T.BIGINT}, [[1]])
@@ -1751,7 +1778,8 @@ class LogicalPlanner:
                 qs.node = N.Filter(qs.node, planned)
             return qs
 
-        flatten(spec.from_relation)
+        self._flatten_from(spec.from_relation, ctes, outer, legs,
+                           on_conjuncts, unnest_legs)
         if not legs and unnest_legs:
             # FROM UNNEST(...) alone: expand over a one-row dual
             legs.append(RelationPlan(
@@ -1950,23 +1978,13 @@ class LogicalPlanner:
             # customer on c_nationkey = s_nationkey) is a many-to-many
             # explosion; the reference's ReorderJoins costs candidate
             # orders through JoinStatsRule the same way.
-            def out_est(i: int) -> int:
-                b = legs[i]
-                syms = frozenset(bs for _, bs in cands[i])
-                if any(k <= syms for k in b.unique):
-                    return max(int(est * b.sel), 1)
-                ndv = 1
-                for _, bs in cands[i]:
-                    ndv *= max(self.ndv.get(bs, 32), 1)
-                ndv = min(ndv, max(b.est, 1))
-                return max(int(est * b.est / ndv), 1)
-
-            j = min(cands, key=lambda i: (out_est(i), legs[i].est))
+            j = min(cands, key=lambda i: (
+                self._join_out_est(est, legs[i], cands[i]), legs[i].est))
             criteria = cands[j]
             build = legs[j]
             build_syms = frozenset(b for _, b in criteria)
             build_unique = any(k <= build_syms for k in build.unique)
-            est_out = out_est(j)
+            est_out = self._join_out_est(est, build, criteria)
             # the capacity HINT stays conservative: an undersized first
             # guess is fixed by one RETRY_GROWTH recompile, an oversized
             # one allocates est_out-rows of HBM up front (q72's default
@@ -2048,11 +2066,6 @@ class LogicalPlanner:
 
         aggs: dict[str, AggCall] = {}
         agg_syms: dict[A.FunctionCall, tuple[str, T.DataType]] = {}
-
-        def _is_distinct(c: A.FunctionCall) -> bool:
-            # varlen DISTINCT (array_agg(distinct x)) dedups host-side
-            # in exec/varlen.py, not via MarkDistinct
-            return c.distinct and c.name not in AGG.VARLEN_FNS
 
         distinct_calls = [c for c in agg_calls if _is_distinct(c)]
         for call in agg_calls:
@@ -2381,6 +2394,28 @@ class LogicalPlanner:
                 f"{key_type} sort keys")
         raise SemanticError("RANGE frame offsets must be literals")
 
+    def _bound_offset(self, unit: str, key_type, btype, bvalue,
+                      is_start: bool):
+        """A frame bound as a row (or key-unit) offset: positive
+        preceding, negative following, None unbounded."""
+        if btype == "unbounded_preceding":
+            return None if is_start else 0  # degenerate, clamped
+        if btype == "unbounded_following":
+            return None
+        if btype == "current":
+            return 0
+        if unit == "range":
+            k = self._range_offset_value(bvalue, key_type)
+        else:
+            if bvalue is None or not isinstance(
+                    bvalue, A.NumericLiteral) \
+                    or not bvalue.text.isdigit():
+                raise SemanticError(
+                    "frame offsets must be non-negative integer "
+                    "literals")
+            k = int(bvalue.text)
+        return k if btype == "preceding" else -k
+
     def _plan_frame(self, frame_ast: "A.WindowFrame",
                     key_type: T.DataType | None = None):
         """(frame tag, rows_frame, range_frame, groups_frame) of an
@@ -2389,25 +2424,6 @@ class LogicalPlanner:
         GroupsFraming.java); value-based RANGE offsets convert to the
         sort key's physical units (RangeFraming.java)."""
         unit = frame_ast.unit
-
-        def bound_offset(btype, bvalue, is_start):
-            if btype == "unbounded_preceding":
-                return None if is_start else 0  # degenerate, clamped
-            if btype == "unbounded_following":
-                return None
-            if btype == "current":
-                return 0
-            if unit == "range":
-                k = self._range_offset_value(bvalue, key_type)
-            else:
-                if bvalue is None or not isinstance(
-                        bvalue, A.NumericLiteral) \
-                        or not bvalue.text.isdigit():
-                    raise SemanticError(
-                        "frame offsets must be non-negative integer "
-                        "literals")
-                k = int(bvalue.text)
-            return k if btype == "preceding" else -k
 
         start_t, end_t = frame_ast.start_type, frame_ast.end_type
         if start_t == "unbounded_preceding" and end_t in ("current",
@@ -2435,11 +2451,13 @@ class LogicalPlanner:
         # key values / peer groups in [cur - preceding, cur +
         # following], so a start bound negates "following" and an end
         # bound negates "preceding"
-        p = bound_offset(start_t, frame_ast.start_value, True)
+        p = self._bound_offset(unit, key_type, start_t,
+                               frame_ast.start_value, True)
         if end_t is None:
             f = 0  # 'k PRECEDING' alone means k PRECEDING..CURRENT
         else:
-            f = bound_offset(end_t, frame_ast.end_value, False)
+            f = self._bound_offset(unit, key_type, end_t,
+                                   frame_ast.end_value, False)
             if f is not None:
                 f = -f
         if unit == "rows":

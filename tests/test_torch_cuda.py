@@ -1425,3 +1425,52 @@ def test_dev_cache_limit_bounds_card_memory(cuda):
         del e
     assert growth[False] >= 4 * codes
     assert growth[True] <= codes + 4096  # small tensors of the run
+
+
+# -- distributed execution over LocalShardGroup on the card -------------------
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_partitioned_q3_over_eight_card_shards_equals_the_cpu(tpch_pair,
+                                                              backend):
+    """Q3 under PARTITIONED joins over 8 shards of the card: the CPU
+    engine's rows (one device), both exchanges taken."""
+    from presto_tpu_torch.parallel.group import COLLECTIVES, LocalShardGroup
+    from tpch_queries import QUERIES
+    card, host = tpch_pair
+    want = host.execute(QUERIES["q03"])
+    card.session.set("kernel_backend", backend)
+    card.session.set("join_distribution_type", "PARTITIONED")
+    try:
+        COLLECTIVES.reset()
+        got = card.execute(QUERIES["q03"], mesh=LocalShardGroup(8, "cuda"))
+    finally:
+        card.session.set("kernel_backend", "auto")
+        card.session.set("join_distribution_type", "AUTOMATIC")
+    assert got == want
+    assert COLLECTIVES.snapshot()["calls"]["all_to_all"] > 0
+    kinds = {k for _p, k in card.last_dist_meta["used_capacity"]}
+    assert {"probe_exch", "build_exch"} <= kinds
+
+
+@pytest.mark.parametrize("nshards", [2, 8])
+def test_launches_count_a_kernel_once_per_shard(tpch_pair, nshards):
+    """A grouped aggregate over sharded lineitem folds its partial
+    states once on every shard: segment_sum launches as many more times
+    as there are shards (the final merge is one more fold each)."""
+    from presto_tpu_torch.parallel.group import LocalShardGroup
+    card, host = tpch_pair
+    sql = ("select l_returnflag, count(*), sum(l_quantity) from lineitem "
+           "group by l_returnflag order by l_returnflag")
+    want = host.execute(sql)
+    group = LocalShardGroup(nshards, "cuda")
+    card.execute(sql, mesh=group)  # capacities settle
+    launches = {}
+    for g in (group, None):
+        before = B.LAUNCHES.snapshot()["segment_sum"]
+        assert card.execute(sql, mesh=g) == want
+        launches[g is None] = B.LAUNCHES.snapshot()["segment_sum"] - before
+    local = launches[True]
+    # the partial fold per shard, then one final fold of the gathered
+    # states: nshards + 1 times the local query's folds
+    assert launches[False] == (nshards + 1) * local, launches

@@ -415,6 +415,46 @@ def test_a_query_leaves_no_scan_input_to_the_cycle_collector(port):
     assert left == []
 
 
+def test_a_dropped_engine_frees_its_device_copies_at_del(torch_tpch):
+    """P10: an Engine is no reference cycle, so ``del`` frees it and its
+    device copies with the cycle collector off, after queries that
+    plan, optimize, estimate (EXPLAIN, EXPLAIN ANALYZE, a memory
+    budget's estimate), write, and run over a shard group."""
+    import gc
+    import weakref
+
+    from presto_tpu_torch.parallel.group import LocalShardGroup
+    from tpch_queries import QUERIES
+
+    gc.collect()
+    gc.disable()
+    try:
+        e = TorchEngine(device="cpu")
+        e.register_catalog("tpch", torch_tpch)
+        e.register_catalog("memory", MemoryConnector())
+        for sql in ["create table memory.t as select o_orderkey, "
+                    "o_orderstatus from orders",
+                    "select o_orderstatus, count(*) from memory.t "
+                    "group by 1",
+                    "explain " + QUERIES["q05"],
+                    "explain analyze " + QUERIES["q05"],
+                    "select n_name, rank() over (partition by n_regionkey "
+                    "order by n_name) from nation"]:
+            e.execute(sql)
+        e.session.set("query_max_memory_bytes", 1 << 20)
+        e.execute(QUERIES["q05"])
+        e.session.set("query_max_memory_bytes", 0)
+        e.execute(QUERIES["q05"], mesh=LocalShardGroup(4, "cpu"))
+        tensors = [weakref.ref(t) for _h, t in e._dev_cache.values()]
+        assert len(tensors) > 10
+        engine = weakref.ref(e)
+        del e
+        assert engine() is None
+        assert [t for t in tensors if t() is not None] == []
+    finally:
+        gc.enable()
+
+
 def test_lists_cache_dropped_after_update_of_array_table():
     """An ARRAY column's padded layout is cached per host column; an
     UPDATE of its table drops it, and the repeat query equals the
