@@ -13,7 +13,8 @@ PREPARE/EXECUTE, EXPLAIN ANALYZE and cancellation; and the statement
 surface at SF10: CREATE TABLE AS, INSERT, DELETE, UPDATE, DROP TABLE,
 transactions, the metadata catalogs, the query events and the bound of
 the device cache; and distributed execution over 8 shards of the card
-at SF10.
+at SF10; and the cluster tier: four HTTP workers and a coordinator in
+this process, every engine on the card.
 
     python3 chip_smoke.py [--scale 10] [--seed 19920101]
 
@@ -166,28 +167,55 @@ Phases (any failure exits non-zero before the result line):
    the peak device GB and phase 3's local seconds; agg_sum,
    join_lookup and multijoin must run, and the two backends' rows
    agree.
+10. Cluster: ``CLUSTER_WORKERS`` WorkerServers and a ClusterCoordinator
+   in this process, every engine on the card, over loopback HTTP (the
+   launch counts set to 0 just before each cluster query and read just
+   after, so the single-engine runs the rows are held against stay
+   out). C1 tests/
+   test_cluster.py's ``QUERIES`` and Q6 (``CLUSTER_PARTIALS``) at the
+   phase's scale, each in one stage of partial aggregates over the
+   workers' row ranges; the Q1 shape's counts and Q6's revenue against
+   numpy. C4 Q5 at that scale under ``PRESTO_TPU_WIRE=npz`` and
+   ``arrow`` (where pyarrow imports), the native page codec loaded.
+   C2 ``CLUSTER_FRAGMENTS`` as stage DAGs (the orders-lineitem join,
+   Q3, Q5, Q9, lineitem_partsupp, Q3 PARTITIONED) and C3 Q5 under
+   ``retry_policy=TASK`` over the spooled exchange with every task POST
+   to w1 crashing, then with a 4 s straggler under speculation, and
+   C5 tests/test_adaptive.py's poisoned-ledger re-plan, all three at
+   ``CLUSTER_SMALL_SCALE`` (SF1, cut: at SF10 C2 alone took 61 s a
+   pass), C5 held on rows and on its records
+   (``system.adaptive_decisions``, the annotated plan). Rows equal
+   phase 3's (or one engine's), floats within FLOAT_STATE_RTOL. Then
+   one C1 and one C2 case at SF1 with the workers on the card and
+   again on the CPU (the plain versions): equal rows. Each case's line
+   carries cold and timed seconds beside phase 3's, the mode, stages
+   and worker tasks, exchange pages and bytes by codec, the process's
+   host syncs and uploads, launches, the worker operators' and the
+   coordinator's kernel notes, the peak device GB and the system.tasks
+   row count; segment_sum must launch on the workers (``cuda:agg_sum``).
 
 The query lines of phases 3-6 carry the first (cold) pass's time and
 capacity rungs (``cold_s``, ``cold_rungs``) beside the timed pass's:
 the timed pass starts every program from the capacities the first
 remembered (``from_memory``).
 
-    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions,arrays,session,statements,distributed
+    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions,arrays,session,statements,distributed,cluster
 
 (the default) runs the named phases only (a shorter call while a phase
-is worked on; the summary line needs all nine).
+is worked on; the summary line needs all ten).
 
 The queries are the repository's TPC-H texts (tests/tpch_queries.py),
 TPC-DS texts (tests/test_tpcds.py), ``FUNCTION_QUERIES`` and
 ``ARRAY_QUERIES``. The last
 lines are the card, a JSON summary of the kernels (each with the PR
 that last redesigned it, ``redesigned_in``, and its launches summed
-over phases 3 to 9) and ``{"ok": true, "device": {...}}``.
+over phases 3 to 10) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import decimal
 import gc
 import json
@@ -262,7 +290,7 @@ TPCDS_OVER_MEMORY = {
 }
 TPCDS_SCALE = 10.0
 PHASES = ("kernels", "tpch", "tpcds", "functions", "arrays", "session",
-          "statements", "distributed")
+          "statements", "distributed", "cluster")
 TPCDS_SEED = 20030527  # the connector's default, as tests/test_tpcds.py
 
 
@@ -658,26 +686,31 @@ order by r_name""",
            }
 
 
-def independent_checks(conn, rows: dict) -> None:
-    """Q6's revenue, Q1's group counts and Q11's row count recomputed
-    with numpy from the generator's arrays, independent of the
-    engine."""
-    li = conn.table("lineitem").columns
+def _days(s: str) -> int:
+    return int((np.datetime64(s) - np.datetime64("1970-01-01"))
+               .astype(int))
 
-    def days(s):
-        return int((np.datetime64(s) - np.datetime64("1970-01-01"))
-                   .astype(int))
+
+def check_q06(conn, rows) -> None:
+    """Q6's revenue recomputed with numpy from the generator's arrays."""
+    li = conn.table("lineitem").columns
     ship = np.asarray(li["l_shipdate"].data)
     disc = np.asarray(li["l_discount"].data)
     qty = np.asarray(li["l_quantity"].data)
     price = np.asarray(li["l_extendedprice"].data)
-    m = ((ship >= days("1994-01-01")) & (ship < days("1995-01-01"))
+    m = ((ship >= _days("1994-01-01")) & (ship < _days("1995-01-01"))
          & (disc >= 5) & (disc <= 7) & (qty < 2400))
     revenue = int((price[m] * disc[m]).sum())  # scale 4, fits int64
-    got = rows["q06"][0][0]
+    got = rows[0][0]
     if got != decimal.Decimal(revenue).scaleb(-4):
         raise AssertionError(f"Q6 revenue {got} != numpy {revenue}e-4")
-    keep = ship <= days("1998-12-01") - 90
+
+
+def check_q1_counts(conn, rows, count_col: int = -1) -> None:
+    """Q1's group counts (column ``count_col`` of each row) recomputed
+    with numpy from the generator's arrays."""
+    li = conn.table("lineitem").columns
+    keep = np.asarray(li["l_shipdate"].data) <= _days("1998-12-01") - 90
     rf, ls = li["l_returnflag"], li["l_linestatus"]
     codes = (np.asarray(rf.data)[keep].astype(np.int64) * len(ls.dictionary)
              + np.asarray(ls.data)[keep])
@@ -686,9 +719,17 @@ def independent_checks(conn, rows: dict) -> None:
     want = {(rf.dictionary[c // len(ls.dictionary)],
              ls.dictionary[c % len(ls.dictionary)]): int(v)
             for c, v in enumerate(counts) if v}
-    have = {(r[0], r[1]): int(r[-1]) for r in rows["q01"]}
+    have = {(r[0], r[1]): int(r[count_col]) for r in rows}
     if have != want:
         raise AssertionError(f"Q1 counts {have} != numpy {want}")
+
+
+def independent_checks(conn, rows: dict) -> None:
+    """Q6's revenue, Q1's group counts and Q11's row count recomputed
+    with numpy from the generator's arrays, independent of the
+    engine."""
+    check_q06(conn, rows["q06"])
+    check_q1_counts(conn, rows["q01"])
     check_q11(conn, rows["q11"])
 
 
@@ -2768,6 +2809,459 @@ def distributed_phase(conn, local_rows: dict, local_secs: dict) -> dict:
     return launches
 
 
+# -- phase 10: the cluster tier ----------------------------------------------
+
+CLUSTER_WORKERS = 4
+# C1: tests/test_cluster.py's QUERIES (the checksum/approx_distinct
+# states cross the wire) and Q6, through the partial-aggregate path
+CLUSTER_PARTIALS = {
+    "count": "select count(*) from lineitem",
+    "q1_shape": "select l_returnflag, l_linestatus, sum(l_quantity) as q, "
+                "count(*) as c, avg(l_extendedprice) as a, "
+                "min(l_discount) as mn, max(l_tax) as mx from lineitem "
+                "where l_shipdate <= date '1998-09-02' "
+                "group by l_returnflag, l_linestatus "
+                "order by l_returnflag, l_linestatus",
+    "shipmode_top3": "select l_shipmode, "
+                     "sum(l_extendedprice * (1 - l_discount)) as rev "
+                     "from lineitem group by l_shipmode "
+                     "order by rev desc limit 3",
+    "checksum": "select l_returnflag, checksum(l_partkey) as ck, "
+                "approx_distinct(l_suppkey) as ad from lineitem "
+                "group by l_returnflag order by l_returnflag",
+    "q06": TPCH["q06"],
+}
+# C2: stage DAGs (test_join_distributes_as_fragments's join, Q3, Q5,
+# Q9, lineitem_partsupp and Q3 with PARTITIONED joins)
+CLUSTER_JOIN = ("select o_orderpriority, count(*) as c from orders, "
+                "lineitem where o_orderkey = l_orderkey "
+                "group by o_orderpriority order by o_orderpriority")
+CLUSTER_FRAGMENTS = {
+    "join": (CLUSTER_JOIN, {}),
+    "q03": (TPCH["q03"], {}),
+    "q05": (TPCH["q05"], {}),
+    "q09": (TPCH["q09"], {}),
+    "lineitem_partsupp": (QUERIES["lineitem_partsupp"], {}),
+    "q03 PARTITIONED": (TPCH["q03"],
+                        {"join_distribution_type": "partitioned"}),
+}
+# C2, C3, C5 and the plain-version cases run at SF1, cut from the
+# phase's scale: at SF10 the six C2 queries took 61.2 s a pass (q09
+# 26.1 s, q05 15.7 s; NVIDIA H100 80GB HBM3, 700 W), their exchanges
+# 0.4-2.1 GB of pages over loopback HTTP each, and C5's expanding join
+# of supplier and customer on the nation key holds 1.2e9 rows. C1 and
+# C4 run at the phase's scale
+CLUSTER_SMALL_SCALE = 1.0
+# C5: tests/test_adaptive.py's poisoned-ledger re-plan
+CLUSTER_ADAPTIVE_SQL = (
+    "select s_nationkey, count(*) as c from supplier, customer "
+    "where s_nationkey = c_nationkey and c_mktsegment = 'BUILDING' "
+    "group by s_nationkey order by s_nationkey")
+CLUSTER_POISON_KEY = ("tpch.customer", "eq(c_mktsegment, ?)")
+CLUSTER_JOIN_KERNELS = ("build_table", "probe_table", "multijoin_walk",
+                        "filter_compact")
+
+
+@contextlib.contextmanager
+def cluster(conn, device="cuda", spool_dir=None, **props):
+    """``CLUSTER_WORKERS`` WorkerServers in this process over one
+    catalog, their engines on ``device``, and a started
+    ClusterCoordinator whose own engine is on the card (session
+    ``props`` set); everything stops on exit, on failure too."""
+    from presto_tpu_torch import Engine
+    from presto_tpu_torch.parallel.coordinator import ClusterCoordinator
+    from presto_tpu_torch.parallel.worker import WorkerServer
+    workers, coord = [], None
+    try:
+        for i in range(CLUSTER_WORKERS):
+            workers.append(WorkerServer(
+                {"tpch": conn}, node_id=f"w{i}", spool_dir=spool_dir,
+                device=device).start())
+        local = Engine(device="cuda")
+        local.register_catalog("tpch", conn)
+        local.session.catalog = "tpch"
+        for k, v in props.items():
+            local.session.set(k, v)
+        coord = ClusterCoordinator(local, heartbeat_interval_s=0.5)
+        for w in workers:
+            coord.add_worker(w.uri)
+        yield coord.start()
+    finally:
+        if coord is not None:
+            coord.stop()
+        for w in workers:
+            w.stop()
+
+
+def wait_all_live(coord, timeout_s: float = 60.0) -> None:
+    """Until the heartbeats have every worker schedulable again."""
+    deadline = time.monotonic() + timeout_s
+    while len(coord.live_workers()) < len(coord.workers):
+        if time.monotonic() > deadline:
+            raise AssertionError(
+                f"{len(coord.live_workers())} of {len(coord.workers)} "
+                f"workers live after {timeout_s:g} s")
+        time.sleep(0.1)
+
+
+def cluster_run(coord, sql: str, **props) -> dict:
+    """One run of ``sql`` on the cluster with session ``props``
+    (restored after): rows, seconds (a device synchronize on either
+    side), the distribution, the stage tree's stages and worker tasks,
+    exchange pages and bytes by codec (pulled by the tasks), retries,
+    host syncs and uploads of the whole process (the workers and the
+    coordinator), launches per kernel, the counts set to 0 just before
+    ``coord.execute`` and read just after (the workers' tasks and the
+    coordinator's own stage), the kernels the worker tasks' operators
+    noted, those the coordinator's engine noted, the process's peak
+    device GB and the query's system.tasks row count."""
+    import torch
+
+    from presto_tpu_torch.exec import hostsync as HS
+    from presto_tpu_torch.kernels import build as B
+    from presto_tpu_torch.obs import qstats as QS
+    engine = coord.engine
+    before = {k: engine.session.get(k) for k in props}
+    for k, v in props.items():
+        engine.session.set(k, v)
+    syncs0, up0 = HS.SYNCS.total(), HS.UPLOADS.total()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        B.LAUNCHES.reset()
+        t = time.perf_counter()
+        rows = coord.execute(sql)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = {k: n for k, n in B.LAUNCHES.snapshot().items() if n}
+    finally:
+        for k, v in before.items():
+            engine.session.set(k, v)
+    syncs = HS.SYNCS.total() - syncs0
+    uploads = HS.UPLOADS.total() - up0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    coordinator_kernels = sorted({
+        tag for tags in engine.last_kernel_notes.values() for tag in tags})
+    dist = dict(coord.last_distribution or {})
+    qid = engine.events.history[-1].query_id
+    snap = QS.STORE.get(qid).snapshot()
+    tasks = [t for s in snap["stages"] if s["stage"] != "coordinator"
+             for t in s["tasks"]]
+    by_codec: dict[str, int] = {}
+    for t in tasks:
+        for codec, n in (t.get("exchangeBytesByCodec") or {}).items():
+            by_codec[codec] = by_codec.get(codec, 0) + n
+    system_tasks = int(engine.execute(
+        "select count(*) from system.tasks "
+        f"where query_id = '{qid}'")[0][0])
+    return {"rows": rows, "s": secs,
+            "mode": dist.get("mode", "partials"),
+            "nshards": dist.get("nshards"), "stages": dist.get("stages"),
+            "partial_rows": dist.get("partial_rows"),
+            "worker_tasks": len(tasks),
+            "task_retries": snap["taskRetries"],
+            "exchange_pages": sum(t["exchangePages"] for t in tasks),
+            "exchange_bytes_by_codec": by_codec,
+            "pages_emitted": sum(t["pagesEmitted"] for t in tasks),
+            "host_syncs": syncs, "uploads": uploads,
+            "launches": launches,
+            "worker_kernels": sorted({
+                k for t in tasks for op in t["operators"]
+                for k in (op.get("kernel") or "").split(",") if k}),
+            "coordinator_kernels": coordinator_kernels,
+            "peak_gb": peak, "system_tasks_rows": system_tasks,
+            "distribution": dist}
+
+
+def _cluster_line(case: str, got: dict, **more) -> None:
+    log("cluster " + json.dumps({
+        "case": case, "workers": CLUSTER_WORKERS,
+        **{k: v for k, v in got.items()
+           if k not in ("rows", "distribution")}, **more},
+        default=str))
+
+
+def cluster_cases(conn, small_conn, local_rows: dict,
+                  local_secs: dict) -> dict:
+    """C1-C5 with every engine on the card: {case: rows}, the worker
+    and coordinator kernel notes, and the launches per kernel summed
+    over the cluster queries (the reference rows each case is held
+    against are run outside their counts). C1 and C4 over ``conn``, C2,
+    C3 and C5 over ``small_conn``. ``local_rows`` holds phase 3's
+    single-engine rows of the queries it ran over ``conn``,
+    ``local_secs`` their timed seconds. A query without such rows is
+    held against the coordinator's own engine running it alone."""
+    import os
+    import shutil
+    import tempfile
+
+    from presto_tpu_torch import native
+    from presto_tpu_torch.ft.faults import FAULTS
+    from presto_tpu_torch.obs.metrics import REGISTRY
+    from presto_tpu_torch.parallel import wire
+
+    out, notes, coord_notes, launched = {}, set(), set(), {}
+
+    def run(coord, sql, **props):
+        got = cluster_run(coord, sql, **props)
+        for k, n in got["launches"].items():
+            launched[k] = launched.get(k, 0) + n
+        notes.update(got["worker_kernels"])
+        coord_notes.update(got["coordinator_kernels"])
+        return got
+
+    def twice(coord, case, sql, want, **props):
+        cold = run(coord, sql, **props)
+        got = run(coord, sql, **props)
+        if got["rows"] != cold["rows"]:
+            raise AssertionError(f"{case}: the repeat differs")
+        if not rows_close(got["rows"], want):
+            raise AssertionError(f"{case}: rows differ from one engine's")
+        return {**got, "cold_s": cold["s"],
+                "cold_host_syncs": cold["host_syncs"],
+                "cold_uploads": cold["uploads"]}
+
+    # C1: the partial-aggregate path at the phase's scale
+    with cluster(conn) as coord:
+        for name, sql in CLUSTER_PARTIALS.items():
+            want = local_rows.get(name)
+            if want is None:
+                # a query phase 3 does not run: the coordinator's own
+                # engine runs it alone
+                want = coord.engine.execute(sql)
+            got = twice(coord, f"C1 {name}", sql, want)
+            # the partials mode: one stage of partial aggregates whose
+            # states the coordinator finishes (the general fragmenter's
+            # one-stage DAG, or _execute_partial_fragments where it
+            # declines the plan)
+            if got["nshards"] != CLUSTER_WORKERS \
+                    or got["partial_rows"] is None \
+                    or got["stages"] not in (None, 1):
+                raise AssertionError(f"C1 {name}: {got['distribution']}")
+            out[f"C1 {name}"] = got["rows"]
+            _cluster_line(f"C1 {name}", got,
+                          local_s=local_secs.get(name))
+        check_q1_counts(conn, out["C1 q1_shape"], count_col=3)
+        check_q06(conn, out["C1 q06"])
+        log("cluster C1: numpy checks of the Q1 shape and Q6: ok")
+        q05 = local_rows.get("q05")
+        if q05 is None:
+            q05 = coord.engine.execute(TPCH["q05"])
+        # C4: the two page codecs
+        if native.codec() is None:
+            raise AssertionError("C4: the native page codec did not "
+                                 "load")
+        log("cluster " + json.dumps({
+            "case": "C4 codec", "have_arrow": wire.have_arrow(),
+            "native_build_s": native.BUILD_SECONDS,
+            "native_library": native._lib_path()}))
+        saved = os.environ.get("PRESTO_TPU_WIRE")
+        codecs = ["npz"] + (["arrow"] if wire.have_arrow() else [])
+        try:
+            for codec in codecs:
+                os.environ["PRESTO_TPU_WIRE"] = codec
+                got = run(coord, TPCH["q05"])
+                if not rows_close(got["rows"], q05) or \
+                        not got["exchange_bytes_by_codec"].get(codec):
+                    raise AssertionError(
+                        f"C4 {codec}: "
+                        f"{got['exchange_bytes_by_codec']}")
+                out[f"C4 {codec}"] = got["rows"]
+                _cluster_line(f"C4 q05 PRESTO_TPU_WIRE={codec}", got,
+                              scale=conn.scale,
+                              local_s=local_secs.get("q05"))
+        finally:
+            if saved is None:
+                os.environ.pop("PRESTO_TPU_WIRE", None)
+            else:
+                os.environ["PRESTO_TPU_WIRE"] = saved
+
+    spool = tempfile.mkdtemp(prefix="presto_tpu_torch_spool_")
+    try:
+        with cluster(small_conn, spool_dir=spool) as coord:
+            # C2: stage DAGs
+            for name, (sql, props) in CLUSTER_FRAGMENTS.items():
+                want = coord.engine.execute(sql)
+                got = twice(coord, f"C2 {name}", sql, want, **props)
+                if got["mode"] != "fragments" or got["stages"] < 2:
+                    raise AssertionError(
+                        f"C2 {name}: {got['distribution']}")
+                out[f"C2 {name}"] = got["rows"]
+                _cluster_line(f"C2 {name}", got, props=props,
+                              scale=small_conn.scale)
+            small_q05 = out["C2 q05"]
+            # C3: TASK retries over the spooled exchange, a crash of
+            # every task POST on w1
+            FAULTS.arm("worker-task-crash", prob=1.0, seed=7, match="w1")
+            try:
+                got = run(coord, TPCH["q05"], retry_policy="TASK",
+                          exchange_spooling=True)
+            finally:
+                FAULTS.clear()
+            if not rows_close(got["rows"], small_q05) \
+                    or got["distribution"].get("task_retries", 0) < 1:
+                raise AssertionError(f"C3 crash: {got['distribution']}")
+            out["C3 crash"] = got["rows"]
+            _cluster_line("C3 q05 TASK retry, w1 crashes", got,
+                          fault="worker-task-crash w1",
+                          scale=small_conn.scale)
+            wait_all_live(coord)
+            # ... and a straggler under speculation: the first fetch
+            # from a side1 producer stalls 4 s, a duplicate wins
+            attempts = REGISTRY.counter(
+                "presto_tpu_speculative_attempts_total")
+            wins = REGISTRY.counter("presto_tpu_speculative_wins_total")
+            a0, w0 = attempts.value(), wins.value()
+            FAULTS.arm("exchange-fetch-delay", prob=1.0, match=".side1.",
+                       limit=1, delay_s=4.0)
+            try:
+                got = run(coord, TPCH["q05"], retry_policy="TASK",
+                          speculative_execution=True,
+                          speculation_min_runtime_s=0.3,
+                          speculation_threshold=1.5)
+            finally:
+                FAULTS.clear()
+            spec = {"attempts": attempts.value() - a0,
+                    "wins": wins.value() - w0}
+            if not rows_close(got["rows"], small_q05) \
+                    or spec["attempts"] < 1:
+                raise AssertionError(f"C3 straggler: {spec}")
+            out["C3 straggler"] = got["rows"]
+            _cluster_line("C3 q05 straggler under speculation", got,
+                          speculation=spec,
+                          fault="exchange-fetch-delay .side1. 4 s",
+                          scale=small_conn.scale)
+            wait_all_live(coord)
+    finally:
+        shutil.rmtree(spool, ignore_errors=True)
+
+    # C5: the poisoned-ledger re-plan, on rows and records
+    out["C5"] = adaptive_case(small_conn, run)
+    out["notes"] = sorted(notes)
+    out["coordinator_notes"] = sorted(coord_notes)
+    out["launches"] = launched
+    return out
+
+
+def adaptive_case(conn, run) -> list:
+    """C5: tests/test_adaptive.py's chaos run over ``conn`` under
+    retry_policy=TASK, each query through ``run`` (cluster_run's
+    signature): with the ledger poisoned (customer's segment filter
+    claimed to keep 1/1500 of its rows), the static plan broadcasts the
+    customer side; the adaptive run re-plans the rest after that stage
+    (the join flipped to partitioned, its capacity re-bucketed). Both
+    equal one engine's rows; the flip is in ``last_distribution``, the
+    annotated plan and ``system.adaptive_decisions``. Returns the
+    adaptive run's rows."""
+    from presto_tpu_torch.obs import qstats as QS
+
+    # between the poisoned estimate of the filtered customers (1/1500
+    # of them) and their true number (1/5), as 64 is at SF0.01
+    threshold = max(64, int(conn.table("customer").nrows) // 150)
+
+    def poison():
+        # the earlier real observations of the same predicate (Q3's
+        # segment filter, in phase 3 and in C2) go first: they would
+        # pull the poisoned mean back over the line
+        QS.DIVERGENCE.forget_selectivity(*CLUSTER_POISON_KEY)
+        for _ in range(400):
+            QS.DIVERGENCE.observe_selectivity(*CLUSTER_POISON_KEY, 1500, 1)
+
+    with cluster(conn, retry_policy="TASK",
+                 broadcast_join_threshold_rows=threshold) as coord:
+        want = coord.engine.execute(CLUSTER_ADAPTIVE_SQL)
+        try:
+            poison()
+            static = run(coord, CLUSTER_ADAPTIVE_SQL,
+                         adaptive_replanning=False)
+            poison()  # the static run recorded real observations
+            adapt = run(coord, CLUSTER_ADAPTIVE_SQL,
+                        adaptive_replanning=True)
+        finally:
+            QS.DIVERGENCE.forget_selectivity(*CLUSTER_POISON_KEY)
+        kinds = {d["kind"]
+                 for d in adapt["distribution"].get("adaptive", [])}
+        audit = coord.engine.execute(
+            "select kind, old_strategy, new_strategy "
+            "from system.adaptive_decisions "
+            "where kind = 'join-distribution'")
+        if not (rows_close(static["rows"], want)
+                and adapt["rows"] == static["rows"]
+                and adapt["distribution"].get("replans", 0) >= 1
+                and "join-capacity" in kinds
+                and "replanned: broadcast->partitioned"
+                in (coord.last_adaptive_explain or "")
+                and ("join-distribution", "broadcast", "partitioned")
+                in [tuple(r) for r in audit]):
+            raise AssertionError(f"C5: {adapt['distribution']}, {audit}")
+        reduced = (f"SF{conn.scale:g}: the expanding join holds 1.2e9 "
+                   "rows at SF10")
+        _cluster_line("C5 static (poisoned ledger)", static,
+                      reduced=reduced, threshold=threshold)
+        _cluster_line("C5 adaptive re-plan", adapt, reduced=reduced,
+                      threshold=threshold, decisions=sorted(kinds))
+    return adapt["rows"]
+
+
+def plain_cluster_cases(small_conn) -> None:
+    """One C1 and one C2 case at SF1 with the workers on the card and
+    again on the CPU (every kernel replaced by its plain version; the
+    coordinator's engine stays on the card): equal rows."""
+    for case, sql in (("C1 q1_shape", CLUSTER_PARTIALS["q1_shape"]),
+                      ("C2 join", CLUSTER_JOIN)):
+        got = {}
+        for workers in ("cuda", "cpu"):
+            with cluster(small_conn, workers) as coord:
+                got[workers] = cluster_run(coord, sql)
+        if not rows_close(got["cpu"]["rows"], got["cuda"]["rows"]):
+            raise AssertionError(f"{case} SF{small_conn.scale:g}: CPU "
+                                 "workers differ from card workers")
+        for workers, run in got.items():
+            _cluster_line(f"{case} SF{small_conn.scale:g} workers on "
+                          f"{workers}", run)
+
+
+def cluster_local_rows(conn) -> tuple[dict, dict]:
+    """Phase 3's rows and timed seconds of the queries phase 10 holds,
+    on one engine (for ``--phases cluster`` alone)."""
+    from presto_tpu_torch import Engine
+    engine = Engine()
+    engine.register_catalog("tpch", conn)
+    queries = {q: QUERIES[q] for q in ("q03", "q05", "q06", "q09",
+                                       "lineitem_partsupp")}
+    run_queries(engine, queries, "cuda")
+    rows, secs, _notes = run_queries(engine, queries, "cuda")
+    return rows, {q: {"s": secs[q]} for q in queries}
+
+
+def cluster_phase(conn, scale: float, seed: int, local_rows: dict,
+                  local_secs: dict) -> dict:
+    """C1-C5 with every engine on the card, then the plain-version
+    cases at SF1. Returns the cluster queries' launches per kernel."""
+    small = (conn if scale == CLUSTER_SMALL_SCALE
+             else tpch_data(CLUSTER_SMALL_SCALE, seed))
+    log(f"cluster C2, C3 and C5 at SF{CLUSTER_SMALL_SCALE:g} (reduced "
+        f"from SF{scale:g})")
+    t = time.perf_counter()
+    got = cluster_cases(conn, small, local_rows, local_secs)
+    launches = got["launches"]
+    log(f"cluster cuda cases: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    plain_cluster_cases(small)
+    log(f"cluster plain-version cases: {time.perf_counter() - t:.1f} s")
+    log("cluster launches " + json.dumps(launches))
+    log("cluster " + json.dumps({
+        "case": "join kernels",
+        "launched": {k: launches.get(k, 0) for k in CLUSTER_JOIN_KERNELS},
+        "worker_kernels": got["notes"],
+        "coordinator_kernels": got["coordinator_notes"]}))
+    if launches.get("segment_sum", 0) < 1 \
+            or "cuda:agg_sum" not in got["notes"]:
+        raise AssertionError("segment_sum did not launch on the workers: "
+                             f"{launches}, {got['notes']}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -2856,6 +3350,19 @@ def main() -> int:
         launches = add(distributed_phase(
             conn, tpch_rows, {q: v["s"] for q, v in tpch_queries.items()}))
         log(f"distributed phase: {time.perf_counter() - t:.1f} s")
+    if "cluster" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        conn = conn or tpch_data(args.scale, args.seed)
+        if not tpch_rows:
+            # phases 3 and 9 did not run: the single-engine rows and
+            # times of the queries phase 10 holds
+            tpch_rows, tpch_queries = cluster_local_rows(conn)
+        launches = add(cluster_phase(
+            conn, args.scale, args.seed, tpch_rows,
+            {q: v["s"] for q, v in tpch_queries.items()}))
+        log(f"cluster phase: {time.perf_counter() - t:.1f} s")
     if phases != set(PHASES):
         log(f"phases {sorted(phases)} passed; no summary without all "
             f"{len(PHASES)}")

@@ -119,17 +119,18 @@ class SystemConnector(_ReflectiveConnector):
     tables of the ``system.runtime`` schema, and a session-properties
     table mirroring the jdbc/metadata ones).
 
-    ``nodes`` (the one coordinator row), ``queries`` (from
-    ``engine.events``), ``session_properties``, and ``result_cache``
-    and ``query_history`` (empty, as the reference's are with no
-    serving view and no history directory) give their rows. ``tasks``,
-    ``operator_stats``, ``plan_divergence`` and
-    ``adaptive_decisions`` read the reference's runtime-stats
-    recorders (``obs/qstats``), which are not in the port yet (ROADMAP
-    Queue 1 item 11): they keep their schemas, so DESCRIBE and
-    ``information_schema.columns`` show them, but a scan of their rows
-    raises ``NotImplementedError`` rather than return an empty table
-    the reference would fill."""
+    The stats-backed tables (``tasks``, ``operator_stats``,
+    ``plan_divergence``, ``adaptive_decisions``) read the live
+    obs/qstats recorders, so a running query's tasks are visible to a
+    concurrent ``SELECT * FROM system.tasks``. ``nodes`` lists the
+    coordinator and, under a ``ClusterCoordinator``, every registered
+    worker's heartbeat-observed state. ``query_history`` reads the
+    engine's ``QueryHistory`` (``PRESTO_TPU_HISTORY_DIR``) and
+    ``result_cache`` stays empty: the serving tier is not in the port
+    yet (ROADMAP Queue 1 item 9). The device-cost columns of
+    ``operator_stats`` (``flops``, ``hbm_bytes``, ``intensity``,
+    ``roofline``) are 0: the reference fills them from ``obs/devprof``,
+    which is ROADMAP Queue 1 item 11."""
 
     name = "system"
 
@@ -214,30 +215,116 @@ class SystemConnector(_ReflectiveConnector):
         },
     }
 
-    # the tables that read obs/qstats's recorders
-    QSTATS_TABLES = ("tasks", "operator_stats", "plan_divergence",
-                     "adaptive_decisions")
-
     def _rows(self, name: str) -> list[tuple]:
         if name == "nodes":
-            return [("coordinator", "local://0", "presto-tpu", "true",
-                     "active", 0)]
+            return self._node_rows()
         if name == "queries":
             return [(e.query_id, e.state, e.user, e.sql,
                      e.output_rows, int(e.elapsed_ms), e.error or "")
                     for e in self.engine.events.history]
-        if name in self.QSTATS_TABLES:
-            raise NotImplementedError(
-                f"system.runtime.{name} reads the runtime-stats "
-                "recorders (obs/qstats), which are not ported to "
-                "presto_tpu_torch yet (ROADMAP Queue 1 item 11)")
-        if name in ("query_history", "result_cache"):
-            # no history directory and no serving view in the port
-            return []
+        if name == "tasks":
+            return self._task_rows()
+        if name == "operator_stats":
+            return self._operator_rows()
+        if name == "plan_divergence":
+            from presto_tpu_torch.obs.qstats import DIVERGENCE
+            return [(r["query_id"], r["stage"], r["plan_node_id"],
+                     r["node_type"], r["table"], r["est_rows"],
+                     r["actual_rows"], float(r["ratio"]))
+                    for r in DIVERGENCE.records()]
+        if name == "adaptive_decisions":
+            from presto_tpu_torch.obs.qstats import ADAPTIVE
+            return [(r["query_id"], r["stage"], r["kind"],
+                     r["node_type"], r["detail"], r["est_rows"],
+                     r["actual_rows"], r["old_strategy"],
+                     r["new_strategy"])
+                    for r in ADAPTIVE.records()]
+        if name == "query_history":
+            history = getattr(self.engine, "history", None)
+            if history is None:
+                return []
+            return [(str(r.get("query_id") or ""),
+                     str(r.get("state") or ""),
+                     str(r.get("user") or ""),
+                     str(r.get("query") or ""),
+                     int(r.get("output_rows") or 0),
+                     int(float(r.get("elapsed_ms") or 0)),
+                     float(r.get("create_time") or 0.0),
+                     str(r.get("error") or ""))
+                    for r in history.records()]
         if name == "session_properties":
             from presto_tpu_torch.session import SYSTEM_SESSION_PROPERTIES
             return [(n, str(self.engine.session.get(n)), str(d),
                      t.__name__, desc)
                     for n, (d, t, desc) in sorted(
                         SYSTEM_SESSION_PROPERTIES.items())]
+        if name == "result_cache":
+            # no serving view in the port
+            return []
         raise KeyError(name)
+
+    def _node_rows(self) -> list[tuple]:
+        """The coordinator plus every registered worker's
+        heartbeat-observed state (alive / draining / dead / joining)
+        and active task count."""
+        rows = [("coordinator", "local://0", "presto-tpu", "true",
+                 "active", 0)]
+        cluster = getattr(self.engine, "_cluster_view", None)
+        if cluster is None:
+            return rows
+        for w in list(cluster.workers):
+            if w.state == "joining":
+                # a joining node has no heartbeat history yet; its
+                # decayed failure ratio must not label it dead
+                state = "joining"
+            elif not w.alive:
+                state = "dead"
+            elif w.state == "shutting_down":
+                state = "draining"
+            else:
+                state = "active"
+            rows.append((w.node_id or w.uri, w.uri, "presto-tpu",
+                         "false", state, int(w.active_tasks)))
+        return rows
+
+    def _stage_tasks(self):
+        """(query_id, stage, task dict) across every tracked query:
+        remote stages first, then the coordinator-local stage."""
+        from presto_tpu_torch.obs.qstats import STORE
+        out = []
+        for rec in STORE.recorders():
+            snap = rec.snapshot()
+            for stage in snap["stages"]:
+                for t in stage["tasks"]:
+                    out.append((snap["queryId"], stage["stage"], t))
+        return out
+
+    def _task_rows(self) -> list[tuple]:
+        return [
+            (qid, stage, t["taskId"], t["node"], t["state"],
+             int(t["shard"]), int(t["inputRows"]),
+             int(t["outputRows"]), int(t["exchangePages"]),
+             int(t["exchangeBytes"]),
+             int((t.get("exchangeBytesByCodec") or {})
+                 .get("arrow", 0)),
+             int((t.get("exchangeBytesByCodec") or {}).get("npz", 0)),
+             int(t["spooledPages"]),
+             int(t["programs"]), int(t["compiles"]),
+             int(t["cacheHits"]), int(t["templateHits"]),
+             int(t["retries"]), int(t["compileMillis"]),
+             int(t["executeMillis"]), int(t["wallMillis"]),
+             int(t["peakMemoryBytes"]))
+            for qid, stage, t in self._stage_tasks()]
+
+    def _operator_rows(self) -> list[tuple]:
+        return [
+            (qid, stage, t["taskId"], str(op["planNodeId"]),
+             op["nodeType"], op["label"], int(op["inputRows"]),
+             int(op["outputRows"]), int(op["outputBytes"]),
+             int(op["estRows"]), str(op.get("kernel") or ""),
+             int(op.get("wallMillis") or 0),
+             int(op.get("flops") or 0), int(op.get("hbmBytes") or 0),
+             float(op.get("intensity") or 0.0),
+             float(op.get("roofline") or 0.0))
+            for qid, stage, t in self._stage_tasks()
+            for op in t["operators"]]

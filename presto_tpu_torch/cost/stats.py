@@ -217,10 +217,11 @@ class StatsCalculator:
 
     @staticmethod
     def _ledger():
-        """The divergence ledger (observed selectivity and NDV). The
-        port has no query-stats module yet, so the ledger is always
-        empty and every estimate is the static rule's."""
-        return _EMPTY_LEDGER
+        """The divergence ledger: per-(table, predicate-shape) observed
+        selectivity and per-(table, keys) observed NDV. Lazy import —
+        obs/qstats imports this module for predicate_shape."""
+        from presto_tpu_torch.obs.qstats import DIVERGENCE
+        return DIVERGENCE
 
     @staticmethod
     def _scan_table(node: N.PlanNode) -> str | None:
@@ -559,15 +560,3 @@ class StatsCalculator:
             max(rows, 1.0), {**left.symbols, **right.symbols},
             left.confident and right.confident)
 
-
-class _EmptyLedger:
-    """Stand-in for the reference's divergence ledger: no observations."""
-
-    def observed_selectivity(self, table: str, shape: str):
-        return None
-
-    def observed_ndv(self, table: str, keys: tuple):
-        return None
-
-
-_EMPTY_LEDGER = _EmptyLedger()

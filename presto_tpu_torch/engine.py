@@ -30,6 +30,8 @@ in place, and the caches key on the host array's identity.
 from __future__ import annotations
 
 import contextlib
+import os
+import threading
 import time
 
 import numpy as np
@@ -74,6 +76,20 @@ class Engine:
         # query lifecycle events and the history behind
         # system.runtime.queries
         self.events = EventListenerManager()
+        # persisted query history + divergence-ledger persistence
+        # (obs/qstats.py): finished-query profiles append to a bounded
+        # JSONL under PRESTO_TPU_HISTORY_DIR and survive restarts,
+        # backing system.query_history
+        self.history = None
+        hist_dir = os.environ.get("PRESTO_TPU_HISTORY_DIR")
+        if hist_dir:
+            from presto_tpu_torch.obs.qstats import DIVERGENCE, QueryHistory
+            try:
+                self.history = QueryHistory(hist_dir)
+                self.events.add_listener(self.history.on_event)
+                DIVERGENCE.attach_dir(hist_dir)
+            except OSError:
+                self.history = None  # unwritable dir: run without
         # host array id -> (host ref, device tensor): scan columns go to
         # the device once per (table, column); the strong host ref pins
         # the id so a recycled address cannot alias. The host bytes are
@@ -82,6 +98,10 @@ class Engine:
         # at every scan, so each scan brings a fresh codes array
         self._dev_cache: dict[int, tuple[np.ndarray, torch.Tensor]] = {}
         self._dev_cache_bytes = 0
+        # guards the cache and its ledger: a cluster worker's HTTP
+        # handler threads and a coordinator's finishing threads upload
+        # into one engine at once
+        self._dev_cache_lock = threading.Lock()
         self.dev_cache_limit = 8 << 30
         # host list column id -> (host ref, its padded 2-D layout)
         self._lists_cache: dict[int, tuple[np.ndarray, tuple]] = {}
@@ -133,14 +153,19 @@ class Engine:
 
     def resident(self, a) -> torch.Tensor | None:
         """The device copy of a host scan array if the engine holds one."""
-        hit = self._dev_cache.get(id(a))
+        with self._dev_cache_lock:
+            hit = self._dev_cache.get(id(a))
         return hit[1] if hit is not None and hit[0] is a else None
 
     def device_array(self, a) -> torch.Tensor:
         """The device copy of a host scan array, uploaded once and kept
         until a write drops it or, above ``dev_cache_limit`` bytes, newer
         copies push it out (oldest first). A copy that a running program
-        still holds lives on until its last reference goes."""
+        still holds lives on until its last reference goes. Thread-safe:
+        the lookup and the insert hold ``_dev_cache_lock``, the upload
+        runs outside it, and a thread that lost the race to publish
+        returns the copy already published (its own upload is dropped),
+        as the reference's ``device_array`` does."""
         dev = self.resident(a)
         if dev is not None:
             return dev
@@ -152,13 +177,17 @@ class Engine:
         if not host.flags.writeable:
             host = host.copy()
         dev = HS.upload(host, self.device, "scan-column")
-        self._dev_cache[id(a)] = (a, dev)
-        self._dev_cache_bytes += host.nbytes
-        while (self._dev_cache_bytes > self.dev_cache_limit
-               and len(self._dev_cache) > 1):
-            old, _ = self._dev_cache.pop(next(iter(self._dev_cache)))
-            self._dev_cache_bytes -= np.asarray(old).nbytes
-        return dev
+        with self._dev_cache_lock:
+            hit = self._dev_cache.get(id(a))
+            if hit is not None and hit[0] is a:
+                return hit[1]  # raced: keep the published copy
+            self._dev_cache[id(a)] = (a, dev)
+            self._dev_cache_bytes += host.nbytes
+            while (self._dev_cache_bytes > self.dev_cache_limit
+                   and len(self._dev_cache) > 1):
+                old, _ = self._dev_cache.pop(next(iter(self._dev_cache)))
+                self._dev_cache_bytes -= np.asarray(old).nbytes
+            return dev
 
     def invalidate_device_cache(self) -> None:
         """Drop every device copy of a host array: the scan columns and
@@ -168,8 +197,9 @@ class Engine:
         dictionaries, which a connector never mutates in place (a
         memory table's are made afresh at every scan, by
         ``block.column_from_numpy``)."""
-        self._dev_cache.clear()
-        self._dev_cache_bytes = 0
+        with self._dev_cache_lock:
+            self._dev_cache.clear()
+            self._dev_cache_bytes = 0
         self._lists_cache.clear()
         self._shard_orders.clear()
 
@@ -270,7 +300,10 @@ class Engine:
         finally:
             C.install(None)
 
-    def plan_sql(self, sql: str):
+    def plan_sql(self, sql: str, enable_latemat: bool | None = None):
+        """(plan, analysis) of ``sql``. ``enable_latemat`` overrides the
+        session's late materialization (the cluster coordinator plans
+        with it off: the fragmenter cannot stage its re-join)."""
         from presto_tpu_torch.plan.optimizer import optimize
         from presto_tpu_torch.plan.planner import LogicalPlanner
         from presto_tpu_torch.sql.analyzer import Analyzer
@@ -282,7 +315,7 @@ class Engine:
             self._planning_checkpoint(t0)
             plan = LogicalPlanner(self, analysis).plan(stmt)
             self._planning_checkpoint(t0)
-            plan = optimize(plan, self)
+            plan = optimize(plan, self, enable_latemat=enable_latemat)
             self._planning_checkpoint(t0)
         return plan, analysis
 

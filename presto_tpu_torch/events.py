@@ -106,27 +106,33 @@ class EventListenerManager:
 
 def monitored(engine, sql: str, run: Callable):
     """Run ``run()`` under query monitoring: emits created/completed
-    events, records history and opens the query's root span (a child
-    span when a trace is already active). Returns run()'s result.
+    events, records history, opens the query's root span (a child span
+    when a trace is already active) and opens the query's runtime-stats
+    scope (obs/qstats.py; reused when a caller already opened one, so
+    the stats id and the trace id coincide). The completed event fires
+    INSIDE the stats scope: history listeners snapshot the finished
+    tree off the ambient recorder. Returns run()'s result.
 
-    The reference's ``monitored`` also opens the query's runtime-stats
-    scope (``obs/qstats``) and its device-profile capture
-    (``obs/devprof``); neither is in the port yet (ROADMAP Queue 1 item
-    11), so this opens neither. It reads no tensor: the output rows are
-    counted from the host result (a list of rows, or a host Table and
-    its numpy mask)."""
+    The reference's ``monitored`` also opens a device-profile capture
+    (``obs/devprof``), which is not in the port yet (ROADMAP Queue 1
+    item 11). It reads no tensor: the output rows are counted from the
+    host result (a list of rows, or a host Table and its numpy mask)."""
+    from presto_tpu_torch.obs import qstats as QS
     mgr: EventListenerManager = engine.events
     qid = mgr.next_query_id()
     t0 = time.time()
     user = engine.session.user
     mgr.query_created(QueryCreatedEvent(qid, sql, user, t0))
-    with TRACER.root_or_span(qid, "query", query_id=qid, user=user,
-                             sql=sql[:200]) as sp:
+    with QS.query_or_current(qid, sql, user) as qr, \
+            TRACER.root_or_span(qid, "query", query_id=qid, user=user,
+                                sql=sql[:200]) as sp:
         try:
             result = run()
         except Exception as exc:
             if sp is not None:
                 sp.attrs["error"] = f"{type(exc).__name__}: {exc}"
+            qr.state = "FAILED"
+            qr.error = f"{type(exc).__name__}: {exc}"[:300]
             mgr.query_completed(QueryCompletedEvent(
                 qid, sql, user, "FAILED", t0, time.time(), 0,
                 error=f"{type(exc).__name__}: {exc}"))
@@ -139,6 +145,7 @@ def monitored(engine, sql: str, run: Callable):
                 rows = int(np.asarray(mask).sum())
             else:
                 rows = getattr(result, "nrows", 0)
+        qr.output_rows = rows
         mgr.query_completed(QueryCompletedEvent(
             qid, sql, user, "FINISHED", t0, time.time(), rows))
     return result

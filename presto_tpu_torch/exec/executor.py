@@ -537,12 +537,18 @@ class PlanInterpreter:
                       src.n, src.device)
 
 
-def execute_plan(engine, plan: N.PlanNode) -> Table:
-    """Run a logical plan on the engine's device. ``engine.last_run``
-    collects the programs of every part of it."""
+def start_run(engine) -> None:
+    """Begin a query's record on the engine: ``engine.last_run`` and the
+    kernel notes collect the programs run from here on."""
     engine.last_run = QueryRun()
     engine.last_kernel_notes = {}
     engine.last_streamed_blocks = 0
+
+
+def execute_plan(engine, plan: N.PlanNode) -> Table:
+    """Run a logical plan on the engine's device. ``engine.last_run``
+    collects the programs of every part of it."""
+    start_run(engine)
     return execute_part(engine, plan)
 
 
@@ -588,12 +594,32 @@ class Program:
     # came back with the ok flags, else a device tensor (or None) for
     # the caller's next hostsync.fetch
     counts: object
+    # for the query-stats recorder (obs/qstats.record_program): the
+    # plan as the query wrote it (before templating), its kernel notes
+    # by node position, when the program started, and whether its
+    # first pass found the program cache's entry (and a template's)
+    plan: N.PlanNode | None = None
+    kernels: dict = dataclasses.field(default_factory=dict)
+    t0: float = 0.0
+    cache_hit: bool = False
+    template: bool = False
 
     def note_rows(self, engine, counts) -> None:
+        """Keep the node rows that came back with the result (host
+        values, or None) and fold the program into the ambient
+        query-stats recorder: no further transfer."""
+        from presto_tpu_torch.obs import qstats as QS
         if counts is not None:
             engine.last_run.node_rows.update(
                 {(self.index, k): int(c)
                  for k, c in zip(self.row_keys, counts)})
+        if self.plan is not None:
+            QS.record_program(
+                engine, self.plan,
+                {"count_nodes": self.row_keys, "kernels": self.kernels},
+                counts, 0.0, time.perf_counter() - self.t0,
+                self.cache_hit, self.template,
+                self.template and self.cache_hit)
 
 
 def _cache_key(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
@@ -640,6 +666,7 @@ def prepare_plan(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
     from presto_tpu_torch.exec.cancel import checkpoint
     from presto_tpu_torch.templates import runtime as TR
     backend = K.resolve(engine.session, engine.device)
+    t0 = time.perf_counter()
     run = engine.last_run
     index = len(run.programs)
     run.programs.append(plan)
@@ -699,7 +726,9 @@ def prepare_plan(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
     engine.last_kernel_notes.update(
         {(index, pos): tags for pos, tags in interp.kernel_used.items()})
     engine.last_backend = backend
-    return Program(out, index, [k for k, _c in interp.row_counts], counts)
+    return Program(out, index, [k for k, _c in interp.row_counts], counts,
+                   plan, dict(interp.kernel_used), t0, entry is not None,
+                   tpl is not None)
 
 
 def run_plan(engine, plan: N.PlanNode,

@@ -1112,8 +1112,9 @@ def execute_plan_distributed(engine, plan: N.PlanNode, mesh,
     dist_of = {pos: dist for pos, dist, _c in interp.row_counts}
     # the result, its live mask and every node's rows: one more sync
     table = fetch_table(engine, plan, Program(
-        out.dt, 0, [pos for pos, _d, _c in interp.row_counts], counts),
-        "dist-demux")
+        out.dt, 0, [pos for pos, _d, _c in interp.row_counts], counts,
+        plan, dict(interp.kernel_used), t0, entry is not None,
+        tpl is not None), "dist-demux")
     run_s = time.perf_counter() - t0
     engine.last_dist_meta = {
         "used_capacity": dict(interp.used_capacity),

@@ -18,7 +18,9 @@ aggregate on both backends, a repeat query and a literal variant with
 0 capacity rungs, and templated and prepared queries without a
 synchronizing call; an UPDATE of a memory table drops its resident CUDA
 columns (whole and streamed, both backends; the repeat equals numpy),
-and dev_cache_limit bounds the resident bytes. Elsewhere every test
+and dev_cache_limit bounds the resident bytes; a cluster of two card
+workers equals one card engine, WorkerServer() builds card engines and
+the native page codec loads from build/. Elsewhere every test
 skips with its reason. This
 file imports neither jax nor presto_tpu, so it runs where only the port
 is installed:
@@ -1474,3 +1476,95 @@ def test_launches_count_a_kernel_once_per_shard(tpch_pair, nshards):
     # the partial fold per shard, then one final fold of the gathered
     # states: nshards + 1 times the local query's folds
     assert launches[False] == (nshards + 1) * local, launches
+
+
+# -- the cluster tier on the card ---------------------------------------------
+
+
+CLUSTER_Q1_SHAPE = (
+    "select l_returnflag, l_linestatus, sum(l_quantity) as q, "
+    "count(*) as c, avg(l_extendedprice) as a, min(l_discount) as mn, "
+    "max(l_tax) as mx from lineitem where l_shipdate <= date '1998-09-02' "
+    "group by l_returnflag, l_linestatus "
+    "order by l_returnflag, l_linestatus")
+CLUSTER_JOIN = ("select o_orderpriority, count(*) as c from orders, "
+                "lineitem where o_orderkey = l_orderkey "
+                "group by o_orderpriority order by o_orderpriority")
+
+
+def test_two_card_workers_equal_one_card_engine(tpch_pair):
+    """Two WorkerServers on the card and a coordinator on the card run
+    the Q1 shape (segment_sum launching in the workers' partial
+    aggregates, noted cuda:agg_sum on their operators) and the
+    orders-lineitem fragment join: rows equal one card engine's."""
+    from presto_tpu_torch.obs import qstats as QS
+    from presto_tpu_torch.parallel.coordinator import ClusterCoordinator
+    from presto_tpu_torch.parallel.worker import WorkerServer
+    card, _host = tpch_pair
+    conn = card.catalogs["tpch"]
+    workers, coord = [], None
+    try:
+        workers = [WorkerServer({"tpch": conn}).start() for _ in range(2)]
+        local = Engine()
+        local.register_catalog("tpch", conn)
+        coord = ClusterCoordinator(local).start()
+        for w in workers:
+            coord.add_worker(w.uri)
+        for sql, mode in ((CLUSTER_Q1_SHAPE, None),
+                          (CLUSTER_JOIN, "fragments")):
+            want = card.execute(sql)
+            before = B.LAUNCHES.snapshot()["segment_sum"]
+            got = coord.execute(sql)
+            assert got == want
+            assert B.LAUNCHES.snapshot()["segment_sum"] > before
+            assert coord.last_distribution["nshards"] == 2
+            if mode:
+                assert coord.last_distribution["mode"] == mode
+            snap = QS.STORE.get(local.events.history[-1].query_id).snapshot()
+            kernels = {k for s in snap["stages"] if s["stage"] != "coordinator"
+                       for t in s["tasks"] for op in t["operators"]
+                       for k in (op["kernel"] or "").split(",") if k}
+            assert "cuda:agg_sum" in kernels, kernels
+    finally:
+        if coord is not None:
+            coord.stop()
+        for w in workers:
+            w.stop()
+
+
+def test_worker_without_device_builds_card_engines(cuda):
+    """WorkerServer() with no device builds each split engine on the
+    card, as Engine() does."""
+    import json
+    import urllib.request
+
+    from presto_tpu_torch.parallel.worker import WorkerServer
+    w = WorkerServer({"tpch": TpchConnector(scale=0.01)}).start()
+    try:
+        assert w.device.type == "cuda"
+        req = urllib.request.Request(
+            f"{w.uri}/v1/task",
+            data=json.dumps({"sql": "select count(*) from nation",
+                             "shard": 0, "nshards": 1}).encode(),
+            method="POST", headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            assert json.loads(resp.read())["columns"][0]["values"] == [25]
+        assert [e.device.type for e in w._engines.values()] == ["cuda"]
+    finally:
+        w.stop()
+
+
+def test_native_codec_loads_from_build(cuda):
+    """The page codec builds with g++ into build/presto_tpu_torch/ and
+    loads; its checksum is CRC-32C."""
+    import os
+
+    from presto_tpu_torch import native
+    c = native.codec()
+    assert c is not None
+    assert os.path.dirname(native._lib_path()) == native.BUILD_DIR
+    assert native.BUILD_DIR.endswith(os.path.join("build",
+                                                  "presto_tpu_torch"))
+    assert c.crc32c(b"123456789") == 0xE3069283
+    data = np.arange(4096, dtype=np.int64).tobytes()
+    assert c.decompress(c.compress(data), len(data)) == data

@@ -165,12 +165,14 @@ def test_unported_features_raise(port):
     # the statements that write and transactions run since ROADMAP
     # Queue 1 item 6 (tests/test_torch_statements.py and
     # test_torch_transactions.py); the system tables that read the
-    # runtime-stats recorders wait for item 11 and say so, where the
-    # reference would fill them
-    for table in ("tasks", "operator_stats", "plan_divergence",
-                  "adaptive_decisions"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            port.execute(f"select * from system.runtime.{table}")
+    # runtime-stats recorders answer since item 8 brought obs/qstats
+    # forward (tests/test_torch_qstats.py holds their rows)
+    port.execute("select count(*) from region")
+    for table in ("tasks", "operator_stats", "plan_divergence"):
+        assert port.execute(
+            f"select count(*) from system.runtime.{table}")[0][0] > 0
+    assert port.execute("select count(*) from "
+                        "system.runtime.adaptive_decisions")[0][0] >= 0
     assert port.execute("select cardinality(array_agg(r_name)) from "
                         "region") == [(5,)]
     assert port.execute("select cardinality(split(r_name, ' ')) from "

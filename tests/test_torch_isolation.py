@@ -36,11 +36,20 @@ def test_no_module_of_the_port_imports_jax_or_presto_tpu():
                                           REPO / "profile_port.py",
                                           REPO / "kernel_ab.py"]
     assert len(files) > 40
-    # the statement surface's modules are among them
+    # the statement surface's and the cluster tier's modules (with the
+    # native codec's loader) are among them
     for module in ("events.py", "security.py", "transaction.py",
                    "obs/trace.py", "obs/jsonlog.py",
                    "connectors/information_schema.py",
-                   "connectors/blackhole.py"):
+                   "connectors/blackhole.py", "plan/serde.py",
+                   "connectors/split.py", "server/httpbase.py",
+                   "native/__init__.py", "obs/qstats.py",
+                   "cost/adapt.py", "ft/faults.py", "ft/retry.py",
+                   "ft/spool.py", "ft/speculate.py",
+                   *(f"parallel/{m}.py" for m in (
+                       "auth", "exchange_host", "wire", "buffer",
+                       "fragmenter", "worker", "coordinator",
+                       "adaptive"))):
         assert PORT / module in files, module
     bad = [f"{f.relative_to(REPO)}:{line}: {mod}"
            for f in files for line, mod in _imports(f) if _forbidden(mod)]
@@ -101,6 +110,50 @@ print(json.dumps({"rows": int(rows[0][0]), "bad": bad}))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"rows": 9, "bad": []}
+
+
+def test_cluster_in_a_fresh_process_loads_neither_jax_nor_presto_tpu():
+    """Two workers on the CPU and a coordinator run a partial aggregate
+    and a fragmented join over loopback HTTP, the native page codec
+    loads, and neither jax nor presto_tpu is imported."""
+    code = """
+import json, sys
+from presto_tpu_torch import Engine
+from presto_tpu_torch.connectors.tpch import TpchConnector
+from presto_tpu_torch.native import codec
+from presto_tpu_torch.parallel.coordinator import ClusterCoordinator
+from presto_tpu_torch.parallel.worker import WorkerServer
+conn = TpchConnector(scale=0.01)
+workers = [WorkerServer({"tpch": conn}, device="cpu").start()
+           for _ in range(2)]
+coord = None
+try:
+    e = Engine(device="cpu")
+    e.register_catalog("tpch", conn)
+    coord = ClusterCoordinator(e).start()
+    for w in workers:
+        coord.add_worker(w.uri)
+    n = coord.execute("select count(*) from lineitem")[0][0]
+    j = coord.execute("select count(*) from orders, lineitem "
+                      "where o_orderkey = l_orderkey")[0][0]
+    mode = coord.last_distribution["mode"]
+finally:
+    if coord is not None:
+        coord.stop()
+    for w in workers:
+        w.stop()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "presto_tpu"))
+print(json.dumps({"same": int(n) == int(j), "mode": mode,
+                  "codec": codec() is not None, "bad": bad}))
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"same": True, "mode": "fragments", "codec": True,
+                   "bad": []}
 
 
 def test_engine_without_a_device_needs_cuda():

@@ -104,8 +104,10 @@ def test_metadata_scans_equal_the_reference(ref, port, sql):
 @pytest.mark.parametrize("table", ["tasks", "operator_stats",
                                    "plan_divergence", "adaptive_decisions"])
 def test_qstats_tables_raise_until_ported(ref, port, table):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port.execute(f"select count(*) from system.runtime.{table}")
+    # the runtime-stats recorders (obs/qstats) are ported: a scan of the
+    # table answers, as the reference's does
+    assert port.execute(
+        f"select count(*) from system.runtime.{table}")[0][0] >= 0
     # their schemas are the reference's
     want = ref.catalogs["system"].table_schema(table)
     got = port.catalogs["system"].table_schema(table)

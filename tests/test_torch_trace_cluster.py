@@ -1,0 +1,164 @@
+"""Cross-worker trace propagation in the port: a ClusterCoordinator and
+two HTTP workers on device="cpu" run a fragmented query; the query's
+Chrome trace holds worker-side spans parented under the coordinator's
+task-dispatch spans (the X-Presto-TPU-Trace header did the linking),
+and each worker's /metrics serves nonzero task counters. The
+counterparts of tests/test_trace_cluster.py, which submit through the
+coordinator server (ROADMAP Queue 1 item 9): here the query runs
+through ClusterCoordinator.execute inside a trace the test opens (the
+server's part), so the query span is its child. Rows are held against
+presto_tpu's single engine."""
+
+from __future__ import annotations
+
+import json
+import urllib.error
+import uuid
+import urllib.request
+
+import pytest
+import torch
+
+from presto_tpu import Engine as RefEngine
+
+from presto_tpu_torch import Engine
+from presto_tpu_torch.connectors.tpch import TpchConnector
+from presto_tpu_torch.obs import trace as OT
+from presto_tpu_torch.obs.metrics import REGISTRY
+from presto_tpu_torch.parallel.coordinator import ClusterCoordinator
+from presto_tpu_torch.parallel.worker import WorkerServer
+
+FRAGMENTED_SQL = (
+    "select o_orderpriority, count(*) as c from orders, lineitem "
+    "where o_orderkey = l_orderkey group by o_orderpriority "
+    "order by o_orderpriority")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's CPU ops while this module
+    runs: the test workers run in parallel."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def traced_cluster(tpch_tiny):
+    conn = TpchConnector(scale=0.01)
+    workers, coord = [], None
+    try:
+        workers = [
+            WorkerServer({"tpch": conn}, node_id=f"tracew{i}",
+                         device="cpu").start()
+            for i in range(2)]
+        engine = Engine(device="cpu")
+        engine.register_catalog("tpch", conn)
+        engine.session.catalog = "tpch"
+        coord = ClusterCoordinator(engine, heartbeat_interval_s=0.2).start()
+        for w in workers:
+            coord.add_worker(w.uri)
+        ref = RefEngine()
+        ref.register_catalog("tpch", tpch_tiny)
+        yield coord, workers, engine, ref.execute(FRAGMENTED_SQL)
+    finally:
+        if coord is not None:
+            coord.stop()
+        for w in workers:
+            try:
+                w.stop()
+            except Exception:  # noqa: BLE001 - best-effort teardown
+                pass
+
+
+def _run(coord, want) -> str:
+    """Run the fragmented query in a fresh trace; its rows must be the
+    reference's. Returns the trace id."""
+    tid = f"trace-{uuid.uuid4().hex[:12]}"
+    with OT.TRACER.trace(tid, "client-query"):
+        assert coord.execute(FRAGMENTED_SQL) == want
+    return tid
+
+
+def _get_json(url: str):
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return json.loads(r.read())
+
+
+def test_distributed_query_trace_links_worker_spans(traced_cluster):
+    coord, workers, engine, want = traced_cluster
+    qid = _run(coord, want)
+    assert coord.last_distribution is not None
+    assert coord.last_distribution["mode"] == "fragments"
+
+    trace = OT.TRACER.chrome_trace(qid)
+    events = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    names = {e["name"] for e in events}
+    assert {"query", "plan", "task-dispatch", "worker-task"} <= names
+
+    dispatch_ids = {e["args"]["span_id"] for e in events
+                    if e["name"] == "task-dispatch"}
+    worker_spans = [e for e in events if e["name"] == "worker-task"]
+    assert worker_spans, "no worker-side spans in the trace"
+    for w in worker_spans:
+        assert w["args"]["parent_id"] in dispatch_ids
+    worker_nodes = {pe["args"]["name"]
+                    for pe in trace["traceEvents"]
+                    if pe["ph"] == "M" and pe["name"] == "process_name"}
+    assert {"tracew0", "tracew1"} <= worker_nodes
+    by_id = {e["args"]["span_id"]: e for e in events}
+    roots = [e for e in events if "parent_id" not in e["args"]]
+    assert [r["name"] for r in roots] == ["client-query"]
+    root = roots[0]
+    for e in events:
+        cur, hops = e, 0
+        while "parent_id" in cur["args"] and hops < 30:
+            cur = by_id[cur["args"]["parent_id"]]
+            hops += 1
+        assert cur is root
+
+
+def test_worker_metrics_and_trace_endpoints(traced_cluster):
+    coord, workers, engine, want = traced_cluster
+    qid = _run(coord, want)
+    for w in workers:
+        with urllib.request.urlopen(f"{w.uri}/metrics", timeout=10) as r:
+            assert "text/plain" in r.headers["Content-Type"]
+            text = r.read().decode()
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith("presto_tpu_worker_tasks_total")
+                 and f'node="{w.node_id}"' in ln]
+        assert lines, text
+        assert sum(float(ln.rsplit(" ", 1)[1]) for ln in lines) > 0
+        assert "presto_tpu_worker_cached_engines" in text
+    spans = _get_json(f"{workers[0].uri}/v1/trace/{qid}")["spans"]
+    assert any(s["name"] == "worker-task" for s in spans)
+    assert all(s["trace_id"] == qid for s in spans)
+
+
+def test_exchange_metrics_count_partitioned_transfer(traced_cluster):
+    """A partitioned multi-stage plan moves pages worker-to-worker:
+    the exchange serve counters advance."""
+    coord, workers, engine, want = traced_cluster
+    pages = REGISTRY.counter("presto_tpu_exchange_pages_total")
+    before = sum(pages.value(node=w.node_id) for w in workers)
+    engine.session.set("join_distribution_type", "partitioned")
+    try:
+        _run(coord, want)
+    finally:
+        engine.session.set("join_distribution_type", "automatic")
+    after = sum(pages.value(node=w.node_id) for w in workers)
+    assert after > before
+
+
+def test_worker_profile_endpoint_names_the_missing_module(traced_cluster):
+    """The reference's on-demand device profiler (obs/devprof) is not in
+    the port yet: the endpoint says so instead of pretending."""
+    _coord, workers, _engine, _want = traced_cluster
+    req = urllib.request.Request(f"{workers[0].uri}/v1/profile/start",
+                                 data=b"{}", method="POST")
+    with pytest.raises(urllib.error.HTTPError) as exc:
+        urllib.request.urlopen(req, timeout=10)
+    assert exc.value.code == 501
+    assert "item 11" in json.loads(exc.value.read())["error"]
