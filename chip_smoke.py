@@ -14,7 +14,9 @@ surface at SF10: CREATE TABLE AS, INSERT, DELETE, UPDATE, DROP TABLE,
 transactions, the metadata catalogs, the query events and the bound of
 the device cache; and distributed execution over 8 shards of the card
 at SF10; and the cluster tier: four HTTP workers and a coordinator in
-this process, every engine on the card.
+this process, every engine on the card; and the server tier: a
+CoordinatorServer on a card engine, its serving layer, and cross-query
+batches whose every kernel launches once for all lanes.
 
     python3 chip_smoke.py [--scale 10] [--seed 19920101]
 
@@ -193,13 +195,37 @@ Phases (any failure exits non-zero before the result line):
    host syncs and uploads, launches, the worker operators' and the
    coordinator's kernel notes, the peak device GB and the system.tasks
    row count; segment_sum must launch on the workers (``cuda:agg_sum``).
+11. Serving: each kernel entry's lane rule (kernels/lanes.py) under
+   ``torch.func.vmap`` over 8 lanes of the kernel phase's rows cut to
+   an eighth a lane, on the card against the plain rule under the same
+   vmap, each kernel launched once for all lanes (``lanes`` lines).
+   Then a CoordinatorServer on a card engine at the phase's scale: SV1
+   the 22 TPC-H queries through ``dbapi`` in JSON (cold and timed) and
+   in arrow mode, rows equal to phase 3's; SV2 a repeated Q1 over a
+   memory table answered from the result cache with no launch and no
+   host sync, then invalidated by an INSERT; SV3 eight concurrent
+   identical Q5s run once (the others dedup or hit the cache), with
+   one run's launches; SV4 a batch group of 8 literal variants for
+   each kernel case (``BATCH_KERNELS``; Q5's at ``BATCH_SF``), every
+   lane equal to its serial run on both backends, the group's launches
+   equal to one serial run's, the batched counter up by 8, seconds and
+   peak printed, then the Q6 group as 8 concurrent clients inside one
+   batch window (``batch_window_ms``), rows right, some batched and no
+   batch fallen back to serial runs; SV5 16 clients of ``SERVING_MIX`` under a query-pool
+   capacity of the two largest estimates, rows right and no
+   reservation left, then a small pool in which the low-memory killer
+   kills the largest reservation (a stalled blackhole scan) while the
+   two queries blocked behind it finish. The phase's launches are
+   those of the served runs (each request and each batched run, the
+   counts set to 0 just before it and read just after), not those of
+   the serial runs they are held against.
 
 The query lines of phases 3-6 carry the first (cold) pass's time and
 capacity rungs (``cold_s``, ``cold_rungs``) beside the timed pass's:
 the timed pass starts every program from the capacities the first
 remembered (``from_memory``).
 
-    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions,arrays,session,statements,distributed,cluster
+    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions,arrays,session,statements,distributed,cluster,serving
 
 (the default) runs the named phases only (a shorter call while a phase
 is worked on; the summary line needs all ten).
@@ -208,14 +234,18 @@ The queries are the repository's TPC-H texts (tests/tpch_queries.py),
 TPC-DS texts (tests/test_tpcds.py), ``FUNCTION_QUERIES`` and
 ``ARRAY_QUERIES``. The last
 lines are the card, a JSON summary of the kernels (each with the PR
-that last redesigned it, ``redesigned_in``, and its launches summed
-over phases 3 to 10) and ``{"ok": true, "device": {...}}``.
+that last redesigned it, ``redesigned_in``, its launches summed
+over phases 3 to 11, phase 11's among them (``serving_launches``,
+``batched_launches`` for SV4's groups) and its lane rule at 8 lanes
+(``batched_ms``, ``batched_plain_ms``, ``batched_bound_ms``,
+``batched_max_abs_err``)) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import decimal
 import gc
 import json
@@ -290,7 +320,7 @@ TPCDS_OVER_MEMORY = {
 }
 TPCDS_SCALE = 10.0
 PHASES = ("kernels", "tpch", "tpcds", "functions", "arrays", "session",
-          "statements", "distributed", "cluster")
+          "statements", "distributed", "cluster", "serving")
 TPCDS_SEED = 20030527  # the connector's default, as tests/test_tpcds.py
 
 
@@ -555,8 +585,12 @@ def kernel_phase(dev, seed: int) -> dict:
             [("o_custkey", "c_custkey")]]
     args = (spine.cols, spine.live, width,
             [(b.cols, b.live, b.n) for b in builds], crit)
-    with K.use_backend("cuda"):
-        got = MJ.multijoin_cuda(*args)
+
+    def walk_chain():
+        # the entry the interpreter calls (operators._walk)
+        with K.use_backend("cuda"):
+            return MJ.walk_chain(spine.cols, spine.live, args[3], crit)
+    got = walk_chain()
     want = MJ.multijoin_torch(*args)
     if not bool(got[2]):
         raise AssertionError("multijoin reported a chain overflow")
@@ -582,7 +616,7 @@ def kernel_phase(dev, seed: int) -> dict:
         "max_abs_err": err,
         "ms": cuda_ms(lambda: MJ.multijoin_walk(desc, 3, spine.live,
                                                 width)),
-        "fused_ms": cuda_ms(lambda: MJ.multijoin_cuda(*args)),
+        "fused_ms": cuda_ms(walk_chain),
         "plain_ms": cuda_ms(lambda: MJ.multijoin_torch(*args)),
         "library_ms": None, "bound_ms": w_ms, "bound_by": w_by,
         "step_probes": probes,
@@ -684,6 +718,71 @@ where l_orderkey < 600000
 group by r_name
 order by r_name""",
            }
+
+
+# phase 11's cross-query batches (SV4): per kernel lane rule, a query
+# shape whose literals hoist into a plan template, and its variants.
+# The kernel each case must launch on the card, under its lane rule
+BATCH_KERNELS = {"q06": ("segment_sum",),
+                 "q01": ("segment_sum",),
+                 "extrema": ("segment_sum", "segment_max", "segment_min"),
+                 "join": ("build_table", "probe_table", "segment_sum"),
+                 "q05": ("multijoin_walk", "build_table", "segment_sum"),
+                 "cross_join": ("filter_compact", "segment_sum")}
+# the scale each case runs at on the card. Q5's MultiJoin is a segment
+# of its own once its spine (lineitem) has AGG_SPLIT_MIN_ROWS = 2^21
+# rows (from SF0.35 on; at SF10 60M), and a segmented plan is not
+# batchable, in the reference as here: Q5 batches at SF0.34 at most
+BATCH_SF = {"q05": 0.34}
+_REGIONS = ("ASIA", "EUROPE", "AMERICA", "AFRICA", "MIDDLE EAST")
+
+
+def _plus_days(day: str, n: int) -> str:
+    return str(np.datetime64(day) + np.timedelta64(n, "D"))
+
+
+def batch_variants(case: str, sf: float, k: int = 8) -> list[str]:
+    """``k`` literal variants of batch case ``case`` at scale ``sf``."""
+    out = []
+    for i in range(k):
+        if case == "q06":
+            year = 1993 + i % 5
+            lo = 2 + i % 6
+            out.append(
+                "select sum(l_extendedprice * l_discount) as revenue "
+                "from lineitem "
+                f"where l_shipdate >= date '{year}-01-01' "
+                f"and l_shipdate < date '{year + 1}-01-01' "
+                f"and l_discount between 0.0{lo - 1} and 0.0{lo + 1} "
+                f"and l_quantity < {24 + i % 3}")
+        elif case == "q01":
+            out.append(TPCH["q01"].replace(
+                "date '1998-12-01' - interval '90' day",
+                f"date '{_plus_days('1998-09-02', -97 * i)}'"))
+        elif case == "extrema":
+            out.append(QUERIES["lineitem_extrema"].replace(
+                "from lineitem\n",
+                "from lineitem\nwhere l_shipdate < "
+                f"date '{_plus_days('1998-08-02', -181 * i)}'\n"))
+        elif case == "join":
+            out.append(
+                "select sum(l_quantity) as q, count(*) as c, "
+                "sum(ps_supplycost) as s from lineitem, partsupp "
+                "where l_partkey = ps_partkey and l_suppkey = ps_suppkey "
+                f"and l_shipdate < date '{_plus_days('1993-01-01', 127 * i)}'")
+        elif case == "q05":
+            out.append(TPCH["q05"].replace(
+                "'ASIA'", f"'{_REGIONS[i % 5]}'").replace(
+                "1994-01-01", f"{1994 + i // 5}-01-01"))
+        elif case == "cross_join":
+            # the order-key bound stays: the planner sizes the cross
+            # join's compaction from it, and a plan template's
+            # fingerprint holds that size
+            out.append(QUERIES["cross_join"].replace(
+                "600000", f"{int(60000 * sf)} and l_linenumber <> {i + 1}"))
+        else:
+            raise KeyError(case)
+    return out
 
 
 def _days(s: str) -> int:
@@ -3262,6 +3361,571 @@ def cluster_phase(conn, scale: float, seed: int, local_rows: dict,
     return launches
 
 
+# -- phase 11: the server tier -------------------------------------------------
+
+# SV5's mixed clients: sixteen of these, each query twice
+SERVING_MIX = ("q01", "q03", "q05", "q06", "q10", "q12", "q14", "q19")
+# the kernels' lane rules at K = 8 lanes (lane_kernels)
+LANES = 8
+
+
+_DECIMAL_TEXT = re.compile(r"-?[0-9]+\.[0-9]+")
+
+
+def wire_rows(rows) -> list:
+    """Rows in one form for the engine's values and the protocol's (a
+    decimal is a string on the wire, a date its ISO text): a decimal
+    as a float (compared within FLOAT_STATE_RTOL), a date as its ISO
+    text, numpy scalars as Python ones."""
+    import datetime
+
+    def one(v):
+        if isinstance(v, (np.datetime64, datetime.date)):
+            return str(v)[:10]
+        if isinstance(v, np.generic):
+            v = v.item()
+        if isinstance(v, decimal.Decimal) or (
+                isinstance(v, str) and _DECIMAL_TEXT.fullmatch(v)):
+            return float(v)
+        return v
+    return [tuple(one(v) for v in row) for row in rows]
+
+
+def lane_kernels(dev, seed: int) -> dict:
+    """Each kernel entry's lane rule (kernels/lanes.py) on the card:
+    ``torch.func.vmap`` over K = 8 lanes of the kernel phase's shapes
+    cut to an eighth a lane, so the folded work has the kernel phase's
+    rows. The cuda rule launches each kernel once for all lanes and
+    equals the plain rule under the same vmap. ms: the batched entry
+    (the fold, the launch and the unfold); bound: the bytes the K
+    lanes' function needs, each input shared by the lanes read once,
+    each lane's own inputs, tables and outputs once per lane, no
+    filler row."""
+    import torch
+    from torch.func import vmap
+
+    from presto_tpu_torch import kernels as K
+    from presto_tpu_torch.kernels import build as B
+    from presto_tpu_torch.kernels import hashjoin as HJ
+    from presto_tpu_torch.kernels import multijoin as MJ
+    from presto_tpu_torch.ops import hash as H
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 11)
+    out: dict = {}
+
+    def rand(n, hi, dtype=torch.int64):
+        return torch.randint(0, hi, (n,), dtype=dtype, device=dev,
+                             generator=gen)
+
+    def check(name, fn, want_launches, nbytes):
+        """fn(backend) -> tensors; the cuda rule equals the plain rule,
+        and launches each kernel of ``want_launches`` once."""
+        plain = fn("torch")
+        B.LAUNCHES.reset()
+        got = fn("cuda")
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in B.LAUNCHES.snapshot().items() if n}
+        if launched != want_launches:
+            raise AssertionError(f"lanes {name}: launched {launched}, "
+                                 f"want {want_launches}")
+        err = require_equal(f"lanes {name}", list(zip(got, plain)))
+        b_ms, b_by = bound(nbytes, 0)
+        case = {"lanes": LANES, "max_abs_err": err,
+                "ms": cuda_ms(lambda: fn("cuda")),
+                "plain_ms": cuda_ms(lambda: fn("torch")),
+                "bound_ms": b_ms, "bound_by": b_by}
+        log("lanes " + json.dumps({"name": name, **case}))
+        return case
+
+    # segment_sum, max and min: a 60M-row fold into 6 groups, as 8
+    # lanes of 7.5M rows whose live rows differ (dead rows id -1)
+    n = 60_000_000 // LANES
+    data = torch.randint(-(1 << 40), 1 << 40, (LANES, n),
+                         dtype=torch.int64, device=dev, generator=gen)
+    ids = torch.where(torch.rand((LANES, n), device=dev, generator=gen)
+                      < 0.9, rand(LANES * n, 6, torch.int32).view(LANES, n),
+                      torch.full((LANES, n), -1, dtype=torch.int32,
+                                 device=dev))
+    for name, kern in (("segment_sum", "agg_sum"), ("segment_max", "agg_max"),
+                       ("segment_min", "agg_min")):
+        out[name] = check(
+            name, lambda b, kern=kern: (vmap(
+                lambda d, i: K.dispatch(kern, b)(d, i, 6))(data, ids),),
+            {name: 1}, LANES * n * (8 + 4) + LANES * 6 * 8)
+    del data, ids
+
+    # join_lookup: one 15M-row build side (unique keys) and 60M probes
+    # shared by the lanes, each lane with its own live rows
+    nb, npr = 15_000_000 // LANES, 60_000_000 // LANES
+    keys = torch.randperm(4 * nb, device=dev, generator=gen)[:nb]
+    bh = H.hash_int_column(keys)
+    ph = H.hash_int_column(keys[rand(npr, nb)])
+    bl = torch.rand((LANES, nb), device=dev, generator=gen) < 0.7
+    pl = torch.rand((LANES, npr), device=dev, generator=gen) < 0.5
+    cap = H.next_pow2(2 * nb)
+    out["build_table"] = out["probe_table"] = check(
+        "join_lookup", lambda b: vmap(
+            lambda x, y: K.dispatch("join_lookup", b)(bh, x, ph, y, cap)[:2],
+            in_dims=(0, 0))(bl, pl),
+        {"build_table": 1, "probe_table": 1},
+        # bh and ph shared; per lane: the live masks, a table, the
+        # probe rows' build row and found flag
+        (nb + npr) * 8 + LANES * (nb + npr + npr * (4 + 1)
+                                  + cap * SLOT_BYTES))
+    del keys, bh, ph, bl, pl
+
+    # multijoin_walk: a 60M spine over three builds (1M, 100k, 25 rows),
+    # the middle step keyed by the first build's column
+    sizes = (1_000_000, 100_000, 25)
+    n = 60_000_000 // LANES
+    bkeys = [torch.arange(s, device=dev) for s in sizes]
+    link = rand(sizes[0], sizes[1])
+    spine_keys = [rand(n, sizes[0]), rand(n, sizes[2])]
+    walk = MJ.Walk(
+        build_live=[torch.ones(s, dtype=torch.bool, device=dev)
+                    for s in sizes],
+        build_hash=[H.hash_int_column(k) for k in bkeys],
+        build_step=[0, 1, 2],
+        key_hash=[H.hash_int_column(spine_keys[0]),
+                  H.hash_int_column(link), H.hash_int_column(spine_keys[1])],
+        key_valid=[], key_step=[0, 1, 2], key_source=[-1, 0, -1],
+        key_valid_at=[-1, -1, -1])
+    lives = [torch.rand((LANES, s), device=dev, generator=gen) < 0.8
+             for s in sizes]
+    spine_live = torch.rand((LANES, n), device=dev, generator=gen) < 0.6
+
+    def walk_lanes(b):
+        def lane(live, l0, l1, l2):
+            w = dataclasses.replace(walk, build_live=[l0, l1, l2])
+            g, a, _ok = K.dispatch("multijoin", b)(live, w, 1,
+                                                   HJ.MAX_PROBES)
+            return g, a
+        return vmap(lane)(spine_live, *lives)
+
+    # shared: the two spine key hashes, the chained key's hash over the
+    # first build, the builds' hashes; per lane: the spine and build
+    # live masks, every table, three gathers and the live mask out
+    caps = [H.next_pow2(2 * s) for s in sizes]
+    out["multijoin_walk"] = check(
+        "multijoin", walk_lanes,
+        {"build_table": 3, "multijoin_walk": 1},
+        2 * n * 8 + sizes[0] * 8 + sum(sizes) * 8
+        + LANES * (n + sum(sizes) + sum(caps) * SLOT_BYTES
+                   + 3 * n * 4 + n))
+    del walk, lives, spine_live, spine_keys, link, bkeys
+
+    # filter_compact: 60M rows at 4% live (per lane), three columns
+    n = 60_000_000 // LANES
+    cols = {"a": rand(n, 1 << 40), "b": rand(n, 1 << 30, torch.int32),
+            "c": rand(n, 1 << 40)}
+    live = torch.rand((LANES, n), device=dev, generator=gen) < 0.04
+    capacity = H.next_pow2(int(live.sum(1).max()))
+    # per lane: the mask and the capacity rows out; the columns shared,
+    # each row that some lane keeps read once (as the kernel phase
+    # counts the live rows)
+    kept = int(live.any(0).sum())
+    out["filter_compact"] = check(
+        "compact", lambda b: tuple(vmap(
+            lambda lv: K.dispatch("compact", b)(lv, cols, capacity))(
+                live).values()),
+        {"filter_compact": 1},
+        kept * 20 + LANES * (n + capacity * 20))
+    del cols, live
+    torch.cuda.empty_cache()
+    return out
+
+
+def sv_server(engine, **kw):
+    from presto_tpu_torch.server import CoordinatorServer
+    return CoordinatorServer(engine, **kw).start()
+
+
+def counted(fn):
+    """(fn(), the kernels it launched and how often): the counts set
+    to 0 just before ``fn`` and read just after."""
+    from presto_tpu_torch.kernels import build as B
+    B.LAUNCHES.reset()
+    out = fn()
+    return out, {k: n for k, n in B.LAUNCHES.snapshot().items() if n}
+
+
+def run_all(threads) -> None:
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+
+
+def serving_cases(conn, small_conn, local_rows: dict) -> dict:
+    """SV1-SV5 on the card; returns what the phase prints in its
+    summary: the launches of the served runs per kernel (each request
+    through the server and each batched run, the counts set to 0 just
+    before it and read just after; the reference runs they are held
+    against stay out), those of SV4's batched runs, SV4's group
+    lines."""
+    import threading
+
+    import torch
+
+    from presto_tpu_torch import Engine
+    from presto_tpu_torch import dbapi
+    from presto_tpu_torch import templates as TPL
+    from presto_tpu_torch.client import Client
+    from presto_tpu_torch.exec import batch as BT
+    from presto_tpu_torch.exec import hostsync as HS
+    from presto_tpu_torch.memory import estimate_plan_memory
+    from presto_tpu_torch.obs.metrics import REGISTRY
+    from presto_tpu_torch.server import serving as SV
+
+    result: dict = {}
+    served = {name: 0 for name in KERNELS}
+    batched_launches = {name: 0 for name in KERNELS}
+
+    def serve(fn, into=()):
+        """Run one served request, or a set of concurrent ones, and add
+        its launches to the phase's served column (and ``into``)."""
+        out, launched = counted(fn)
+        for name, count in launched.items():
+            served[name] += count
+            for more in into:
+                more[name] += count
+        return out, launched
+
+    fallbacks = SV.BATCH_FALLBACKS.total()
+    engine = Engine()
+    engine.register_catalog("tpch", conn)
+    srv = sv_server(engine)
+    try:
+        # SV1: the 22 TPC-H queries through dbapi, JSON then arrow
+        conn_db = dbapi.connect("127.0.0.1", srv.port, user="sv1")
+        client = conn_db._client
+        passes = {}
+        # every pass executes: the result cache stays off
+        client.session_properties = {"result_cache": False}
+        for label, fmt in (("cold", "json"), ("timed", "json"),
+                           ("arrow", "arrow")):
+            client.result_format = fmt
+            total = 0.0
+            for q, sql in TPCH.items():
+                cur = conn_db.cursor()
+                t = time.perf_counter()
+                got = serve(lambda: (cur.execute(sql),
+                                     cur.fetchall())[1])[0]
+                total += time.perf_counter() - t
+                want = wire_rows(local_rows[q])
+                if not rows_close(wire_rows(got), want):
+                    raise AssertionError(f"SV1 {label} {q}: rows differ "
+                                         "from phase 3's")
+            passes[label] = total
+        log("serving " + json.dumps({"case": "SV1 tpch22", **{
+            f"{k}_s": v for k, v in passes.items()}}))
+        result["SV1"] = passes
+
+        # SV2: a repeated Q1 over a memory table hits the result cache
+        # with no launch and no sync; an INSERT invalidates it
+        engine.register_catalog("memory", __import__(
+            "presto_tpu_torch.connectors.memory",
+            fromlist=["MemoryConnector"]).MemoryConnector())
+        cols = ("l_returnflag, l_linestatus, l_quantity, "
+                "l_extendedprice, l_discount, l_tax, l_shipdate")
+        cut = int(600_000 * conn.scale)  # a tenth of the orders
+        engine.execute(f"create table memory.li as select {cols} "
+                       f"from tpch.lineitem where l_orderkey <= {cut}")
+        q1 = TPCH["q01"].replace("from lineitem", "from memory.li")
+        c2 = Client(f"http://127.0.0.1:{srv.port}", user="sv2")
+        first = serve(lambda: c2.execute(q1)[1])[0]
+        syncs0 = HS.SYNCS.total()
+        t = time.perf_counter()
+        again, launched = serve(lambda: c2.execute(q1)[1])
+        hit_s = time.perf_counter() - t
+        hit_launches = sum(launched.values())
+        hit_syncs = HS.SYNCS.total() - syncs0
+        infos = [q for q in srv.manager.snapshot() if q.sql == q1]
+        if again != first or not infos[-1].cache_hit or hit_launches \
+                or hit_syncs:
+            raise AssertionError(
+                f"SV2: hit {infos[-1].cache_hit}, launches {hit_launches},"
+                f" syncs {hit_syncs}")
+        serve(lambda: c2.execute(
+            f"insert into memory.li select {cols} from tpch.lineitem "
+            f"where l_orderkey between {cut + 1} and {cut + cut // 60}"))
+        names, after = serve(lambda: c2.execute(q1))[0]
+        infos = [q for q in srv.manager.snapshot() if q.sql == q1]
+        count_col = [c["name"] for c in names].index("count_order")
+        if infos[-1].cache_hit or sum(r[count_col] for r in after) <= sum(
+                r[count_col] for r in first):
+            raise AssertionError("SV2: the INSERT did not invalidate Q1")
+        log("serving " + json.dumps({
+            "case": "SV2 q01 result cache", "hit_s": hit_s,
+            "launches": hit_launches, "host_syncs": hit_syncs,
+            "invalidated": True}))
+        engine.execute("drop table memory.li")
+
+        # SV3: 8 concurrent identical Q5s make one execution: the
+        # first one's; the others await it in flight (dedup) or, if
+        # they come after it, hit its cached result
+        one_run = counted(lambda: engine.execute(TPCH["q05"]))[1]
+        barrier = threading.Barrier(8)
+        got3: list = []
+        sql5 = TPCH["q05"]
+
+        def q5_client():
+            c = Client(f"http://127.0.0.1:{srv.port}", user="sv3")
+            barrier.wait()
+            got3.append(c.execute(sql5)[1])
+
+        threads = [threading.Thread(target=q5_client) for _ in range(8)]
+        t = time.perf_counter()
+        launched = serve(lambda: run_all(threads))[1]
+        dedup_s = time.perf_counter() - t
+        mine = [q for q in srv.manager.snapshot() if q.sql == sql5]
+        deduped = sum(q.deduped for q in mine)
+        hits = sum(q.cache_hit for q in mine)
+        want5 = wire_rows(local_rows["q05"])
+        if any(not rows_close(wire_rows(r), want5) for r in got3) \
+                or launched != one_run or deduped + hits != 7:
+            raise AssertionError(f"SV3: launches {launched} vs one run "
+                                 f"{one_run}, {deduped} deduped, {hits} "
+                                 "cache hits")
+        log("serving " + json.dumps({
+            "case": "SV3 8 x q05 one execution", "s": dedup_s,
+            "deduped": deduped, "cache_hits": hits,
+            "launches": launched}))
+    finally:
+        srv.stop()
+
+    # SV4: batch groups of 8 variants, one per kernel case. A plan that
+    # could stream is not batchable (the reference's rule), and at SF10
+    # lineitem's 60M rows pass the default scan block (2^24 rows): the
+    # groups and their serial runs go without streaming
+    batched_total = REGISTRY.counter("presto_tpu_batched_queries_total")
+    small = Engine()
+    small.register_catalog("tpch", small_conn)
+    groups = {}
+    serial_rows = {}
+    for case, kernels in BATCH_KERNELS.items():
+        eng = small if BATCH_SF.get(case) else engine
+        eng.session.set("scan_block_rows", 0)
+        sf = BATCH_SF.get(case, conn.scale)
+        sqls = batch_variants(case, sf)
+        eng.session.set("kernel_backend", "torch")
+        plain = [eng.execute(s) for s in sqls]
+        eng.session.set("kernel_backend", "cuda")
+        serial = [eng.execute(s) for s in sqls]  # cold: capacities
+        serial_rows[case] = dict(zip(sqls, serial))
+        one_run = counted(lambda: eng.execute(sqls[0]))[1]
+        tpls = [TPL.parameterize(eng.plan_sql(s)[0]) for s in sqls]
+        if not BT.batchable(eng, tpls[0].plan):
+            raise AssertionError(f"SV4 {case}: not batchable")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        # cold: the batch's capacities
+        serve(lambda: BT.run_plan_batched(eng, tpls),
+              into=(batched_launches,))
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t
+        before = batched_total.value()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        lanes, launched = serve(lambda: BT.run_plan_batched(eng, tpls),
+                                into=(batched_launches,))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for sql, lane, s_rows, p_rows in zip(sqls, lanes, serial, plain):
+            got = lane.to_pylist()
+            if not rows_close(got, s_rows) or not rows_close(got, p_rows):
+                raise AssertionError(f"SV4 {case}: a lane differs from "
+                                     f"its serial run: {sql}")
+        on_card = eng.device.type == "cuda"
+        if launched != one_run or (on_card
+                                   and not set(kernels) <= set(launched)):
+            raise AssertionError(f"SV4 {case}: batch launched {launched}, "
+                                 f"one serial run {one_run}")
+        if batched_total.value() != before + len(sqls):
+            raise AssertionError(f"SV4 {case}: batched counter moved "
+                                 f"{batched_total.value() - before}")
+        serial_s = 0.0
+        for s in sqls:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng.execute(s)
+            torch.cuda.synchronize()
+            serial_s += time.perf_counter() - t
+        groups[case] = {"lanes": len(sqls), "sf": sf, "s": secs,
+                        "cold_s": cold, "serial_s": serial_s,
+                        "peak_gb": peak, "launches": launched}
+        log("serving " + json.dumps({"case": f"SV4 {case}",
+                                     **groups[case]}))
+    engine.session.properties.pop("scan_block_rows")
+    del small
+
+    # the Q6 group again as 8 concurrent clients inside one batch
+    # window: the serving layer's own route, whose fallback to serial
+    # runs (a batched run that raised) must not fire
+    srv = sv_server(engine)
+    try:
+        want4 = serial_rows["q06"]
+        barrier = threading.Barrier(len(want4))
+        got4: dict = {}
+
+        def variant(sql):
+            c = Client(f"http://127.0.0.1:{srv.port}", user="sv4")
+            c.session_properties = {"result_cache": False,
+                                    "subplan_dedup": False,
+                                    "scan_block_rows": 0,
+                                    "batch_window_ms": 300.0}
+            barrier.wait()
+            got4[sql] = c.execute(sql)[1]
+
+        threads = [threading.Thread(target=variant, args=(s,))
+                   for s in want4]
+        t = time.perf_counter()
+        launched = serve(lambda: run_all(threads))[1]
+        secs = time.perf_counter() - t
+        marks = [q.batched for q in srv.manager.snapshot()
+                 if q.sql in want4]
+        moved = SV.BATCH_FALLBACKS.total() - fallbacks
+        if any(not rows_close(wire_rows(got4.get(s, [])), wire_rows(w))
+               for s, w in want4.items()) or not any(
+                   b > 1 for b in marks) or moved:
+            raise AssertionError(f"SV4 served q06: batched {marks}, "
+                                 f"{moved} fallbacks")
+        log("serving " + json.dumps({
+            "case": "SV4 q06 served", "s": secs, "batched": marks,
+            "fallbacks": moved, "launches": launched}))
+    finally:
+        srv.stop()
+
+    # SV5: 16 clients of mixed queries under a query-pool capacity
+    est = {q: estimate_plan_memory(engine.plan_sql(TPCH[q])[0], engine)[0]
+           for q in SERVING_MIX}
+    capacity = sum(sorted(est.values())[-2:])
+    engine.session.set("memory_reserve_timeout_s", 20.0)
+    engine.session.set("low_memory_killer_delay_s", 600.0)
+    srv = sv_server(engine, query_memory_bytes=capacity)
+    try:
+        res: dict = {}
+        torch.cuda.reset_peak_memory_stats()
+
+        def mixed(i):
+            q = SERVING_MIX[i % len(SERVING_MIX)]
+            c = Client(f"http://127.0.0.1:{srv.port}", user=f"sv5-{i}")
+            c.session_properties = {"result_cache": False,
+                                    "subplan_dedup": False}
+            try:
+                res[i] = (q, c.execute(TPCH[q])[1])
+            except Exception as e:  # noqa: BLE001 - reported below
+                res[i] = (q, e)
+
+        threads = [threading.Thread(target=mixed, args=(i,))
+                   for i in range(16)]
+        t = time.perf_counter()
+        serve(lambda: run_all(threads))
+        mix_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for i, (q, got) in sorted(res.items()):
+            if isinstance(got, Exception) or not rows_close(
+                    wire_rows(got), wire_rows(local_rows[q])):
+                raise AssertionError(f"SV5 client {i} {q}: {got!r:.300}")
+        pool_left = srv.manager.query_pool.reserved
+        if pool_left or engine.memory_pool.reserved:
+            raise AssertionError("SV5: reservations left behind")
+        log("serving " + json.dumps({
+            "case": "SV5 16 mixed clients", "s": mix_s,
+            "capacity_gb": capacity / 1e9, "peak_gb": peak,
+            "estimates_gb": {q: v / 1e9 for q, v in est.items()}}))
+
+        # a small pool: the largest reservation (a running query that
+        # scans a stalling blackhole table) is killed while the
+        # queries blocked behind it finish
+        from presto_tpu_torch import BIGINT
+        from presto_tpu_torch.connectors.blackhole import BlackholeConnector
+        bh = BlackholeConnector(rows_per_table=10,
+                                page_processing_delay_s=5.0)
+        bh.create_table("slow", {"x": BIGINT}, {"x": []}, {"x": None})
+        engine.register_catalog("bh", bh)
+        slow_sql = "select count(*) from bh.slow"
+        engine.session.set("low_memory_killer_delay_s", 0.5)
+        # room for one survivor at a time, not beside the victim
+        srv.manager.query_pool.capacity = max(est["q06"], est["q14"])
+        victim = Client(f"http://127.0.0.1:{srv.port}", user="victim")
+        survivors: dict = {}
+
+        def small_q(q):
+            c = Client(f"http://127.0.0.1:{srv.port}", user="survivor")
+            c.session_properties = {"result_cache": False,
+                                    "subplan_dedup": False}
+            try:
+                survivors[q] = c.execute(TPCH[q])[1]
+            except Exception as e:  # noqa: BLE001 - reported below
+                survivors[q] = e
+
+        def kill_round():
+            qid, _ = victim.submit(slow_sql)
+            for _ in range(400):
+                if srv.manager.query_pool.reserved:
+                    break
+                time.sleep(0.01)
+            run_all([threading.Thread(target=small_q, args=(q,))
+                     for q in ("q06", "q14")])
+            for _ in range(600):
+                if victim.query_state(qid) not in ("QUEUED", "RUNNING"):
+                    break
+                time.sleep(0.05)
+            return qid
+        qid = serve(kill_round)[0]
+        info = srv.manager.get(qid)
+        if info.error_name != "CLUSTER_OUT_OF_MEMORY" \
+                or "low-memory killer" not in (info.error or ""):
+            raise AssertionError(f"SV5 kill: {info.state} "
+                                 f"{info.error_name} {info.error}")
+        for q in ("q06", "q14"):
+            got = survivors.get(q)
+            if not isinstance(got, list) or not rows_close(
+                    wire_rows(got), wire_rows(local_rows[q])):
+                raise AssertionError(f"SV5 kill: {q}: {got!r:.300}")
+        log("serving " + json.dumps({
+            "case": "SV5 low-memory kill", "victim": slow_sql,
+            "error": info.error_name, "survivors": sorted(survivors)}))
+    finally:
+        srv.stop()
+        engine.session.set("memory_reserve_timeout_s", 0.0)
+        engine.session.set("low_memory_killer_delay_s", 5.0)
+    moved = SV.BATCH_FALLBACKS.total() - fallbacks
+    if moved:
+        raise AssertionError(f"serving: {moved} batch groups fell back "
+                             "to serial runs")
+    result["groups"] = groups
+    result["launches"] = served
+    result["batched_launches"] = batched_launches
+    return result
+
+
+def serving_local_rows(conn) -> dict:
+    """Phase 3's rows of the 22 queries on one engine (for
+    ``--phases serving`` alone)."""
+    from presto_tpu_torch import Engine
+    engine = Engine()
+    engine.register_catalog("tpch", conn)
+    rows, _secs, _notes = run_queries(engine, TPCH, "cuda")
+    return rows
+
+
+def serving_phase(conn, scale: float, seed: int, local_rows: dict,
+                  dev) -> dict:
+    """Phase 11: the kernels' lane rules, then SV1-SV5. Returns the
+    launches of the served runs (serving_cases), the lane rules'
+    measurements and the batched launches."""
+    lanes = lane_kernels(dev, seed)
+    small = tpch_data(BATCH_SF["q05"], seed)
+    cases = serving_cases(conn, small, local_rows)
+    log("serving launches " + json.dumps(cases["launches"]))
+    return {"lanes": lanes, **cases}
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -3363,6 +4027,19 @@ def main() -> int:
             conn, args.scale, args.seed, tpch_rows,
             {q: v["s"] for q, v in tpch_queries.items()}))
         log(f"cluster phase: {time.perf_counter() - t:.1f} s")
+    serving: dict = {}
+    if "serving" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        conn = conn or tpch_data(args.scale, args.seed)
+        if not all(q in tpch_rows for q in TPCH):
+            # phase 3 did not run: its rows of the 22 queries
+            tpch_rows = {**tpch_rows, **serving_local_rows(conn)}
+        serving = serving_phase(conn, args.scale, args.seed, tpch_rows,
+                                dev)
+        launches = add(serving["launches"])
+        log(f"serving phase: {time.perf_counter() - t:.1f} s")
     if phases != set(PHASES):
         log(f"phases {sorted(phases)} passed; no summary without all "
             f"{len(PHASES)}")
@@ -3380,7 +4057,20 @@ def main() -> int:
                         "random_read_floor_ms":
                             k.get("random_read_floor_ms"),
                         "gather_floor_ms": k.get("gather_floor_ms"),
-                        "redesigned_in": REDESIGNED_IN[name]})
+                        "redesigned_in": REDESIGNED_IN[name],
+                        # phase 11: the serving cases' launches, those
+                        # of SV4's batch groups among them, and the
+                        # lane rule at K = 8 lanes (lane_kernels)
+                        "serving_launches": serving["launches"][name],
+                        "batched_launches":
+                            serving["batched_launches"][name],
+                        "batched_ms": serving["lanes"][name]["ms"],
+                        "batched_plain_ms":
+                            serving["lanes"][name]["plain_ms"],
+                        "batched_bound_ms":
+                            serving["lanes"][name]["bound_ms"],
+                        "batched_max_abs_err":
+                            serving["lanes"][name]["max_abs_err"]})
     print(card, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -126,8 +126,9 @@ class SystemConnector(_ReflectiveConnector):
     coordinator and, under a ``ClusterCoordinator``, every registered
     worker's heartbeat-observed state. ``query_history`` reads the
     engine's ``QueryHistory`` (``PRESTO_TPU_HISTORY_DIR``) and
-    ``result_cache`` stays empty: the serving tier is not in the port
-    yet (ROADMAP Queue 1 item 9). The device-cost columns of
+    ``result_cache`` the serving layer's result cache
+    (server/serving.py), empty without a coordinator server. The
+    device-cost columns of
     ``operator_stats`` (``flops``, ``hbm_bytes``, ``intensity``,
     ``roofline``) are 0: the reference fills them from ``obs/devprof``,
     which is ROADMAP Queue 1 item 11."""
@@ -259,8 +260,10 @@ class SystemConnector(_ReflectiveConnector):
                     for n, (d, t, desc) in sorted(
                         SYSTEM_SESSION_PROPERTIES.items())]
         if name == "result_cache":
-            # no serving view in the port
-            return []
+            serving = getattr(self.engine, "_serving_view", None)
+            if serving is None:
+                return []
+            return serving.cache.snapshot()
         raise KeyError(name)
 
     def _node_rows(self) -> list[tuple]:

@@ -45,6 +45,31 @@ from presto_tpu_torch.obs.trace import TRACER
 from presto_tpu_torch.session import SYSTEM_SESSION_PROPERTIES, Session
 
 
+class _PerThread:
+    """An engine attribute with one value per thread: the HTTP
+    dispatcher runs several queries on one engine at once, and each
+    query's records (its warnings, programs, kernel notes, backend and
+    streamed blocks) belong to the thread that ran it. A thread that
+    ran nothing reads ``default()``."""
+
+    def __init__(self, default):
+        self.default = default
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def __get__(self, engine, owner=None):
+        if engine is None:
+            return self
+        try:
+            return getattr(engine._query_tl, self.name)
+        except AttributeError:
+            return self.default()
+
+    def __set__(self, engine, value):
+        setattr(engine._query_tl, self.name, value)
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the GPU. A CUDA device without CUDA raises: the
     engine never quietly runs on the CPU."""
@@ -58,6 +83,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Engine:
+    # per-thread records of the calling thread's last query: its
+    # warnings, kernel notes by (program, node position), kernel
+    # backend, programs (exec/executor.QueryRun) and the blocks it
+    # streamed (0 when it did not stream)
+    last_warnings = _PerThread(list)
+    last_kernel_notes = _PerThread(dict)
+    last_backend = _PerThread(lambda: None)
+    last_run = _PerThread(lambda: None)
+    last_streamed_blocks = _PerThread(int)
+
     def __init__(self, session: Session | None = None, device=None):
         from presto_tpu_torch.connectors.information_schema import (
             InformationSchemaConnector, SystemConnector)
@@ -117,14 +152,18 @@ class Engine:
         self._invalidation_listeners: list = []
         # rows and writer tasks of the last write (_table_to_host)
         self.last_write: dict | None = None
-        self.last_warnings: list = []
-        # the last query: kernel notes by (program, node position), its
-        # backend, its programs (exec/executor.QueryRun) and the blocks
-        # it streamed (0 when it did not stream)
-        self.last_kernel_notes: dict = {}
-        self.last_backend: str | None = None
-        self.last_run = None
-        self.last_streamed_blocks = 0
+        # backs the _PerThread records above
+        self._query_tl = threading.local()
+        # per-thread one-shot plan handoff (offer_preplanned /
+        # take_preplanned): the HTTP admission layer plans a query to
+        # size its memory reservation, and the execution path on the
+        # same thread reuses that plan instead of planning twice
+        self._preplanned_tl = threading.local()
+        # the runtime memory ledger: each program reserves the bytes of
+        # its input and output tensors (memory.py; capacity 0 means
+        # unbounded, set memory_pool.capacity to enforce)
+        from presto_tpu_torch.memory import MemoryPool
+        self.memory_pool = MemoryPool()
         # what each program learned (exec/progcache.py): its meta in a
         # bounded LRU, and its successful capacity vector under the
         # same key, so a repeat query climbs no capacity ladder
@@ -265,9 +304,11 @@ class Engine:
             text, stmt = self._parse_resolved(sql)
             if not isinstance(stmt, A.QueryStatement):
                 raise ValueError("execute_table expects a SELECT query")
+            preplanned = self.take_preplanned(text)
             with self._cancel_scope(cancel_token):
                 return monitored(
-                    self, text, lambda: self._execute_query(stmt.query, mesh))
+                    self, text, lambda: self._execute_query(
+                        stmt.query, mesh, preplanned=preplanned))
 
         return self._collecting(run)
 
@@ -319,6 +360,27 @@ class Engine:
             self._planning_checkpoint(t0)
         return plan, analysis
 
+    def offer_preplanned(self, sql: str, plan) -> None:
+        """Hand a plan just built for ``sql`` to this thread's next
+        execution of the same statement (the admission layer plans to
+        size its reservation; planning the same SQL again under the same
+        session on the same thread would double the planning cost).
+        One-shot: the next take_preplanned consumes it, and
+        clear_preplanned drops it when the offering scope exits."""
+        self._preplanned_tl.value = (sql, plan)
+
+    def take_preplanned(self, sql: str):
+        """Consume this thread's offered plan if it was made for
+        ``sql``."""
+        offered = getattr(self._preplanned_tl, "value", None)
+        self._preplanned_tl.value = None
+        if offered is not None and offered[0] == sql:
+            return offered[1]
+        return None
+
+    def clear_preplanned(self) -> None:
+        self._preplanned_tl.value = None
+
     def _planning_checkpoint(self, t0: float) -> None:
         """A seam of the planning phase: observe the cancellation token
         and enforce the session's ``query_max_planning_time`` (seconds
@@ -339,11 +401,16 @@ class Engine:
 
     # -- internals ----------------------------------------------------------
 
-    def _plan_query(self, query):
+    def _plan_query(self, query, preplanned=None):
         from presto_tpu_torch.plan.optimizer import optimize
         from presto_tpu_torch.plan.planner import LogicalPlanner
         from presto_tpu_torch.plan.sanity import validate_plan
         from presto_tpu_torch.sql import ast as A
+        if preplanned is not None:
+            # admission planned this exact SQL on this thread (plan_sql,
+            # same session scope): only the validation remains
+            validate_plan(preplanned)
+            return preplanned
         t0 = time.monotonic()
         with TRACER.span("plan"):
             plan = LogicalPlanner(self, None).plan(A.QueryStatement(query))
@@ -353,12 +420,12 @@ class Engine:
             validate_plan(plan)
         return plan
 
-    def _execute_query(self, query, mesh=None) -> Table:
+    def _execute_query(self, query, mesh=None, preplanned=None) -> Table:
         """Plan and run a query: over the shard group ``mesh`` when one
         is given (no streaming, spill or segmentation there, as in the
         reference), else on the engine's device."""
         self.last_spill = None
-        plan = self._plan_query(query)
+        plan = self._plan_query(query, preplanned=preplanned)
         if mesh is not None:
             from presto_tpu_torch.parallel.executor import (
                 execute_plan_distributed)

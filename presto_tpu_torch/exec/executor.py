@@ -63,8 +63,10 @@ NotImplementedError).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
+import uuid
 
 import numpy as np
 import torch
@@ -247,7 +249,7 @@ def bloom_bits(build: DTable, rk: str, max_bits: int) -> torch.Tensor:
     # dead and NULL keys land in slot m, which is dropped
     slots = (_df_hash(v) & (m - 1)).masked_fill(~w, m)
     bits = torch.zeros(m + 1, dtype=torch.bool, device=build.device)
-    return bits.index_fill_(0, slots, True)[:m]
+    return bits.index_fill(0, slots, True)[:m]
 
 
 def apply_blooms(dt: DTable, blooms: dict[str, torch.Tensor]) -> DTable:
@@ -603,6 +605,9 @@ class Program:
     t0: float = 0.0
     cache_hit: bool = False
     template: bool = False
+    # the kernel backend the program ran on: its carrier compacts on
+    # the same one
+    backend: str = "torch"
 
     def note_rows(self, engine, counts) -> None:
         """Keep the node rows that came back with the result (host
@@ -728,15 +733,62 @@ def prepare_plan(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
     engine.last_backend = backend
     return Program(out, index, [k for k, _c in interp.row_counts], counts,
                    plan, dict(interp.kernel_used), t0, entry is not None,
-                   tpl is not None)
+                   tpl is not None, backend)
+
+
+def _pool_wait(engine) -> tuple[float, float]:
+    """(block_s, kill_after_s) of a memory-pool reservation: how long
+    one over capacity blocks for concurrent queries to free bytes, and
+    when sustained exhaustion triggers the low-memory killer
+    (memory.MemoryPool.reserve)."""
+    sess = engine.session
+    return (float(sess.get("memory_reserve_timeout_s") or 0.0),
+            float(sess.get("low_memory_killer_delay_s") or 0.0))
+
+
+@contextlib.contextmanager
+def pool_tag(engine, prefix: str = ""):
+    """A fresh tag of the engine's memory pool, freed on exit."""
+    tag = prefix + uuid.uuid4().hex[:12]
+    try:
+        yield tag
+    finally:
+        engine.memory_pool.free(tag)
+
+
+def reserve(engine, tag: str, tensors) -> None:
+    """Reserve the bytes of ``tensors`` under ``tag`` in the engine's
+    memory pool, the query's cancel token as the owner a low-memory
+    kill reaches."""
+    from presto_tpu_torch.exec import cancel as C
+    block_s, kill_s = _pool_wait(engine)
+    engine.memory_pool.reserve(
+        tag, sum(int(t.nbytes) for t in tensors if t is not None),
+        block_s=block_s, kill_after_s=kill_s, owner=C.current())
+
+
+def input_tensors(scans: dict[int, ScanInput]) -> list:
+    """A program's scanned input tensors; a segment carrier is left
+    out: its pipeline reserved it when it was made."""
+    return [a for si in scans.values()
+            if si.node.catalog != SEGMENT_CATALOG
+            for a in si.arrays.values()]
+
+
+def output_tensors(dt: DTable) -> list:
+    return [a for v in dt.cols.values() for a in (v.data, v.valid)]
 
 
 def run_plan(engine, plan: N.PlanNode,
              scans: dict[int, ScanInput]) -> Table:
     """Run a program and fetch its result columns (with its node rows)
-    in one more host sync."""
-    return fetch_table(engine, plan, prepare_plan(engine, plan, scans),
-                       "result-demux")
+    in one more host sync. The bytes of its inputs, then of its
+    outputs, are reserved in the engine's memory pool while it runs."""
+    with pool_tag(engine) as tag:
+        reserve(engine, tag, input_tensors(scans))
+        prog = prepare_plan(engine, plan, scans)
+        reserve(engine, tag, output_tensors(prog.out))
+        return fetch_table(engine, plan, prog, "result-demux")
 
 
 def fetch_table(engine, plan: N.PlanNode, prog: Program,
@@ -751,9 +803,17 @@ def fetch_table(engine, plan: N.PlanNode, prog: Program,
     live_np, res_np, counts = HS.fetch(
         (out.live_mask(), res, prog.counts), site=site)
     prog.note_rows(engine, counts)
+    return host_table(plan, out.cols, live_np, res_np)
+
+
+def host_table(plan: N.PlanNode, out: dict, live_np, res_np) -> Table:
+    """A host Table from a program's fetched output: ``out`` its
+    columns (Vals: types and dictionaries), ``res_np`` each column's
+    fetched [data, valid] (an ARRAY's lengths and element mask after),
+    ``live_np`` its live mask."""
     cols: dict[str, Column] = {}
     live_rows = np.flatnonzero(live_np)
-    for (sym, v), parts in zip(out.cols.items(), res_np):
+    for (sym, v), parts in zip(out.items(), res_np):
         if v.is_array:
             # host lists for the live rows only (an aggregate's output
             # has its capacity's rows)
@@ -824,7 +884,7 @@ def run_plan_device(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
     (program, "carrier")."""
     from presto_tpu_torch import kernels as K
     prog = prepare_plan(engine, plan, scans)
-    with K.use_backend(engine.last_backend), K.collect() as used:
+    with K.use_backend(prog.backend), K.collect() as used:
         arrays, dicts, types, n, live, counts = device_outputs(
             prog.out, prog.counts)
     if used:
@@ -994,7 +1054,7 @@ def _run_segment(engine, mat: N.PlanNode, scans: dict[int, ScanInput],
 
 
 def _segment_carriers(engine, plan: N.PlanNode, observer=None,
-                      runner=None) -> tuple:
+                      runner=None, tag: str | None = None) -> tuple:
     """Materialize the segments in order, each as a device-resident
     carrier. Returns (the plan that remains, carriers by name).
 
@@ -1003,7 +1063,10 @@ def _segment_carriers(engine, plan: N.PlanNode, observer=None,
     returns the segment's rows by node); ``observer(seg, mat, carrier,
     wall_s, node_rows)`` fires after each, in segment order, with the
     host time from the segment's start to its counted live-rows fetch
-    (``device_outputs``)."""
+    (``device_outputs``). With ``tag``, each carrier's bytes are
+    reserved under it in the engine's memory pool as it is made, so an
+    over-budget pipeline raises before further segments run; the
+    caller frees the tag."""
     from presto_tpu_torch.exec.cancel import checkpoint
     run = runner or _run_segment
     rest, waves = _plan_segments(plan, engine)
@@ -1016,6 +1079,8 @@ def _segment_carriers(engine, plan: N.PlanNode, observer=None,
             t0 = time.perf_counter()
             carrier, node_rows = run(
                 engine, mat, collect_scans(mat, engine, carriers), cnode)
+            if tag is not None:
+                reserve(engine, tag, carrier.arrays.values())
             if observer is not None:
                 observer(seg, mat, carrier, time.perf_counter() - t0,
                          node_rows)
@@ -1027,19 +1092,21 @@ def _segment_carriers(engine, plan: N.PlanNode, observer=None,
 def _execute_segmented(engine, plan: N.PlanNode) -> Table:
     """Run a plan as a sequence of segment programs whose outputs stay
     on the device and feed the next program as carrier scans."""
-    plan, carriers = _segment_carriers(engine, plan)
-    return run_plan(engine, plan, collect_scans(plan, engine, carriers))
+    with pool_tag(engine, "seg-") as tag:
+        plan, carriers = _segment_carriers(engine, plan, tag=tag)
+        return run_plan(engine, plan,
+                        collect_scans(plan, engine, carriers))
 
 
 def run_plan_live(engine, plan: N.PlanNode) -> torch.Tensor:
     """Run a plan on the device (segmenting it as ``execute_plan``
     would) and return only its final live mask, a device tensor: the
     result's rows are not fetched."""
-    engine.last_run = QueryRun()
-    engine.last_kernel_notes = {}
-    plan, carriers = _segment_carriers(engine, plan)
-    return prepare_plan(engine, plan, collect_scans(
-        plan, engine, carriers)).out.live_mask()
+    start_run(engine)
+    with pool_tag(engine, "seg-") as tag:
+        plan, carriers = _segment_carriers(engine, plan, tag=tag)
+        return prepare_plan(engine, plan, collect_scans(
+            plan, engine, carriers)).out.live_mask()
 
 
 def _rename_outputs(plan: N.PlanNode,

@@ -85,8 +85,10 @@ def fetch(tree, site: str):
 def upload(array, device, site: str) -> torch.Tensor:
     """A device tensor holding the host ``array``: on a CUDA device a
     pinned, non-blocking copy (the pinned buffer is held by PyTorch's
-    host allocator until the copy has run); on the CPU the array itself
-    as a tensor. Counts one upload against ``site``. The tensor keeps
+    host allocator until the copy has run); on the CPU a copy too, so
+    that a write to the host array (an UPDATE of a memory table runs in
+    place) never reaches a query that already scans it, as on the card.
+    Counts one upload against ``site``. The tensor keeps
     the array's shape: a 0-d array (a scalar literal) stays 0-d, so the
     operators' scalar broadcasts see it as a scalar."""
     memo = _SHARED.get()
@@ -103,8 +105,8 @@ def upload(array, device, site: str) -> torch.Tensor:
 
 def _upload(array, device, site: str) -> torch.Tensor:
     UPLOADS.inc(site)
-    host = torch.from_numpy(np.require(array, requirements="C"))
     device = torch.device(device)
     if device.type != "cuda":
-        return host
+        return torch.from_numpy(np.array(array, order="C", copy=True))
+    host = torch.from_numpy(np.require(array, requirements="C"))
     return host.pin_memory().to(device, non_blocking=True)

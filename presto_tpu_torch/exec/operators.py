@@ -45,7 +45,7 @@ from presto_tpu_torch.expr import aggregates as A
 from presto_tpu_torch.expr import ir
 from presto_tpu_torch.expr.compile import (ExprCompiler, Val, _align_strings,
                                            cast_val, is_long_dec)
-from presto_tpu_torch.kernels.multijoin import multijoin_torch, take
+from presto_tpu_torch.kernels.multijoin import take
 from presto_tpu_torch.ops import hash as H
 from presto_tpu_torch.ops import segred
 from presto_tpu_torch.plan import nodes as N
@@ -715,13 +715,10 @@ def apply_multi_join(spine: DTable, builds: list[DTable],
 
 def _walk(spine: DTable, builds: list[DTable], criteria,
           growth: int) -> tuple:
-    args = (spine.cols, spine.live_mask(), spine.n,
-            [(b.cols, b.live_mask(), b.n) for b in builds],
-            criteria, growth)
-    fused = K.dispatch("multijoin")(*args)
-    if fused is None:  # not kernel-shaped: the plain walk
-        fused = multijoin_torch(*args)
-    gathers, live, ok = fused
+    from presto_tpu_torch.kernels import multijoin as MJ
+    gathers, live, ok = MJ.walk_chain(
+        spine.cols, spine.live_mask(),
+        [(b.cols, b.live_mask(), b.n) for b in builds], criteria, growth)
     out = dict(spine.cols)
     for bdt, gather in zip(builds, gathers):
         for sym, v in bdt.cols.items():
@@ -805,8 +802,8 @@ def apply_expand_join(left: DTable, right: DTable, node: N.Join,
             keep = keep & verify
         pidx = probe_idx.to(torch.int64)
         surv = torch.zeros(left.n, dtype=torch.int32, device=left.device)
-        surv.scatter_reduce_(0, pidx, keep.to(torch.int32), "amax",
-                             include_self=True)
+        surv = surv.scatter_reduce(0, pidx, keep.to(torch.int32), "amax",
+                                   include_self=True)
         first = torch.cat([torch.ones(1, dtype=torch.bool,
                                       device=left.device),
                            probe_idx[1:] != probe_idx[:-1]])
@@ -833,8 +830,8 @@ def _unmatched_build_rows(left: DTable, right: DTable, kept, build_row):
     matched = torch.zeros(nb + 1, dtype=torch.bool, device=dev)
     slot = torch.where(kept, torch.clamp(build_row.to(torch.int64), 0, nb),
                        torch.full_like(build_row, nb, dtype=torch.int64))
-    matched.index_put_((slot,), torch.ones((), dtype=torch.bool,
-                                           device=dev))
+    matched = matched.index_put((slot,), torch.ones(
+        (), dtype=torch.bool, device=dev))
     zero = torch.zeros(nb, dtype=torch.int64, device=dev)
     cols = {sym: dataclasses.replace(
                 take_val(v, zero),
@@ -913,9 +910,9 @@ def apply_semijoin(dt: DTable, filt: DTable, node: N.SemiJoin,
         bkey = filt.cols[node.filter_key].data.to(torch.int64)
         inside = build_live & (bkey >= lo) & (bkey <= hi)
         bits = torch.zeros(span + 1, dtype=torch.bool, device=dt.device)
-        bits.index_put_((torch.where(inside, bkey - lo,
-                                     torch.full_like(bkey, span)),),
-                        torch.ones((), dtype=torch.bool, device=dt.device))
+        bits = bits.index_put(
+            (torch.where(inside, bkey - lo, torch.full_like(bkey, span)),),
+            torch.ones((), dtype=torch.bool, device=dt.device))
         pkey = dt.cols[node.source_key].data.to(torch.int64)
         in_range = (pkey >= lo) & (pkey <= hi)
         found = probe_live & in_range & bits[torch.clamp(pkey - lo, 0,
@@ -1067,8 +1064,8 @@ def apply_mark_distinct(dt: DTable, node: N.MarkDistinct) -> DTable:
     sg = H.SortedGroups(rh, live, key_ops, len(key_ops))
     # the stable sort puts each run's smallest row index first
     mark = torch.zeros(dt.n, dtype=torch.bool, device=dt.device)
-    mark.scatter_(0, torch.clamp(sg.sidx.to(torch.int64), 0, dt.n - 1),
-                  sg.is_new)
+    mark = mark.scatter(
+        0, torch.clamp(sg.sidx.to(torch.int64), 0, dt.n - 1), sg.is_new)
     cols = dict(dt.cols)
     cols[node.mark_symbol] = Val(T.BOOLEAN, mark, None, None)
     return DTable(cols, dt.live, dt.n, dt.device)
@@ -1408,7 +1405,7 @@ def apply_window(dt: DTable, node: N.Window) -> DTable:
     part_orderings = [N.Ordering(s) for s in node.partition_by]
     perm = H.lexsort(_sort_keys(dt, part_orderings + list(node.orderings)))
     idx = torch.arange(n, dtype=torch.int64, device=dev)
-    inv = torch.zeros(n, dtype=torch.int64, device=dev).scatter_(
+    inv = torch.zeros(n, dtype=torch.int64, device=dev).scatter(
         0, perm, idx)
 
     pvals = [dt.cols[s] for s in node.partition_by]

@@ -57,9 +57,7 @@ def explain_analyze(engine, plan: N.PlanNode) -> str:
     rows. ``engine.last_run`` holds the run's programs afterwards."""
     from presto_tpu_torch.exec import executor as EX
 
-    engine.last_run = EX.QueryRun()
-    engine.last_kernel_notes = {}
-    engine.last_streamed_blocks = 0
+    EX.start_run(engine)
     seg_lines: list[str] = []
     total_t0 = time.perf_counter()
 
@@ -72,10 +70,12 @@ def explain_analyze(engine, plan: N.PlanNode) -> str:
             + format_plan(mat, annotations=_annotate(mat, node_rows,
                                                      engine)))
 
-    plan, carriers = EX._segment_carriers(engine, plan, observer=observe,
-                                          runner=_profiled_runner)
-    final = _explain_one_program(engine, plan, EX.collect_scans(
-        plan, engine, carriers))
+    with EX.pool_tag(engine, "explain-") as tag:
+        plan, carriers = EX._segment_carriers(
+            engine, plan, observer=observe, runner=_profiled_runner,
+            tag=tag)
+        final = _explain_one_program(engine, plan, EX.collect_scans(
+            plan, engine, carriers))
     if not seg_lines:
         return final
     total = (time.perf_counter() - total_t0) * 1e3

@@ -144,16 +144,22 @@ def _run_partitions(engine, root: N.PlanNode, part_inputs: list
     rows are not collected (per-node totals of one fragment replayed
     over many partitions would misattribute)."""
     from presto_tpu_torch.exec.cancel import checkpoint
-    from presto_tpu_torch.exec.executor import fetch_table, prepare_plan
+    from presto_tpu_torch.exec import executor as EX
     capacities: dict[tuple, int] = {}
     outs = []
     for inputs in part_inputs:
         checkpoint()
-        prog = prepare_plan(engine, root,
-                            {id(inp.node): inp for inp in inputs},
-                            capacities, site="spill-ok-ladder",
-                            collect_rows=False)
-        outs.append(fetch_table(engine, root, prog, "spill-demux"))
+        scans = {id(inp.node): inp for inp in inputs}
+        # each partition's inputs and outputs are reserved in the
+        # engine's memory pool while it runs
+        with EX.pool_tag(engine, "spill-") as tag:
+            EX.reserve(engine, tag, EX.input_tensors(scans))
+            prog = EX.prepare_plan(engine, root, scans, capacities,
+                                   site="spill-ok-ladder",
+                                   collect_rows=False)
+            EX.reserve(engine, tag, EX.output_tensors(prog.out))
+            outs.append(EX.fetch_table(engine, root, prog,
+                                       "spill-demux"))
     return outs
 
 

@@ -239,7 +239,7 @@ def _reservoir(key, values, w, ids, cells: int) -> tuple:
     winner = w & (ids >= 0) & (key == best[gather])
     dest = torch.where(winner, gather, torch.full_like(gather, cells))
     val = torch.zeros(cells + 1, dtype=torch.float64, device=key.device)
-    val.index_copy_(0, dest, values)
+    val = val.index_copy(0, dest, values)
     return best ^ _I64_MIN, val[:cells]
 
 

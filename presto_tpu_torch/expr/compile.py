@@ -288,8 +288,15 @@ class ExprCompiler:
         # compiles exactly as the literal it replaced, its value read on
         # the host from the active binding, so a templated run makes
         # the same uploads and syncs as an untemplated one
-        from presto_tpu_torch.templates.runtime import current_value
-        return self._c_literal(ir.Literal(e.dtype, current_value(e.index)))
+        from presto_tpu_torch.templates import runtime as TR
+        value = TR.current_value(e.index)
+        if isinstance(value, torch.Tensor):
+            # a batch binding (exec/batch.py): the lane's physical
+            # value, already on the device, mapped by the batch axis
+            return Val(e.dtype, value, None,
+                       TR.current_dictionary(e.index)
+                       if isinstance(e.dtype, T.VarcharType) else None)
+        return self._c_literal(ir.Literal(e.dtype, value))
 
     # -- structured forms
 

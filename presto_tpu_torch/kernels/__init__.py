@@ -33,12 +33,19 @@ Selection is the ``kernel_backend`` session property:
 
 Every execution notes ``backend:kernel`` against the plan node being
 run, so a query shows which path ran.
+
+Under ``torch.func.vmap`` (a cross-query batch, exec/batch.py) an
+entry runs its lane rule (kernels/lanes.py): one call of the kernel,
+or of its plain version, for all lanes.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
+
+import torch
 
 from presto_tpu_torch.kernels import compact as _compact
 from presto_tpu_torch.kernels import hashjoin as _hashjoin
@@ -65,8 +72,8 @@ KERNELS: dict[str, dict[str, object]] = {
                 "torch": _segagg.segment_min_torch},
     "compact": {"cuda": _compact.filter_compact_cuda,
                 "torch": _compact.filter_compact_torch},
-    "multijoin": {"cuda": _multijoin.multijoin_cuda,
-                  "torch": _multijoin.multijoin_torch},
+    "multijoin": {"cuda": _multijoin.walk_cuda,
+                  "torch": _multijoin.walk_torch},
 }
 
 
@@ -103,10 +110,41 @@ def collect():
         _USED.reset(tok)
 
 
-def dispatch(name: str):
-    """The active backend's implementation of kernel ``name``. The
+def dispatch(name: str, backend: str | None = None):
+    """The entry of kernel ``name`` on ``backend`` (default the active
+    one). Called on tensors that a vmap batches, it runs the kernel's
+    lane rule (kernels/lanes.py); else the implementation itself. The
     implementations note themselves, for the path that actually ran."""
-    return KERNELS[name][_ACTIVE.get()]
+    backend = backend or _ACTIVE.get()
+
+    def entry(*args):
+        if _batched(args):
+            # imported here: defining the custom ops imports much of
+            # torch, which the serial route never needs
+            from presto_tpu_torch.kernels import lanes
+            return lanes.OPS[name](*args, backend=backend)
+        return KERNELS[name][backend](*args)
+
+    return entry
+
+
+def _batched(args) -> bool:
+    """Does any tensor in ``args`` (nested in lists, tuples, dicts and
+    Vals) carry a vmap batch dimension?"""
+    is_batched = torch._C._functorch.is_batchedtensor
+    stack = list(args)
+    while stack:
+        a = stack.pop()
+        if isinstance(a, torch.Tensor):
+            if is_batched(a):
+                return True
+        elif isinstance(a, (list, tuple)):
+            stack.extend(a)
+        elif isinstance(a, dict):
+            stack.extend(a.values())
+        elif dataclasses.is_dataclass(a) and not isinstance(a, type):
+            stack.extend(vars(a).values())
+    return False
 
 
 def note(tag: str) -> None:

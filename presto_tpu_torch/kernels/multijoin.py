@@ -18,19 +18,25 @@ or a column of an EARLIER build (gathered at that step's match). Dead
 rows gather build row 0, as the reference's ``clip(where(found, row,
 -1))`` does.
 
-- :func:`multijoin_cuda` returns None when the chain is not
-  kernel-shaped (a 2-D LONG-decimal key, or a key that is not a plain
-  spine or build column), exactly as ``try_fused`` declines; the
-  caller then runs the plain walk. Value checks against 64-bit hash
+- :func:`walk_chain` is the entry the interpreter calls. A chain that
+  is not kernel-shaped (a 2-D LONG-decimal key) runs the plain walk,
+  as ``try_fused`` declines. Value checks against 64-bit hash
   collisions run on the kernel's gathers, outside the kernel.
 - :func:`multijoin_torch` is the plain version: the reference's inline
   walk of ``apply_multi_join``, one sorted lookup
   (sort_build_side + probe_runs) per step, verifying values per step.
+
+The kernel entry behind it (``kernels.dispatch("multijoin")``) takes the chain as flat hash columns, a :class:`Walk`
+(:func:`walk_of`): :func:`walk_cuda` launches the kernels and
+:func:`walk_torch` is its plain version; both leave the value checks to
+the caller. The flat form is what the lane rule folds
+(kernels/lanes.py).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -199,30 +205,38 @@ def _check_limits(steps) -> None:
                          f"{B.MJ_MAX_KEYS} keys")
 
 
+def _pack(keys, tables):
+    """The walk's :class:`build.MjDesc` from ``keys``, one (step,
+    source, hash column, validity or None) per probe key in step order,
+    and each step's table."""
+    desc = B.MjDesc()
+    for si, (st, table) in enumerate(zip(desc.steps, tables)):
+        st.table = table.data_ptr()
+        st.mask = table.shape[0] - 1
+        mine = [k for k in keys if k[0] == si]
+        st.nkeys = len(mine)
+        for key, (_si, src, kh, valid) in zip(st.keys, mine):
+            key.source, key.hash = src, kh.data_ptr()
+            if valid is not None:
+                key.valid = valid.data_ptr()
+    return desc
+
+
 def descriptor(steps, tables) -> tuple:
     """Pack the walk's step descriptors (:class:`build.MjDesc`): per
     step its table's address, slot mask and key count, then per key its
     source (-1 for the spine, else the earlier step), the address of
     its 64-bit hash column and of its validity (0 when it has no
-    nulls). Host work only: no library, no device copy. Returns (desc, the hash and
-    validity tensors it points at)."""
+    nulls). Host work only: no library, no device copy. Returns (desc,
+    the hash and validity tensors it points at)."""
     _check_limits(steps)
-    desc = B.MjDesc()
-    keep: list = []
-    for st, keys, table in zip(desc.steps, steps, tables):
-        st.table = table.data_ptr()
-        st.mask = table.shape[0] - 1
-        st.nkeys = len(keys)
-        for key, (src, v, _bv) in zip(st.keys, keys):
-            (kh,) = _col_hash(v)
-            kh = kh.contiguous()
-            keep.append(kh)
-            key.source, key.hash = src, kh.data_ptr()
-            if v.valid is not None:
-                vt = v.valid.contiguous()
-                keep.append(vt)
-                key.valid = vt.data_ptr()
-    return desc, keep
+    keys = [(si, src, kh.contiguous(),
+             None if v.valid is None else v.valid.contiguous())
+            for si, step in enumerate(steps) for src, v, _bv in step
+            for kh in _col_hash(v)]
+    keep = [t for _si, _src, kh, valid in keys for t in (kh, valid)
+            if t is not None]
+    return _pack(keys, tables), keep
 
 
 def step_descriptors(steps, builds, growth: int = 1,
@@ -244,35 +258,137 @@ def step_descriptors(steps, builds, growth: int = 1,
     return desc, keep + tables, oks
 
 
-def multijoin_cuda(spine_cols: dict, spine_live, width: int,
-                   builds: list, criteria: list, growth: int = 1,
-                   max_probes: int = HJ.MAX_PROBES):
-    """The fused walk: per-step tables from the build_table kernel,
-    then one multijoin_walk launch. None when the chain is not
-    kernel-shaped; tensors on the CPU take the plain version."""
+@dataclasses.dataclass
+class Walk:
+    """A chain as flat hash columns. Per step: the build's live rows
+    (its key columns' validity folded in); per build key hash column
+    its step; per probe key hash column its step, its source (-1 the
+    spine, else the earlier step whose match indexes it) and its
+    validity (an index into ``key_valid``, -1 for none). A LONG-decimal
+    key gives two hash columns on each side."""
+
+    build_live: list
+    build_hash: list
+    build_step: list
+    key_hash: list
+    key_valid: list
+    key_step: list
+    key_source: list
+    key_valid_at: list
+
+
+def walk_of(steps, builds) -> Walk:
+    """The flat :class:`Walk` of resolved ``steps`` over ``builds``."""
+    w = Walk([], [], [], [], [], [], [], [])
+    for si, ((_bcols, blive, _bn), keys) in enumerate(zip(builds, steps)):
+        w.build_live.append(_build_live(blive, keys).contiguous())
+        for src, v, bv in keys:
+            for h in _col_hash(bv):
+                w.build_hash.append(h.contiguous())
+                w.build_step.append(si)
+            for h in _col_hash(v):
+                w.key_hash.append(h.contiguous())
+                w.key_step.append(si)
+                w.key_source.append(src)
+                if v.valid is None:
+                    w.key_valid_at.append(-1)
+                else:
+                    w.key_valid_at.append(len(w.key_valid))
+                    w.key_valid.append(v.valid.contiguous())
+    return w
+
+
+def _step_hash(hashes, steps, si):
+    return H.combine_hashes([h for h, s in zip(hashes, steps) if s == si])
+
+
+def walk_torch(spine_live, walk: Walk, growth: int = 1,
+               max_probes: int = HJ.MAX_PROBES):
+    """Plain version of the flat walk: one sorted lookup per step.
+    Returns (gathers int32 [steps, width], live bool [width], ok 0-d
+    bool); dead rows gather build row 0."""
+    from presto_tpu_torch import kernels as K
+    K.note("torch:multijoin")
+    live = spine_live
+    gathers: list = []
+    for si, blive in enumerate(walk.build_live):
+        bn = blive.shape[0]
+        probe_live = live
+        cols = []
+        for j, step in enumerate(walk.key_step):
+            if step != si:
+                continue
+            src = walk.key_source[j]
+            cols.append(walk.key_hash[j] if src < 0
+                        else take(walk.key_hash[j], gathers[src]))
+            at = walk.key_valid_at[j]
+            if at >= 0:
+                valid = walk.key_valid[at]
+                probe_live = probe_live & (
+                    valid if src < 0 else take(valid, gathers[src]))
+        rh = _step_hash(walk.build_hash, walk.build_step, si)
+        _bsh, bsidx = H.sort_build_side(rh, blive)
+        lo, count, found = H.probe_runs(rh, blive,
+                                        H.combine_hashes(cols), probe_live)
+        picked = take(bsidx, torch.clamp(lo + count - 1, 0,
+                                         max(bn - 1, 0)))
+        gathers.append(torch.where(found, picked, torch.zeros_like(
+            picked)).to(torch.int32))
+        live = probe_live & found
+    return (torch.stack(gathers), live,
+            torch.ones((), dtype=torch.bool, device=spine_live.device))
+
+
+def walk_cuda(spine_live, walk: Walk, growth: int = 1,
+              max_probes: int = HJ.MAX_PROBES):
+    """The flat walk on the card: per-step tables from the build_table
+    kernel, then one multijoin_walk launch; the plain version for a
+    mask on the CPU."""
     if not spine_live.is_cuda:
-        return multijoin_torch(spine_cols, spine_live, width, builds,
-                               criteria, growth, max_probes)
-    try:
-        steps = _resolve(spine_cols, builds, criteria)
-    except KeyError:
-        return None
-    if not _kernel_shaped(steps):
-        return None
-    desc, keep, oks = step_descriptors(steps, builds, growth, max_probes)
-    gathers, alive, ok = multijoin_walk(desc, len(steps),
-                                        spine_live.contiguous(), width,
-                                        max_probes)
-    del keep  # stream order keeps the buffers valid for the launch
+        return walk_torch(spine_live, walk, growth, max_probes)
+    steps = len(walk.build_live)
+    _check_limits([[None] * walk.key_step.count(si)
+                   for si in range(steps)])
+    tables, oks = [], []
+    for si, blive in enumerate(walk.build_live):
+        cap = H.next_pow2(2 * max(blive.shape[0], 1)) * max(int(growth), 1)
+        table, b_ok = HJ.build_table(
+            _step_hash(walk.build_hash, walk.build_step, si), blive, cap,
+            max_probes)
+        tables.append(table)
+        oks.append(b_ok)
+    desc = _pack([(si, src, kh, None if at < 0 else walk.key_valid[at])
+                  for si, src, kh, at in zip(
+                      walk.key_step, walk.key_source, walk.key_hash,
+                      walk.key_valid_at)], tables)
+    gathers, alive, ok = multijoin_walk(desc, steps, spine_live.contiguous(),
+                                        spine_live.shape[0], max_probes)
+    # stream order keeps the tables and hash columns valid for the launch
     from presto_tpu_torch import kernels as K
     K.note("cuda:multijoin")
     ok_all = ok[0]
     for b_ok in oks:
         ok_all = ok_all & b_ok[0]
-    rows = [gathers[si] for si in range(len(steps))]
-    live = alive
+    return gathers, alive, ok_all
+
+
+def walk_chain(spine_cols: dict, spine_live, builds: list, criteria: list,
+               growth: int = 1, max_probes: int = HJ.MAX_PROBES):
+    """The walk as the interpreter runs it (exec/operators.apply_multi_
+    join): the current backend's kernel entry (``kernels.dispatch
+    ("multijoin")``) over the flat walk, then the value checks against
+    64-bit hash collisions on its gathers. A chain the walk kernel does
+    not take (a LONG-decimal key) runs the plain walk on every backend.
+    Returns (gathers: a list of int32 [width], live, ok)."""
+    from presto_tpu_torch import kernels as K
+    steps = _resolve(spine_cols, builds, criteria)
+    entry = K.dispatch("multijoin", None if _kernel_shaped(steps)
+                       else "torch")
+    gathers, live, ok = entry(spine_live.contiguous(),
+                              walk_of(steps, builds), growth, max_probes)
+    gathers = list(gathers)
     for si, keys in enumerate(steps):
-        verify = _verify(keys, rows, rows[si])
+        verify = _verify(keys, gathers, gathers[si])
         if verify is not None:
             live = live & verify
-    return rows, live, ok_all
+    return gathers, live, ok

@@ -558,7 +558,6 @@ def _record_program(engine, rec: TaskRecorder, plan, meta, counts,
 
     _observe_shapes(by_pos, order, actual)
 
-    # the port's engine has no memory pool yet (ROADMAP Queue 1 item 9)
     pool = getattr(engine, "memory_pool", None)
     reserved = 0 if pool is None else int(pool.reserved)
     with rec._lock:

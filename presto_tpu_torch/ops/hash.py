@@ -218,7 +218,8 @@ def _run_starts(is_new: torch.Tensor) -> torch.Tensor:
     i = torch.arange(n, dtype=torch.int64, device=is_new.device)
     rid = torch.cumsum(is_new.to(torch.int64), 0) - 1
     firsts = torch.zeros(n + 1, dtype=torch.int64, device=is_new.device)
-    firsts.scatter_(0, torch.where(is_new, rid, torch.full_like(rid, n)), i)
+    firsts = firsts.scatter(
+        0, torch.where(is_new, rid, torch.full_like(rid, n)), i)
     start = firsts[torch.clamp(rid, min=0)]
     return torch.where(rid >= 0, start, torch.zeros_like(start)).to(
         torch.int32)

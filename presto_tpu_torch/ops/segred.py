@@ -50,7 +50,7 @@ def float_segment_sum(data, segment_ids, num_segments: int):
     ids = _drop_ids(segment_ids, k)
     out = torch.zeros((k + 1,) + tuple(data.shape[1:]), dtype=data.dtype,
                       device=data.device)
-    out.index_add_(0, ids, data)
+    out = out.index_add(0, ids, data)
     return out[:k]
 
 
@@ -85,13 +85,13 @@ def identity(dtype: torch.dtype, is_max: bool):
 
 def plain_segment_cmp(data, segment_ids, num_segments: int,
                       is_max: bool):
-    """Per-segment max (or min) of a 1-D column by ``scatter_reduce_``
+    """Per-segment max (or min) of a 1-D column by ``scatter_reduce``
     onto an output filled with the identity, an extra slot absorbing
     out-of-range ids."""
     k = int(num_segments)
     ids = _drop_ids(segment_ids, k)
     out = torch.full((k + 1,), identity(data.dtype, is_max),
                      dtype=data.dtype, device=data.device)
-    out.scatter_reduce_(0, ids, data, "amax" if is_max else "amin",
-                        include_self=True)
+    out = out.scatter_reduce(0, ids, data, "amax" if is_max else "amin",
+                             include_self=True)
     return out[:k]

@@ -96,7 +96,7 @@ def broadcast_last(vals, sg):
     rid = torch.clamp(torch.cumsum(sg.is_new.to(torch.int64), 0) - 1,
                       min=0)
     lastpos = torch.full((n + 1,), n - 1, dtype=torch.int64, device=dev)
-    lastpos.scatter_(0, torch.where(sg.is_last, rid,
-                                    torch.full_like(rid, n)), i)
+    lastpos = lastpos.scatter(0, torch.where(sg.is_last, rid,
+                                             torch.full_like(rid, n)), i)
     pos = torch.where(sg.live, lastpos[rid], torch.full_like(rid, n - 1))
     return vals[pos]

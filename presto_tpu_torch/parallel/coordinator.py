@@ -413,10 +413,10 @@ class ClusterCoordinator:
 
         # plan with late materialization off: its rewritten shape
         # (dimension re-join above the aggregate) is a single-chip
-        # width optimization the fragmenter cannot stage. (The
-        # reference first takes a plan its HTTP admission layer offered;
-        # the port has no admission layer yet, ROADMAP Queue 1 item 9.)
-        plan, _ = self.engine.plan_sql(sql, enable_latemat=False)
+        # width optimization the fragmenter cannot stage
+        plan = self.engine.take_preplanned(sql)
+        if plan is None:
+            plan, _ = self.engine.plan_sql(sql, enable_latemat=False)
         workers = self.live_workers()
         require = bool(self.engine.session.get("require_distribution"))
         allow_fb = bool(self.engine.session.get("allow_local_fallback"))

@@ -22,10 +22,11 @@ The multi-host analog of the reference worker runtime
 Each worker's engines run on one device (``WorkerServer(device=...)``:
 the GPU unless the caller asks for the CPU), so a fragment runs through
 ``exec/executor.run_plan`` and the CUDA kernels. A worker's tasks run
-in its HTTP handler threads on the device's current stream. The
-reference's memory pool (``PRESTO_TPU_WORKER_MEMORY_BYTES``), its
-process gauges and its device-profile endpoints are not in the port
-yet (ROADMAP Queue 1 items 9 and 11).
+in its HTTP handler threads on the device's current stream.
+``PRESTO_TPU_WORKER_MEMORY_BYTES`` caps each worker engine's memory
+pool, whose bytes ``/v1/status`` and ``/metrics`` report. The
+reference's process gauges and its device-profile endpoints are not in
+the port yet (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -462,17 +463,14 @@ class WorkerServer(HttpService):
             with self._lock:
                 e = self._engines.get((shard, nshards))
                 if e is None:
-                    # worker-side memory governance caps the runtime
-                    # pool in the reference; the port has no pool yet
+                    e = Engine(device=self.device)
+                    # worker-side memory governance: cap the runtime
+                    # pool so concurrent fragment tasks cannot run the
+                    # card out of memory
                     cap = int(os.environ.get(
                         "PRESTO_TPU_WORKER_MEMORY_BYTES", "0") or 0)
                     if cap:
-                        raise NotImplementedError(
-                            "PRESTO_TPU_WORKER_MEMORY_BYTES caps the "
-                            "engine's MemoryPool, which is not in "
-                            "presto_tpu_torch yet (ROADMAP Queue 1 "
-                            "item 9)")
-                    e = Engine(device=self.device)
+                        e.memory_pool.capacity = cap
                     for name, conn in catalogs.items():
                         e.register_catalog(
                             name, SplitConnector(conn, shard, nshards))
@@ -507,9 +505,10 @@ class WorkerServer(HttpService):
                     # worker-side gauges refresh at scrape time; the
                     # text body is the process-wide shared registry.
                     # The reference's process gauges (obs/procstats)
-                    # and pool gauge wait for items 11 and 9
+                    # wait for item 11
                     with outer._lock:
                         engines = list(outer._engines.values())
+                    pools = [e.memory_pool.info() for e in engines]
                     g = REGISTRY.gauge(
                         "presto_tpu_worker_cached_engines",
                         "split-view engines cached on the worker")
@@ -523,6 +522,11 @@ class WorkerServer(HttpService):
                         "compiled programs resident across the "
                         "worker's cached engines (exec/progcache.py)")
                     g.set(sum(len(e._program_cache) for e in engines),
+                          node=outer.node_id)
+                    g = REGISTRY.gauge(
+                        "presto_tpu_memory_reserved_bytes",
+                        "runtime memory pool reservation")
+                    g.set(sum(p["reservedBytes"] for p in pools),
                           node=outer.node_id)
                     body = REGISTRY.render().encode()
                     self.send_response(200)
@@ -546,12 +550,17 @@ class WorkerServer(HttpService):
                     # under: a status poll racing a task POST must not
                     # iterate a mutating dict
                     with outer._lock:
+                        engines = list(outer._engines.values())
                         active = outer._active_tasks
-                    # the reference adds its memory pools' reserved and
-                    # peak bytes (no pool in the port: item 9)
+                    pools = [e.memory_pool.info() for e in engines]
                     self._send_json({
                         "nodeId": outer.node_id, "state": outer.state,
-                        "activeTasks": active})
+                        "activeTasks": active,
+                        "memory": {
+                            "reservedBytes": sum(
+                                p["reservedBytes"] for p in pools),
+                            "peakBytes": sum(
+                                p["peakBytes"] for p in pools)}})
                     return
                 if (len(parts) in (6, 7)
                         and parts[:2] == ["v1", "task"]

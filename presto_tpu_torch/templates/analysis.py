@@ -80,6 +80,13 @@ class Template:
         from presto_tpu_torch.plan.fingerprint import plan_fingerprint
         return plan_fingerprint(self.plan)
 
+    def example_args(self) -> list:
+        """The physical value of each parameter with no dictionary
+        bound (a VARCHAR parameter's code is -1): the shapes and dtypes
+        every binding of this template has."""
+        from presto_tpu_torch.templates.runtime import bind_values
+        return bind_values(self.params, {})
+
     def bind(self, bindings: dict | None) -> list:
         """The physical encoding of each parameter, string codes
         resolved through ``bindings`` (parameter index -> the

@@ -35,15 +35,25 @@ class TemplateError(RuntimeError):
 
 
 @contextlib.contextmanager
-def active(values: list):
-    """Install a template's parameter values (host values, in
-    parameter order) while its plan runs."""
-    prev = getattr(_TLS, "values", None)
+def active(values: list, dictionaries: dict | None = None):
+    """Install a template's parameter values (in parameter order) while
+    its plan runs: host values, or under a batch binding
+    (exec/batch.py) each parameter's physical value as a tensor that
+    the vmap maps, a VARCHAR parameter's code being into
+    ``dictionaries[index]``."""
+    prev = (getattr(_TLS, "values", None),
+            getattr(_TLS, "dictionaries", None))
     _TLS.values = list(values)
+    _TLS.dictionaries = dictionaries or {}
     try:
         yield
     finally:
-        _TLS.values = prev
+        _TLS.values, _TLS.dictionaries = prev
+
+
+def current_dictionary(index: int):
+    """The dictionary a batch-bound VARCHAR parameter's codes index."""
+    return (getattr(_TLS, "dictionaries", None) or {}).get(index)
 
 
 def current_value(index: int):

@@ -239,8 +239,9 @@ def test_speculative_straggler_redispatch_q5(adaptive_cluster):
     while time.time() < deadline and residue():
         time.sleep(0.25)
     assert residue() == [], f"leaked task state: {residue()}"
-    # (the reference also reads each worker engine's memory pool,
-    # which the port does not have yet: ROADMAP Queue 1 item 9)
+    for w in workers:
+        for e in list(w._engines.values()):
+            assert e.memory_pool.info()["reservedBytes"] == 0
     # and the loser's dispatch thread comes home (its POST returns
     # once the worker-side stall elapses) — no thread leaks either
     def spec_threads():

@@ -366,8 +366,9 @@ def test_worker_without_device_needs_cuda(torch_tpch):
 
 
 def test_worker_memory_cap_names_the_missing_pool(torch_tpch, monkeypatch):
-    """PRESTO_TPU_WORKER_MEMORY_BYTES caps a MemoryPool the port does not
-    have yet: the task fails naming it, it is not ignored."""
+    """PRESTO_TPU_WORKER_MEMORY_BYTES caps each worker engine's
+    MemoryPool, as in the reference: a task runs under the cap, its
+    reservations are freed, and /v1/status reports the pool's bytes."""
     monkeypatch.setenv("PRESTO_TPU_WORKER_MEMORY_BYTES", str(1 << 30))
     w = WorkerServer({"tpch": torch_tpch}, device="cpu").start()
     try:
@@ -376,10 +377,16 @@ def test_worker_memory_cap_names_the_missing_pool(torch_tpch, monkeypatch):
             data=json.dumps({"sql": "select count(*) from lineitem",
                              "shard": 0, "nshards": 1}).encode(),
             method="POST", headers={"Content-Type": "application/json"})
-        with pytest.raises(urllib.error.HTTPError) as exc:
-            urllib.request.urlopen(req, timeout=60)
-        assert exc.value.code == 500
-        msg = json.loads(exc.value.read())["error"]
-        assert "NotImplementedError" in msg and "item 9" in msg
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            assert resp.status == 200
+        engines = list(w._engines.values())
+        assert [e.memory_pool.capacity for e in engines] == [1 << 30]
+        info = engines[0].memory_pool.info()
+        assert info["reservedBytes"] == 0 and info["peakBytes"] > 0
+        with urllib.request.urlopen(f"{w.uri}/v1/status",
+                                    timeout=10) as resp:
+            status = json.loads(resp.read())
+        assert status["memory"] == {"reservedBytes": 0,
+                                    "peakBytes": info["peakBytes"]}
     finally:
         w.stop()

@@ -650,7 +650,7 @@ def test_multijoin_walk_matches_plain(cuda, case):
     want = MJ.multijoin_torch(*args)
     before = B.LAUNCHES.snapshot()
     with K.use_backend("cuda"):
-        got = MJ.multijoin_cuda(*args)
+        got = MJ.walk_chain(spine, live, builds, crit)
     torch.cuda.synchronize()
     after = B.LAUNCHES.snapshot()
     assert after["multijoin_walk"] == before["multijoin_walk"] + 1
@@ -688,7 +688,7 @@ def test_fused_walk_adds_no_host_sync(cuda, case):
     torch.cuda.set_sync_debug_mode("error")
     try:
         with K.use_backend("cuda"):
-            got = MJ.multijoin_cuda(*args)
+            got = MJ.walk_chain(args[0], args[1], *args[3:])
     finally:
         torch.cuda.set_sync_debug_mode("default")
     want = MJ.multijoin_torch(*args)
@@ -1568,3 +1568,179 @@ def test_native_codec_loads_from_build(cuda):
     assert c.crc32c(b"123456789") == 0xE3069283
     data = np.arange(4096, dtype=np.int64).tobytes()
     assert c.decompress(c.compress(data), len(data)) == data
+
+
+# -- the server tier: lane rules, batches, the coordinator, threads ---------
+
+
+def _chip_smoke_module():
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+def _lane_inputs(name, cuda, lanes=4, n=50_000, seed=0):
+    """(entry args builder, in_dims, expected launches) of a kernel
+    entry's lane rule over ``lanes`` lanes on the card."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+
+    def rnd(shape, hi, dtype=torch.int64):
+        return torch.randint(0, hi, shape, dtype=dtype, device=cuda,
+                             generator=g)
+    if name in ("agg_sum", "agg_max", "agg_min"):
+        data = rnd((lanes, n), 1 << 40) - (1 << 39)
+        ids = rnd((lanes, n), 9, torch.int32) - 1  # -1 drops
+        launched = {"agg_sum": "segment_sum", "agg_max": "segment_max",
+                    "agg_min": "segment_min"}[name]
+        return ((data, ids), (0, 0),
+                lambda e, d, i: (e(d, i, 7),), {launched: 1})
+    if name == "join_lookup":
+        keys = torch.randperm(4 * n, device=cuda, generator=g)[:n // 4]
+        bh = H.hash_int_column(keys)
+        ph = H.hash_int_column(keys[rnd((n,), n // 4)])
+        bl = torch.rand((lanes, n // 4), device=cuda, generator=g) < 0.7
+        pl = torch.rand((lanes, n), device=cuda, generator=g) < 0.5
+        cap = H.next_pow2(n // 2)
+        return ((bl, pl), (0, 0),
+                lambda e, b, p: e(bh, b, ph, p, cap)[:2],
+                {"build_table": 1, "probe_table": 1})
+    if name == "compact":
+        cols = {"a": rnd((n,), 1 << 40), "b": rnd((n, 2), 99),
+                "c": rnd((n,), 2, torch.int32).to(torch.bool)}
+        live = torch.rand((lanes, n), device=cuda, generator=g) < 0.1
+        cap = H.next_pow2(int(live.sum(1).max()))
+        return ((live,), (0,),
+                lambda e, lv: tuple(e(lv, cols, cap).values()),
+                {"filter_compact": 1})
+    # multijoin: two steps, the second keyed by the first build's column
+    sizes = (5000, 40)
+    link = rnd((sizes[0],), sizes[1])
+    spine = rnd((n,), sizes[0])
+    walk = MJ.Walk(
+        build_live=[], build_hash=[H.hash_int_column(
+            torch.arange(s, device=cuda)) for s in sizes],
+        build_step=[0, 1],
+        key_hash=[H.hash_int_column(spine), H.hash_int_column(link)],
+        key_valid=[], key_step=[0, 1], key_source=[-1, 0],
+        key_valid_at=[-1, -1])
+    lives = [torch.rand((lanes, s), device=cuda, generator=g) < 0.8
+             for s in sizes]
+    live = torch.rand((lanes, n), device=cuda, generator=g) < 0.6
+    import dataclasses
+
+    def run(e, lv, l0, l1):
+        w = dataclasses.replace(walk, build_live=[l0, l1])
+        gathers, alive, _ok = e(lv, w, 1, HJ.MAX_PROBES)
+        return gathers, alive
+    return ((live, *lives), (0, 0, 0), run,
+            {"build_table": 2, "multijoin_walk": 1})
+
+
+@pytest.mark.parametrize("name", ["agg_sum", "agg_max", "agg_min",
+                                  "join_lookup", "compact", "multijoin"])
+def test_lane_rule_launches_once_and_matches_plain(cuda, name):
+    """Under torch.func.vmap over 4 lanes, the cuda entry launches each
+    of its kernels once for all lanes and equals the plain rule under
+    the same vmap."""
+    args, dims, fn, want = _lane_inputs(name, cuda)
+    out = {}
+    for backend in ("torch", "cuda"):
+        entry = K.dispatch(name, backend)
+        B.LAUNCHES.reset()
+        out[backend] = torch.func.vmap(
+            lambda *a: fn(entry, *a), in_dims=dims)(*args)
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in B.LAUNCHES.snapshot().items() if n}
+        assert launched == (want if backend == "cuda" else {}), launched
+    for got, plain in zip(out["cuda"], out["torch"]):
+        assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("case", ["q06", "q01", "extrema", "join", "q05",
+                                  "cross_join"])
+def test_batched_group_on_the_card(tpch_pair, case):
+    """A group of 8 literal variants: every lane equals its serial run
+    on the card and on the CPU, and a warm group launches each kernel as
+    often as one warm serial run does."""
+    from presto_tpu_torch import templates as TPL
+    from presto_tpu_torch.exec import batch as BT
+    cs = _chip_smoke_module()
+    card, host = tpch_pair
+    card.session.set("kernel_backend", "cuda")
+    sqls = cs.batch_variants(case, 0.01)
+    want = [card.execute(s) for s in sqls]
+    on_host = [host.execute(s) for s in sqls]
+    B.LAUNCHES.reset()
+    card.execute(sqls[0])
+    one_run = {k: n for k, n in B.LAUNCHES.snapshot().items() if n}
+    tpls = [TPL.parameterize(card.plan_sql(s)[0]) for s in sqls]
+    BT.run_plan_batched(card, tpls)
+    B.LAUNCHES.reset()
+    lanes = BT.run_plan_batched(card, tpls)
+    launched = {k: n for k, n in B.LAUNCHES.snapshot().items() if n}
+    assert launched == one_run
+    assert set(cs.BATCH_KERNELS[case]) <= set(launched)
+    for lane, w, h in zip(lanes, want, on_host):
+        assert cs.rows_close(lane.to_pylist(), w)
+        assert cs.rows_close(lane.to_pylist(), h)
+
+
+def test_coordinator_server_on_the_card(tpch_pair):
+    """CoordinatorServer(Engine()) on the card answers JSON and arrow
+    clients with the CPU engine's rows."""
+    from presto_tpu_torch.client import Client
+    from presto_tpu_torch.server import CoordinatorServer
+    cs = _chip_smoke_module()
+    card, host = tpch_pair
+    srv = CoordinatorServer(card).start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        for q in ("q01", "q05", "q06", "q18"):
+            sql = _tpch_sql(q)
+            want = cs.wire_rows(host.execute(sql))
+            for fmt in ("json", "arrow"):
+                c = Client(base, user="card", result_format=fmt)
+                c.session_properties = {"result_cache": False}
+                assert cs.rows_close(cs.wire_rows(c.execute(sql)[1]),
+                                     want), (q, fmt)
+    finally:
+        srv.stop()
+
+
+def test_concurrent_threads_compact_on_their_own_backend(tpch_pair):
+    """Two threads run Q18 (a compacted segment carrier at SF0.01) on
+    one card engine at the same time, one on kernel_backend cuda and
+    one on torch: each compacts its carriers on its own backend, and
+    its last_backend and last_kernel_notes are its own."""
+    import threading
+    card, _host = tpch_pair
+    sql = _tpch_sql("q18")
+    seen: dict = {}
+    errors: list = []
+
+    def run(backend):
+        try:
+            with card.session.as_user(card.session.user,
+                                      {"kernel_backend": backend}):
+                for i in range(4):
+                    card.execute(sql)
+                    seen[(backend, i)] = (card.last_backend, {
+                        t for (_p, k), tags in
+                        card.last_kernel_notes.items()
+                        if k == "carrier" for t in tags})
+        except Exception as exc:  # noqa: BLE001 - surfaced below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(b,))
+               for b in ("cuda", "torch")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors
+    for (backend, _i), (last, carriers) in seen.items():
+        assert last == backend
+        assert carriers == {f"{backend}:compact"}, (backend, carriers)

@@ -1,14 +1,17 @@
 """The port's exchange data plane (presto_tpu_torch/parallel/wire.py,
 buffer.py, ft/spool.py and the worker's results endpoint): the
-counterparts of tests/test_data_plane.py, whose streamed-result cases
-(the coordinator server's result queue, ROADMAP Queue 1 item 9) stay
-with the server tier. Wire codec checks (arrow vs npz identical across
+counterparts of tests/test_data_plane.py, its streamed-result cases
+(the coordinator server's bounded result queue: multi-page JSON and
+arrow results, backpressure, the reaper, token discipline) included.
+Wire codec checks (arrow vs npz identical across
 dictionary varchar, decimal limbs, live/valid masks), pages written by
 the port decoded by presto_tpu, codec negotiation and transcoding,
 mmap-served spool pages, and a 2-worker TPC-H Q5 on device="cpu"
 answering identically on either codec and equal to presto_tpu's
 single engine."""
 
+import threading
+import time
 import urllib.request
 
 import numpy as np
@@ -411,3 +414,199 @@ def test_chip_smoke_cluster_cases_on_the_cpu(monkeypatch):
     assert {f"C2 {q}" for q in chip_smoke.CLUSTER_FRAGMENTS} <= set(out)
     assert out["C4 npz"] == out["C4 arrow"] == out["C2 q05"]
     chip_smoke.plain_cluster_cases(conn)
+
+
+# -- streaming result delivery (the coordinator server) ----------------
+
+
+@pytest.fixture(scope="module")
+def stream_server(request):
+    from presto_tpu_torch.server import CoordinatorServer
+
+    engine = Engine(device="cpu")
+    engine.register_catalog("tpch", TpchConnector(scale=0.01))
+    srv = CoordinatorServer(engine).start()
+    request.addfinalizer(srv.stop)
+    return srv
+
+
+def test_streamed_multipage_select_matches_buffered(stream_server):
+    """A > PAGE_ROWS SELECT streams through the bounded queue; JSON
+    and arrow result modes return identical rows, and the true row
+    total is reported at page-emit time (not len(q.rows) == 0)."""
+    from presto_tpu_torch.client import Client
+
+    base = f"http://127.0.0.1:{stream_server.port}"
+    sql = ("select l_orderkey, l_extendedprice, l_shipdate, "
+           "l_shipinstruct from lineitem")
+    cols_j, rows_j = Client(base, user="t").execute(sql)
+    cols_a, rows_a = Client(base, user="t",
+                            result_format="arrow").execute(sql)
+    assert len(rows_j) > 4096  # really multi-page
+    assert cols_j == cols_a
+    assert rows_j == rows_a
+    # emit-time stats: the streamed query reports its true total
+    mgr = stream_server.manager
+    done = [q for q in mgr.snapshot()
+            if q.sql == sql and q.state == "FINISHED"]
+    assert done
+    for q in done:
+        assert q.stats()["processedRows"] == len(rows_j)
+        assert q.rows_done() == len(rows_j)
+
+
+def test_streamed_rows_match_engine_values(stream_server):
+    """Decimal/date JSON encodings survive the streamed path exactly
+    as the old buffered path produced them."""
+    from presto_tpu_torch.client import Client
+
+    base = f"http://127.0.0.1:{stream_server.port}"
+    _, rows = Client(base, user="t").execute(
+        "select o_totalprice, o_orderdate from orders "
+        "order by o_orderkey limit 3")
+    assert all(isinstance(r[0], str) and "." in r[0] for r in rows)
+    assert all(len(r[1]) == 10 for r in rows)
+
+
+def test_result_queue_backpressure_and_reaper(stream_server,
+                                              monkeypatch):
+    """Slow client => bounded queue => the producer BLOCKS holding
+    O(page) memory; the reaper can still kill it, unblocking the
+    dispatcher thread promptly."""
+    import presto_tpu_torch.server.server as S
+    from presto_tpu_torch.client import Client
+
+    monkeypatch.setattr(S, "RESULT_QUEUE_PAGES", 2)
+    base = f"http://127.0.0.1:{stream_server.port}"
+    mgr = stream_server.manager
+    c = Client(base, user="t")
+    qid, _ = c.submit("select l_orderkey from lineitem")
+    q = None
+    for _ in range(400):
+        q = mgr.get(qid)
+        if q is not None and q.result is not None \
+                and q.result.depth >= 2:
+            break
+        time.sleep(0.05)
+    assert q is not None and q.result is not None
+    assert q.state == "RUNNING"
+    assert q.result.depth == 2  # full: producer parked
+    emitted = q.result.rows_emitted
+    time.sleep(0.4)
+    assert q.result.rows_emitted == emitted  # no progress while full
+    assert emitted <= 3 * S.PAGE_ROWS  # O(page), not O(result)
+
+    t0 = time.monotonic()
+    mgr.reap(q, "test kill", kind="run")
+    for _ in range(100):
+        if mgr.get(qid).state == "FAILED":
+            break
+        time.sleep(0.05)
+    assert mgr.get(qid).state == "FAILED"
+    # the dispatcher thread freed: a follow-up query runs promptly
+    _, rows = c.execute("select 1")
+    assert rows == [[1]] and time.monotonic() - t0 < 10
+
+
+def test_result_queue_token_discipline():
+    """Exchange-buffer token semantics: idempotent re-get of the
+    current token, loud failure below the freed watermark, idle-abort
+    when the client vanishes."""
+    from presto_tpu_torch.server.results import ResultAbandoned, ResultQueue
+
+    queue = ResultQueue(max_pages=4)
+    for i in range(3):
+        queue.put([f"p{i}"], 1)
+    queue.close()
+    assert queue.get(0, poll_s=0)[0] == ["p0"]
+    assert queue.get(0, poll_s=0)[0] == ["p0"]  # retry: same page
+    assert queue.get(1, poll_s=0)[0] == ["p1"]
+    assert queue.get(2, poll_s=0)[0] == ["p2"]
+    with pytest.raises(ResultAbandoned):
+        queue.get(0, poll_s=0)  # below the freed watermark
+    payload, _, done = queue.get(3, poll_s=0)
+    assert payload is None and done
+    assert queue.drained and queue.rows_emitted == 3
+
+    # a producer abandoned by its client aborts instead of pinning
+    # its dispatcher thread forever
+    q2 = ResultQueue(max_pages=1)
+    q2.IDLE_ABORT_S = 0.3
+    q2.put(["a"], 1)
+    aborted = []
+
+    def _blocked_put():
+        try:
+            q2.put(["b"], 1)
+        except ResultAbandoned as e:
+            aborted.append(e)
+
+    t = threading.Thread(target=_blocked_put)
+    t.start()
+    t.join(timeout=10)
+    assert not t.is_alive() and aborted
+    # the abort released the buffered pages (and their depth-gauge
+    # contribution) — an abandoned query must not pin either
+    assert q2.depth == 0
+
+
+def test_below_watermark_token_fails_loudly_over_http(stream_server):
+    """A re-requested token below the freed watermark on a FINISHED
+    query answers a terminal error envelope — not an eternal
+    nextUri loop."""
+    import json
+    import urllib.request
+
+    from presto_tpu_torch.client import Client
+    from presto_tpu_torch.server.httpbase import urlopen as _urlopen
+
+    base = f"http://127.0.0.1:{stream_server.port}"
+    c = Client(base, user="t")
+    qid, _ = c.submit("select l_orderkey from lineitem limit 9000")
+    mgr = stream_server.manager
+    for _ in range(200):
+        q = mgr.get(qid)
+        if q is not None and q.state == "FINISHED":
+            break
+        time.sleep(0.05)
+    assert mgr.get(qid).state == "FINISHED"
+
+    def get(token):
+        req = urllib.request.Request(
+            f"{base}/v1/statement/executing/{qid}/{token}",
+            headers={"X-Trino-User": "t"})
+        with _urlopen(req, timeout=10) as resp:
+            return json.loads(resp.read())
+
+    assert get(0).get("data")
+    assert get(2).get("data")  # acks pages 0 and 1 away
+    out = get(0)  # below the watermark: loud terminal error
+    assert out["error"]["errorName"] == "RESULT_PAGES_RELEASED"
+    assert "nextUri" not in out
+
+
+def test_reaper_releases_abandoned_finished_stream(stream_server):
+    """A client that submits, never fetches, and vanishes must not
+    pin its queued pages (or the depth gauge) forever: the reaper
+    sweep releases a FINISHED query's undrained queue after the idle
+    window."""
+    from presto_tpu_torch.client import Client
+
+    base = f"http://127.0.0.1:{stream_server.port}"
+    c = Client(base, user="t")
+    qid, _ = c.submit("select n_nationkey from nation")
+    mgr = stream_server.manager
+    q = None
+    for _ in range(200):
+        q = mgr.get(qid)
+        if q is not None and q.state == "FINISHED":
+            break
+        time.sleep(0.05)
+    assert q.state == "FINISHED" and q.result.depth > 0
+    q.result.IDLE_ABORT_S = 0.4  # shrink the idle window
+    q.finished -= 1.0            # and pretend it finished a while ago
+    for _ in range(100):
+        if q.result.depth == 0:
+            break
+        time.sleep(0.05)
+    assert q.result.depth == 0  # pages + gauge contribution released

@@ -36,9 +36,14 @@ def test_no_module_of_the_port_imports_jax_or_presto_tpu():
                                           REPO / "profile_port.py",
                                           REPO / "kernel_ab.py"]
     assert len(files) > 40
-    # the statement surface's and the cluster tier's modules (with the
-    # native codec's loader) are among them
+    # the statement surface's, the cluster tier's (with the native
+    # codec's loader) and the server tier's modules are among them
     for module in ("events.py", "security.py", "transaction.py",
+                   "memory.py", "client.py", "dbapi.py", "cli.py",
+                   "exec/batch.py", "kernels/lanes.py",
+                   *(f"server/{m}.py" for m in (
+                       "__init__", "results", "governance",
+                       "resource_groups", "ui", "server", "serving")),
                    "obs/trace.py", "obs/jsonlog.py",
                    "connectors/information_schema.py",
                    "connectors/blackhole.py", "plan/serde.py",
@@ -154,6 +159,45 @@ print(json.dumps({"same": int(n) == int(j), "mode": mode,
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"same": True, "mode": "fragments", "codec": True,
                    "bad": []}
+
+
+def test_server_in_a_fresh_process_loads_neither_jax_nor_presto_tpu():
+    """A CoordinatorServer over a CPU engine answers a JSON and an arrow
+    client, a cross-query batch runs under torch.func.vmap, and
+    neither jax nor presto_tpu is imported."""
+    code = """
+import json, sys, threading
+from presto_tpu_torch import Engine
+from presto_tpu_torch import templates as TPL
+from presto_tpu_torch.client import Client
+from presto_tpu_torch.connectors.tpch import TpchConnector
+from presto_tpu_torch.exec import batch as B
+from presto_tpu_torch.server import CoordinatorServer
+import presto_tpu_torch.dbapi, presto_tpu_torch.cli
+e = Engine(device="cpu")
+e.register_catalog("tpch", TpchConnector(scale=0.01))
+srv = CoordinatorServer(e).start()
+try:
+    base = f"http://127.0.0.1:{srv.port}"
+    j = Client(base).execute("select count(*) from nation")[1]
+    a = Client(base, result_format="arrow").execute(
+        "select count(*) from region")[1]
+finally:
+    srv.stop()
+sqls = [f"select count(*) from lineitem where l_quantity < {q}"
+        for q in (10, 20)]
+lanes = B.run_plan_batched(e, [TPL.parameterize(e.plan_sql(s)[0])
+                               for s in sqls])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "presto_tpu"))
+print(json.dumps({"rows": [j, a], "lanes": len(lanes), "bad": bad}))
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"rows": [[[25]], [[5]]], "lanes": 2, "bad": []}
 
 
 def test_engine_without_a_device_needs_cuda():

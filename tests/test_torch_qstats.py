@@ -528,3 +528,42 @@ def test_device_array_thread_safe_under_eviction():
     keys = [id(a) for a, _ in entries.values()]
     assert len(keys) == len(set(keys)) == len(entries)
     assert all(k == id(a) for k, (a, _) in entries.items())
+
+
+def test_stats_tree_served_by_the_coordinator_server(stats_cluster):
+    """The server case of tests/test_runtime_stats.py: a Q5 submitted
+    to a CoordinatorServer over the cluster is served, under its
+    protocol query id, by GET /v1/query/{id} with the whole tree, and
+    its rows are the reference's."""
+    import time
+    import urllib.request
+
+    from presto_tpu_torch.client import Client
+    from presto_tpu_torch.server import CoordinatorServer
+
+    coord, _workers, engine, want = stats_cluster
+    srv = CoordinatorServer(engine, cluster=coord).start()
+    try:
+        c = Client(f"http://127.0.0.1:{srv.port}", user="tester")
+        qid, _ = c.submit(Q5)
+        for _ in range(1200):
+            if c.query_state(qid) not in ("QUEUED", "RUNNING"):
+                break
+            time.sleep(0.1)
+        assert c.query_state(qid) == "FINISHED"
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/v1/query/{qid}",
+            headers={"X-Trino-User": "tester"})
+        with urllib.request.urlopen(req, timeout=10) as r:
+            info = json.loads(r.read())
+        qs = info["queryStats"]
+        assert qs["state"] == "FINISHED"
+        stages = {st["stage"]: st for st in qs["stages"]}
+        assert len([n for n in stages if n != "coordinator"]) >= 2
+        assert qs["outputRows"] == stages["coordinator"]["outputRows"] \
+            == len(want)
+        _cols, rows = c.execute(Q5)
+        assert [tuple(r) for r in rows] == [
+            (n, str(v)) for n, v in want]
+    finally:
+        srv.stop()

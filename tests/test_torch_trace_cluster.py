@@ -3,10 +3,11 @@ two HTTP workers on device="cpu" run a fragmented query; the query's
 Chrome trace holds worker-side spans parented under the coordinator's
 task-dispatch spans (the X-Presto-TPU-Trace header did the linking),
 and each worker's /metrics serves nonzero task counters. The
-counterparts of tests/test_trace_cluster.py, which submit through the
-coordinator server (ROADMAP Queue 1 item 9): here the query runs
+counterparts of tests/test_trace_cluster.py: most run the query
 through ClusterCoordinator.execute inside a trace the test opens (the
-server's part), so the query span is its child. Rows are held against
+server's part), so the query span is its child; the last submits it
+to the port's CoordinatorServer over the cluster, as the reference's
+do, and reads the trace at /v1/query/{id}/trace. Rows are held against
 presto_tpu's single engine."""
 
 from __future__ import annotations
@@ -162,3 +163,46 @@ def test_worker_profile_endpoint_names_the_missing_module(traced_cluster):
         urllib.request.urlopen(req, timeout=10)
     assert exc.value.code == 501
     assert "item 11" in json.loads(exc.value.read())["error"]
+
+
+def test_server_query_trace_links_worker_spans(traced_cluster):
+    """The server case of tests/test_trace_cluster.py: a query submitted
+    to a CoordinatorServer over the cluster exports, at
+    /v1/query/{id}/trace, one tree rooted at its "query" span with the
+    workers' spans parented under the coordinator's task dispatches."""
+    import time
+
+    from presto_tpu_torch.client import Client
+    from presto_tpu_torch.server import CoordinatorServer
+
+    coord, _workers, engine, want = traced_cluster
+    srv = CoordinatorServer(engine, cluster=coord).start()
+    try:
+        c = Client(f"http://127.0.0.1:{srv.port}", user="tester")
+        qid, _ = c.submit(FRAGMENTED_SQL)
+        for _ in range(1200):
+            if c.query_state(qid) not in ("QUEUED", "RUNNING"):
+                break
+            time.sleep(0.1)
+        assert c.query_state(qid) == "FINISHED"
+        assert coord.last_distribution["mode"] == "fragments"
+        trace = _get_json(
+            f"http://127.0.0.1:{srv.port}/v1/query/{qid}/trace")
+    finally:
+        srv.stop()
+    events = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    assert {"query", "plan", "task-dispatch", "worker-task"} <= {
+        e["name"] for e in events}
+    dispatch_ids = {e["args"]["span_id"] for e in events
+                    if e["name"] == "task-dispatch"}
+    for w in (e for e in events if e["name"] == "worker-task"):
+        assert w["args"]["parent_id"] in dispatch_ids
+    by_id = {e["args"]["span_id"]: e for e in events}
+    root = next(e for e in events
+                if e["name"] == "query" and "parent_id" not in e["args"])
+    for e in events:
+        cur, hops = e, 0
+        while "parent_id" in cur["args"] and hops < 30:
+            cur = by_id[cur["args"]["parent_id"]]
+            hops += 1
+        assert cur is root
