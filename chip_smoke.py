@@ -16,7 +16,11 @@ the device cache; and distributed execution over 8 shards of the card
 at SF10; and the cluster tier: four HTTP workers and a coordinator in
 this process, every engine on the card; and the server tier: a
 CoordinatorServer on a card engine, its serving layer, and cross-query
-batches whose every kernel launches once for all lanes.
+batches whose every kernel launches once for all lanes; and SQL over
+parquet files at SF1; and the device observatory at SF10: a query's
+torch.profiler capture, its device cost per operator in
+system.operator_stats, a worker's profile endpoints and process gauges,
+and the capacity-overflow counters.
 
     python3 chip_smoke.py [--scale 10] [--seed 19920101]
 
@@ -57,15 +61,17 @@ Phases (any failure exits non-zero before the result line):
 4. TPC-DS: the TPC-H engine and its resident columns are let go, then
    the port's TPC-DS generator makes scale 10 (28.8M store_sales rows,
    about 66M in all) and the 101 queries of tests/test_tpcds.py run as
-   in phase 3: a first cuda pass that uploads the columns, a timed
-   cuda pass between a reset and a read of the launch counts, then
-   kernel_backend=torch; rows identical, the kernel pinned for a query
-   in ``TPCDS_QUERY_KERNELS`` run, no query empty unless numpy finds no
-   row that could answer it (``EMPTY_CHECKS``), and Q96's count and
-   Q55's brand sums equal a numpy computation over the generator's
-   arrays. A query that does not fit the card (``TPCDS_OVER_MEMORY``,
-   with its blocker) runs last and must run out of memory; q72's line
-   carries the rows of its expanding join, counted with numpy.
+   in phase 3: a first cuda pass that uploads the columns, then a
+   timed cuda pass between a reset and a read of the launch counts;
+   the kernel pinned for a query in ``TPCDS_QUERY_KERNELS`` run, no
+   query empty unless numpy finds no row that could answer it
+   (``EMPTY_CHECKS``), and Q96's count and Q55's brand sums equal a
+   numpy computation over the generator's arrays. A query that does
+   not fit the card (``TPCDS_OVER_MEMORY``, with its blocker) runs
+   last on the card and must run out of memory; q72's line carries the
+   rows of its expanding join, counted with numpy. The queries of
+   ``TPCDS_PLAIN_QUERIES`` (cut from all 101) run again with
+   kernel_backend=torch: rows identical to the card's.
 
 5. Functions: the TPC-H tables of phase 3 (made again when it did not
    run) through the queries of ``FUNCTION_QUERIES`` on both backends
@@ -88,11 +94,13 @@ Phases (any failure exits non-zero before the result line):
    the array with its ``$len`` and ``$emask`` companions (A2, compacted
    by filter_compact; the carrier's arrays are printed), lambdas and
    array scalars over every lineitem row and a map lookup over orders
-   (A3), array_agg of 15M orders by customer read by cardinality
-   through the host-table carrier, and listagg and map_agg over nation
-   and region (A4), and the V-shape MATCH_RECOGNIZE over the orders of
-   the customers o_custkey <= ``MR_CUT_CUSTKEY`` (A5: 1.5M orders, SF1's
-   worth, because the pattern automaton is the reference's host loop).
+   (A3), array_agg by customer of the orders of the customers
+   o_custkey <= ``MR_CUT_CUSTKEY`` (the catalog "cut": 1.5M orders,
+   SF1's worth, because the lists are built on the host) read by
+   cardinality through the host-table carrier, and listagg and map_agg
+   over nation and region (A4), and the V-shape MATCH_RECOGNIZE over
+   the same orders (A5, because the pattern automaton is the
+   reference's host loop).
    Rows identical on both backends, each query's kernel
    (``ARRAY_QUERY_KERNELS``) run, segment_sum and filter_compact
    launched; numpy (and plain python for the names and the V shapes)
@@ -120,8 +128,9 @@ Phases (any failure exits non-zero before the result line):
    Every case's rows are identical on both backends.
 8. Statements: the TPC-H tables again, each case on a fresh engine
    over one memory catalog, all of a backend's engines sharing one
-   event manager, on both backends (the cuda runs between a reset and
-   a read of the launch counts, which the summary adds). ST1 CREATE
+   event manager, on the card (between a reset and a read of the
+   launch counts, which the summary adds), then ST1-ST3 on the plain
+   backend (cut from all seven). ST1 CREATE
    TABLE AS: memory.li from lineitem's eight numeric columns
    (59,986,052 rows), memory.ord from orders with its two VARCHAR
    columns (15M rows) and memory.ord_cut, the orders of o_custkey <=
@@ -131,9 +140,9 @@ Phases (any failure exits non-zero before the result line):
    timed, which re-encodes its strings on the host. ST2 ``ST_Q1`` (Q1's
    aggregates, ``cuda:agg_sum``) and ``ST_JOIN`` (memory.li joined to
    partsupp, ``cuda:join_lookup``) equal the same reads of lineitem.
-   ST3 ``ST_UPDATE`` counts what numpy counts, the mutated l_quantity
-   is no longer resident, and ST_Q1 then equals numpy over the updated
-   column. ST5 ``ST_GROUP`` over memory.ord_cut: a repeat at the
+   ST3 ``ST_UPDATE`` counts what numpy counts, writes a new l_quantity
+   and the old one is no longer resident, and ST_Q1 then equals numpy
+   over the updated column. ST5 ``ST_GROUP`` over memory.ord_cut: a repeat at the
    default limit holds two copies of the re-encoded column; under
    dev_cache_limit set to one and a half copies, ``ST_REPEATS``
    repeats keep the cached bytes under it and the peak after the last
@@ -144,7 +153,7 @@ Phases (any failure exits non-zero before the result line):
    TimeLimitExceeded with no kernel launched, then equals its phase-3
    rows. ST6 SHOW CATALOGS, DESCRIBE lineitem equal to SHOW COLUMNS,
    and system.runtime.queries holding every statement of the phase in
-   order, ST7's Q5 the one FAILED. Every case's rows are identical on
+   order, ST7's Q5 the one FAILED. ST1-ST3's rows are identical on
    both backends; agg_sum and join_lookup must launch.
 9. Distributed: the TPC-H tables again (phase 3's rows and times beside
    them; made and run once when phase 3 did not run), over
@@ -219,26 +228,64 @@ Phases (any failure exits non-zero before the result line):
    those of the served runs (each request and each batched run, the
    counts set to 0 just before it and read just after), not those of
    the serial runs they are held against.
+12. Parquet: the TPC-H tables at ``PARQUET_SCALE`` (SF1, cut from 10:
+   the reader decodes pages on the host) written with pyarrow
+   (``write_tpch_parquet``: every column at its type; lineitem and
+   orders uncompressed and dictionary-encoded, orders in version 2.0
+   data pages, the others snappy; a second lineitem sorted by
+   l_shipdate in row groups of 2^20 rows); where pyarrow does not
+   import, the phase raises. A ``ParquetConnector`` over the files:
+   each table's host decode, upload seconds and bytes; then
+   ``PARQUET_QUERIES`` as in phase 3 (a first cuda pass, the timed
+   pass between a reset and a read of the launch counts, the plain
+   pass), each query's rows on both backends equal to the same query
+   over the tpch connector at SF1 on the card (floats within
+   FLOAT_STATE_RTOL), the kernel tags of both runs logged: the files
+   declare no keys, so no join is unique (no ``join_lookup``, no
+   ``multijoin``). ``PARQUET_OVER_MEMORY`` (Q5, its keyless join order)
+   must run out of memory on the card. Q6 over the sorted lineitem
+   keeps fewer row groups than the file has (apply_filter's pruning)
+   and returns the same rows. Every kernel the parquet plans tag
+   launches in the phase.
+13. Observe: phase 3's tables (made again when it did not run). O1 Q5's
+   first pass on fresh engines (a program-cache miss), its programs'
+   costs known to the process (no count) and forgotten
+   (``devprof.forget_costs``: counted by ``obs/devprof.harvest``),
+   alternately after one that makes them known: the count's cost is
+   the difference; then a fresh engine's cold run and its hit, neither
+   counted; O2 the hit again under ``device_profile``, twice (the
+   process's first capture, then another): a Chrome trace in the
+   query's artifact directory naming a port kernel; O3 every ``system.operator_stats``
+   row of the cold run and of the hit with nonzero flops, hbm_bytes,
+   intensity and roofline, each program's rows summing to its counted
+   flops within rounding; O4 a ``WorkerServer(device="cuda")`` over
+   SF1: ``/v1/profile/start``, a task, ``/v1/profile/stop`` answer 200
+   with a trace, and ``/metrics`` has the process gauges; O5
+   ``OBSERVE_RUNG_SQL`` with its group-by table hinted too small
+   climbs rungs, each counted once in
+   ``presto_tpu_capacity_overflow_retries_total``.
 
 The query lines of phases 3-6 carry the first (cold) pass's time and
 capacity rungs (``cold_s``, ``cold_rungs``) beside the timed pass's:
 the timed pass starts every program from the capacities the first
 remembered (``from_memory``).
 
-    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions,arrays,session,statements,distributed,cluster,serving
+    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions,arrays,session,statements,distributed,cluster,serving,parquet,observe
 
 (the default) runs the named phases only (a shorter call while a phase
-is worked on; the summary line needs all ten).
+is worked on; the summary line needs all twelve).
 
 The queries are the repository's TPC-H texts (tests/tpch_queries.py),
 TPC-DS texts (tests/test_tpcds.py), ``FUNCTION_QUERIES`` and
 ``ARRAY_QUERIES``. The last
 lines are the card, a JSON summary of the kernels (each with the PR
 that last redesigned it, ``redesigned_in``, its launches summed
-over phases 3 to 11, phase 11's among them (``serving_launches``,
-``batched_launches`` for SV4's groups) and its lane rule at 8 lanes
-(``batched_ms``, ``batched_plain_ms``, ``batched_bound_ms``,
-``batched_max_abs_err``)) and ``{"ok": true, "device": {...}}``.
+over phases 3 to 13, phase 11's among them (``serving_launches``,
+``batched_launches`` for SV4's groups), phase 12's
+(``parquet_launches``) and phase 13's (``observe_launches``), and its
+lane rule at 8 lanes (``batched_ms``, ``batched_plain_ms``,
+``batched_bound_ms``, ``batched_max_abs_err``)) and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -279,6 +326,12 @@ KERNELS = {
     "filter_compact": ("presto_tpu_torch/kernels/csrc/compact.cu",
                        "presto_tpu/kernels/compact.py:84"),
 }
+# the kernels behind each kernel tag of a plan node
+TAG_KERNELS = {"agg_sum": ("segment_sum",), "agg_max": ("segment_max",),
+               "agg_min": ("segment_min",),
+               "join_lookup": ("build_table", "probe_table"),
+               "multijoin": ("build_table", "multijoin_walk"),
+               "compact": ("filter_compact",)}
 # the PR whose redesign each kernel runs (None: as first ported)
 REDESIGNED_IN = {"segment_sum": 3, "segment_max": 5, "segment_min": 5,
                  "build_table": 3, "probe_table": 4,
@@ -319,8 +372,14 @@ TPCDS_OVER_MEMORY = {
            "output before the rest of the plan)",
 }
 TPCDS_SCALE = 10.0
+# the queries the plain backend runs again at TPCDS_SCALE, each held to
+# the card's rows: one for each kernel the sweep pins and the two that
+# numpy checks (cut from all 101, a pass of 49.6 s on the H100; the
+# card's tests hold all 101 on both backends at scale 0.1)
+TPCDS_PLAIN_QUERIES = ("q96", "q42", "q07", "q23", "q58", "q55")
 PHASES = ("kernels", "tpch", "tpcds", "functions", "arrays", "session",
-          "statements", "distributed", "cluster", "serving")
+          "statements", "distributed", "cluster", "serving", "parquet",
+          "observe")
 TPCDS_SEED = 20030527  # the connector's default, as tests/test_tpcds.py
 
 
@@ -1240,9 +1299,12 @@ EMPTY_CHECKS = {
 
 
 def tpcds_phase(scale: float, seed: int) -> dict:
-    """The 101 TPC-DS queries on both backends at ``scale``."""
+    """The 101 TPC-DS queries at ``scale`` on the card (a first pass,
+    then the timed, counted one), ``TPCDS_PLAIN_QUERIES`` again with
+    kernel_backend=torch."""
     from presto_tpu_torch import Engine
     from presto_tpu_torch.connectors.tpcds import TpcdsConnector
+    from presto_tpu_torch.kernels import build as B
 
     queries = tpcds_queries()
     t0 = time.perf_counter()
@@ -1258,12 +1320,20 @@ def tpcds_phase(scale: float, seed: int) -> dict:
     engine.session.catalog = "tpcds"
     fits = {q: sql for q, sql in queries.items()
             if q not in TPCDS_OVER_MEMORY}
-    (rows, secs, notes, launches, plain_rows, plain_secs,
-     plain_notes) = sweep(engine, fits)
+    t = time.perf_counter()
+    _rows, cold_secs, cold_notes = run_queries(engine, fits, "cuda")
+    log(f"first pass (column upload included): "
+        f"{time.perf_counter() - t:.1f} s")
+    B.LAUNCHES.reset()
+    rows, secs, notes = run_queries(engine, fits, "cuda")
+    launches = B.LAUNCHES.snapshot()
+    plain = {q: fits[q] for q in TPCDS_PLAIN_QUERIES}
+    plain_rows, plain_secs, plain_notes = run_queries(engine, plain,
+                                                      "torch")
     # every query's faults, collected, then raised together
     faults = []
     for q in fits:
-        if rows[q] != plain_rows[q]:
+        if q in plain and rows[q] != plain_rows[q]:
             faults.append(f"{q}: cuda and torch backends differ")
         if not rows[q]:
             if q not in EMPTY_CHECKS:
@@ -1280,10 +1350,12 @@ def tpcds_phase(scale: float, seed: int) -> dict:
                           f"{notes[q]['kernels']}")
         log("tpcds " + json.dumps({
             "query": q, "rows": len(rows[q]), "s": secs[q],
-            "plain_s": plain_secs[q], **notes[q],
-            "plain_kernels": plain_notes[q]["kernels"]}))
-    log(f"tpcds cuda pass: {sum(secs.values()):.2f} s, plain pass: "
-        f"{sum(plain_secs.values()):.2f} s, peak "
+            "plain_s": plain_secs.get(q), **notes[q],
+            "cold_s": cold_secs[q], "cold_rungs": cold_notes[q]["rungs"],
+            "plain_kernels": (plain_notes[q]["kernels"] if q in plain
+                              else None)}))
+    log(f"tpcds cuda pass: {sum(secs.values()):.2f} s, plain pass "
+        f"({len(plain)} queries): {sum(plain_secs.values()):.2f} s, peak "
         f"{max(n['peak_gb'] for n in notes.values()):.2f} GB")
     log("tpcds launches " + json.dumps(launches))
     if faults:
@@ -1311,29 +1383,30 @@ def q72_expansion(conn) -> int:
 
 
 def require_over_memory(engine, q: str, sql: str, blocker: str,
-                        measured: dict) -> None:
-    """Run ``q`` on both backends and require the card's out-of-memory
-    error; the memory it held is released before the next run."""
+                        measured: dict, phase: str = "tpcds",
+                        listed_in: str = "TPCDS_OVER_MEMORY") -> None:
+    """Run ``q`` on the card and require its out-of-memory error; the
+    memory it held is released after the run. (The plain backend runs
+    out as the card's does, at the same 79.2 GB for q72; its attempt is
+    left out to save the script its time.)"""
     import torch
-    for backend in ("cuda", "torch"):
-        engine.session.set("kernel_backend", backend)
-        torch.cuda.reset_peak_memory_stats()
-        fitted = True
-        try:
-            engine.execute(sql)
-        except torch.OutOfMemoryError:
-            fitted = False
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        gc.collect()
-        torch.cuda.empty_cache()
-        if fitted:
-            raise AssertionError(
-                f"{q} now fits on the card ({backend}, peak {peak:.2f} "
-                "GB): run it with the others, drop it from "
-                "TPCDS_OVER_MEMORY")
-        log("tpcds " + json.dumps({"query": q, "backend": backend,
-                                   "out_of_memory_at_gb": peak,
-                                   **measured, "blocker": blocker}))
+    engine.session.set("kernel_backend", "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    fitted = True
+    try:
+        engine.execute(sql)
+    except torch.OutOfMemoryError:
+        fitted = False
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    if fitted:
+        raise AssertionError(
+            f"{q} now fits on the card (peak {peak:.2f} GB): run it with "
+            f"the others, drop it from {listed_in}")
+    log(f"{phase} " + json.dumps({"query": q, "backend": "cuda",
+                                  "out_of_memory_at_gb": peak,
+                                  **measured, "blocker": blocker}))
 
 
 # -- phase 5: the function library at SF10 -----------------------------------
@@ -1671,12 +1744,14 @@ from lineitem""",
 select sum(element_at(map(array['F', 'O', 'P'], array[1, 2, 3]),
                       o_orderstatus)) as m, count(*) as c
 from orders""",
-    # array_agg over 15M orders by customer, read through the host-table
-    # carrier by cardinality and grouped by it
+    # array_agg over orders by customer, read through the host-table
+    # carrier by cardinality and grouped by it: the orders of the
+    # catalog "cut" (1.5M; cut from SF10's 15M, as A5's: the lists are
+    # built on the host)
     "A4": """
 select cardinality(ks) as n, count(*) as c
 from (select o_custkey, array_agg(o_orderkey order by o_orderdate) as ks
-      from orders group by o_custkey)
+      from cut.orders group by o_custkey)
 group by 1
 order by 1""",
     "A4_names": """
@@ -1707,8 +1782,9 @@ from cut.orders match_recognize (
 ARRAY_QUERY_KERNELS = {"A1": "cuda:agg_sum", "A2": "cuda:compact",
                        "A3": "cuda:agg_sum", "A3_map": "cuda:agg_sum",
                        "A4_names": "cuda:agg_sum", "A5": "cuda:agg_sum"}
-# A5's cut: the host NFA is the reference's per-position loop, so the
-# pattern runs over SF1's worth of orders (1.5M), not SF10's 15M
+# A4's and A5's cut: array_agg builds its lists on the host and the NFA
+# is the reference's per-position loop, so both run over SF1's worth of
+# orders (1.5M), not SF10's 15M
 MR_CUT_CUSTKEY = 150_000
 
 
@@ -1850,8 +1926,9 @@ def check_arrays(conn, cut, rows: dict) -> None:
     if tuple(int(x) for x in rows["A3_map"][0]) != (
             int(weight[sc].sum()), len(sc)):
         raise AssertionError(f"A3_map {rows['A3_map'][0]} differs")
-    # A4: customers by their order count
-    per_cust = np.bincount(np.asarray(od["o_custkey"].data))
+    # A4: customers of the cut by their order count
+    per_cust = np.bincount(np.asarray(
+        cut.table("orders").columns["o_custkey"].data))
     hist = np.bincount(per_cust[per_cust > 0])
     want = [(k, int(c)) for k, c in enumerate(hist) if c]
     if [(int(n), int(c)) for n, c in rows["A4"]] != want:
@@ -2284,10 +2361,12 @@ def _st_line(case: str, backend: str, secs: float, **more) -> None:
                                     "s": secs, **more}))
 
 
-def statement_cases(conn, backend: str, q05_rows) -> dict:
+def statement_cases(conn, backend: str, q05_rows,
+                    writes_only: bool = False) -> dict:
     """ST1-ST7 on one backend, each on a fresh engine over ``conn`` and
-    one memory connector, all sharing one event manager: {case: rows}.
-    Faults raise."""
+    one memory connector, all sharing one event manager: {case: rows};
+    ``writes_only``: ST1-ST3 (the writes, the reads of what they wrote
+    and the UPDATE). Faults raise."""
     import torch
 
     from presto_tpu_torch import Engine
@@ -2401,9 +2480,10 @@ def statement_cases(conn, backend: str, q05_rows) -> dict:
     if updated != [(int(hit.sum()),)]:
         raise AssertionError(f"ST3: UPDATE counted {updated}, numpy "
                              f"{int(hit.sum())}")
-    if li["l_quantity"] is not qty or e.resident(qty) is not None:
-        raise AssertionError("ST3: the mutated l_quantity is still resident "
-                             "(or was replaced, not mutated)")
+    if li["l_quantity"] is qty or e.resident(qty) is not None:
+        raise AssertionError("ST3: the old l_quantity is still resident "
+                             "(or was written in place)")
+    qty = li["l_quantity"]
     after, after_secs = run(e, ST_Q1.format(li="memory.li"))
     # numpy: each line's order priority by its order key, then the
     # quantities (scaled by 100; whole numbers, so float sums are exact)
@@ -2430,6 +2510,8 @@ def statement_cases(conn, backend: str, q05_rows) -> dict:
     out["ST3"] = [updated, after]
     _st_line("ST3", backend, time.perf_counter() - t0)
     del e
+    if writes_only:
+        return out
 
     # ST5: repeats over a VARCHAR memory table stay under the bound
     t0 = time.perf_counter()
@@ -2543,9 +2625,11 @@ def statement_cases(conn, backend: str, q05_rows) -> dict:
 
 
 def statements_phase(conn, q05_rows=None) -> dict:
-    """ST1-ST7 on both backends at SF10: the cuda runs between a reset
-    and a read of the launch counts, then the plain runs; every case's
-    rows identical between them."""
+    """ST1-ST7 at SF10 on the card, between a reset and a read of the
+    launch counts, then ST1-ST3 on the plain backend (cut from all
+    seven: ST4-ST7 run no kernel the reads of ST2-ST3 do not, and their
+    plain pass took 44 s on the H100's host); every plain case's rows
+    identical to the card's."""
     from presto_tpu_torch.kernels import build as B
     B.LAUNCHES.reset()
     t = time.perf_counter()
@@ -2553,9 +2637,10 @@ def statements_phase(conn, q05_rows=None) -> dict:
     launches = B.LAUNCHES.snapshot()
     log(f"statements cuda cases: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    plain = statement_cases(conn, "torch", q05_rows)
-    log(f"statements plain cases: {time.perf_counter() - t:.1f} s")
-    differ = [case for case in got if got[case] != plain[case]]
+    plain = statement_cases(conn, "torch", q05_rows, writes_only=True)
+    log(f"statements plain cases (ST1-ST3): "
+        f"{time.perf_counter() - t:.1f} s")
+    differ = [case for case in plain if got[case] != plain[case]]
     if differ:
         raise AssertionError(f"statement cases differ between backends: "
                              f"{differ}")
@@ -3926,6 +4011,539 @@ def serving_phase(conn, scale: float, seed: int, local_rows: dict,
 
 
 
+# -- phase 12: SQL over parquet files at SF1 ---------------------------------
+
+PARQUET_SCALE = 1.0
+# phase 3's queries that reach every kernel, over parquet files and over
+# the tpch connector
+PARQUET_QUERIES = ("q01", "q03", "q06", "q09", "lineitem_partsupp",
+                   "lineitem_extrema", "cross_join")
+# phase 3's queries that do not fit the card over the files, each with
+# its blocker (ROADMAP's open items): the phase requires the
+# out-of-memory error, so that one that starts to fit is moved back
+PARQUET_OVER_MEMORY = {
+    "q05": "the files declare no keys and no distinct counts, so the "
+           "planner (as the reference's) joins lineitem's ASIA suppliers "
+           "to customer on s_nationkey = c_nationkey before orders: "
+           "every such lineitem row meets every customer of its "
+           "supplier's nation (needs key or distinct-count statistics "
+           "for parquet tables)"}
+# written uncompressed and dictionary-encoded; the other tables snappy
+PARQUET_PLAIN_TABLES = ("lineitem", "orders")
+PARQUET_V2_TABLE = "orders"  # its data pages of version 2.0
+PARQUET_SORTED_ROW_GROUP = 1 << 20  # the l_shipdate-sorted lineitem's
+
+
+def arrow_table(table):
+    """A TPC-H host Table as a pyarrow table, every column at its type:
+    VARCHAR a dictionary array of the column's codes, DECIMAL decimal128
+    of its scaled integers, DATE date32, BIGINT int64."""
+    import pyarrow as pa
+
+    from presto_tpu_torch import types as T
+    cols = {}
+    for name, col in table.columns.items():
+        if col.valid is not None:
+            raise ValueError(f"{name}: a TPC-H column has no NULL")
+        data = np.asarray(col.data)
+        dt = col.dtype
+        if isinstance(dt, T.VarcharType):
+            cols[name] = pa.DictionaryArray.from_arrays(
+                pa.array(data.astype(np.int32)),
+                pa.array(list(col.dictionary), pa.string()))
+        elif isinstance(dt, T.DecimalType):
+            # decimal128's little-endian words: a short decimal's high
+            # word is its sign
+            words = (data if data.ndim == 2
+                     else np.stack([data, data >> 63], axis=1))
+            cols[name] = pa.Array.from_buffers(
+                pa.decimal128(dt.precision, dt.scale), len(words),
+                [None, pa.py_buffer(
+                    np.ascontiguousarray(words, "<i8").tobytes())])
+        elif isinstance(dt, T.DateType):
+            cols[name] = pa.array(data.astype(np.int32), pa.date32())
+        else:
+            cols[name] = pa.array(data)
+    return pa.table(cols)
+
+
+def write_tpch_parquet(conn, tables_dir: str, sorted_dir: str,
+                       sorted_row_group: int = PARQUET_SORTED_ROW_GROUP
+                       ) -> dict:
+    """Write the connector's eight tables into ``tables_dir`` with
+    pyarrow (lineitem and orders uncompressed and dictionary-encoded,
+    orders in version 2.0 data pages, the others snappy) and lineitem
+    sorted by l_shipdate, in row groups of ``sorted_row_group`` rows,
+    into ``sorted_dir``. Returns per file its seconds and bytes."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    out = {}
+    for name in conn.table_names():
+        t = time.perf_counter()
+        kw = (dict(compression="none", use_dictionary=True)
+              if name in PARQUET_PLAIN_TABLES else
+              dict(compression="snappy"))
+        if name == PARQUET_V2_TABLE:
+            kw["data_page_version"] = "2.0"
+        path = os.path.join(tables_dir, f"{name}.parquet")
+        pq.write_table(arrow_table(conn.table(name)), path, **kw)
+        out[name] = {"write_s": time.perf_counter() - t,
+                     "file_bytes": os.path.getsize(path)}
+    t = time.perf_counter()
+    li = conn.table("lineitem")
+    order = np.argsort(np.asarray(li.columns["l_shipdate"].data),
+                       kind="stable")
+    path = os.path.join(sorted_dir, "lineitem.parquet")
+    pq.write_table(arrow_table(li).take(pa.array(order)), path,
+                   compression="none", row_group_size=sorted_row_group)
+    out["lineitem (sorted)"] = {"write_s": time.perf_counter() - t,
+                                "file_bytes": os.path.getsize(path)}
+    return out
+
+
+def q05_keyless_expansion(conn) -> int:
+    """The rows of Q5's join of lineitem (its suppliers in ASIA) with
+    customer on the nation alone, as planned over files without keys,
+    counted with numpy over the generator's arrays."""
+    supp, _ = _host(conn, "supplier", "s_suppkey")
+    s_nation, _ = _host(conn, "supplier", "s_nationkey")
+    nation, _ = _host(conn, "nation", "n_nationkey")
+    n_region, _ = _host(conn, "nation", "n_regionkey")
+    region, _ = _host(conn, "region", "r_regionkey")
+    r_name, _ = _host(conn, "region", "r_name")
+    asia = np.isin(n_region, region[r_name == "ASIA"])
+    nation_of = np.full(int(supp.max()) + 1, -1, np.int64)
+    nation_of[supp.astype(np.int64)] = s_nation
+    l_nation = nation_of[_host(conn, "lineitem", "l_suppkey")[0]
+                         .astype(np.int64)]
+    per_nation = np.bincount(
+        _host(conn, "customer", "c_nationkey")[0].astype(np.int64),
+        minlength=int(nation.max()) + 1)
+    l_nation = l_nation[np.isin(l_nation, nation[asia])]
+    return int(per_nation[l_nation].sum())
+
+
+def kept_row_groups(engine, sql: str) -> list[int]:
+    """The row groups each parquet scan of ``sql``'s plan keeps after
+    the optimizer offered its filter to the connector's apply_filter."""
+    from presto_tpu_torch.connectors.parquet import ParquetConnector
+    from presto_tpu_torch.exec.executor import _preorder
+    from presto_tpu_torch.plan import nodes as N
+    plan, _ = engine.plan_sql(sql)
+    out = []
+    for node in _preorder(plan):
+        if isinstance(node, N.TableScan):
+            conn = engine.catalogs[node.catalog]
+            _base, keep = ParquetConnector._parse_name(node.table)
+            files = conn._meta(node.table)
+            out.append(sum(len(keep[fi]) if keep is not None and fi in keep
+                           else len(f.row_groups)
+                           for fi, f in enumerate(files)))
+    return out
+
+
+def parquet_cases(conn, workdir: str,
+                  sorted_row_group: int = PARQUET_SORTED_ROW_GROUP,
+                  over_memory: bool = True) -> dict:
+    """Phase 12 over ``conn``'s tables written to ``workdir``: the
+    write, each table's host decode and upload, ``PARQUET_QUERIES``
+    over the files (``sweep``: a first cuda pass, a timed cuda pass
+    between a reset and a read of the launch counts, the plain pass)
+    held against the same queries over ``conn`` on the card (rows; the
+    kernel tags of both logged side by side), ``PARQUET_OVER_MEMORY``
+    on the card with its out-of-memory error required (``over_memory``),
+    and Q6 over the sorted lineitem with its row groups pruned. Returns
+    the launches of the timed parquet runs and the kernels their plans'
+    tags name."""
+    import os
+
+    import torch
+
+    from presto_tpu_torch import Engine
+    from presto_tpu_torch.connectors.parquet import ParquetConnector
+    tables_dir = os.path.join(workdir, "tables")
+    sorted_dir = os.path.join(workdir, "sorted")
+    os.makedirs(tables_dir)
+    os.makedirs(sorted_dir)
+    written = write_tpch_parquet(conn, tables_dir, sorted_dir,
+                                 sorted_row_group)
+    pconn = ParquetConnector(tables_dir)
+    engine = Engine()
+    engine.register_catalog("tpch", pconn)
+    for name in pconn.table_names():
+        t = time.perf_counter()
+        table = pconn.table(name)
+        read_s = time.perf_counter() - t
+        arrays = [a for col in table.columns.values()
+                  for a in (col.data, col.valid) if a is not None]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for a in arrays:
+            engine.device_array(a)
+        torch.cuda.synchronize()
+        log("parquet " + json.dumps({
+            "table": name, "rows": table.nrows, **written[name],
+            "read_s": read_s, "upload_s": time.perf_counter() - t,
+            "upload_bytes": sum(int(np.asarray(a).nbytes)
+                                for a in arrays)}))
+    queries = {q: QUERIES[q] for q in PARQUET_QUERIES}
+    ref = Engine()
+    ref.register_catalog("tpch", conn)
+    run_queries(ref, queries, "cuda")  # uploads, learns the capacities
+    want, want_s, want_notes = run_queries(ref, queries, "cuda")
+    (rows, secs, notes, launches, plain_rows, plain_secs,
+     plain_notes) = sweep(engine, queries)
+    faults = []
+    tags: set = set()
+    for q in queries:
+        for backend, got in (("cuda", rows[q]), ("torch", plain_rows[q])):
+            if not rows_close(got, want[q]):
+                faults.append(f"{q} over parquet ({backend}) differs from "
+                              "the tpch connector's rows")
+        tags.update(t.split(":", 1)[1] for t in notes[q]["kernels"])
+        log("parquet " + json.dumps({
+            "query": q, "rows": len(rows[q]), "s": secs[q],
+            "plain_s": plain_secs[q], "tpch_s": want_s[q], **notes[q],
+            "plain_kernels": plain_notes[q]["kernels"],
+            "tpch_kernels": want_notes[q]["kernels"]}))
+    for q, blocker in (PARQUET_OVER_MEMORY.items() if over_memory else ()):
+        require_over_memory(
+            engine, q, QUERIES[q], blocker,
+            {"expanding_join_rows": q05_keyless_expansion(conn)},
+            "parquet", "PARQUET_OVER_MEMORY")
+    # Q6 over the l_shipdate-sorted lineitem: the optimizer offers its
+    # date range to apply_filter, which keeps the row groups whose
+    # min/max statistics can hold it
+    sconn = ParquetConnector(sorted_dir)
+    sorted_engine = Engine()
+    sorted_engine.register_catalog("tpch", sconn)
+    groups = len(sconn._meta("lineitem")[0].row_groups)
+    kept = kept_row_groups(sorted_engine, QUERIES["q06"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got, launched = counted(lambda: sorted_engine.execute(QUERIES["q06"]))
+    torch.cuda.synchronize()
+    for name, n in launched.items():
+        launches[name] = launches.get(name, 0) + n
+    if not rows_close(got, want["q06"]):
+        faults.append("q06 over the sorted lineitem differs from the tpch "
+                      "connector's rows")
+    if not kept or kept[0] >= groups:
+        faults.append(f"q06 over the sorted lineitem kept {kept} of "
+                      f"{groups} row groups")
+    log("parquet " + json.dumps({
+        "query": "q06 sorted", "row_groups": groups, "kept": kept,
+        "s": time.perf_counter() - t, "launches": launched}))
+    if faults:
+        raise AssertionError("parquet faults:\n" + "\n".join(faults))
+    return {"launches": launches, "rows": rows,
+            "kernels": sorted({k for t in tags for k in TAG_KERNELS[t]})}
+
+
+def parquet_phase(seed: int) -> dict:
+    """Phase 12: the TPC-H tables at ``PARQUET_SCALE`` through parquet
+    files (the data made again at that scale). pyarrow writes them;
+    where it does not import, the phase raises. Every kernel that the
+    parquet plans tag must launch; the files declare no keys, so the
+    planner finds no unique join and the kernels of those
+    (``build_table``, ``probe_table``, ``multijoin_walk``) are not on
+    this path. Returns the launches."""
+    import shutil
+    import tempfile
+
+    import pyarrow  # noqa: F401 - the writer; raises where it is absent
+    conn = tpch_data(PARQUET_SCALE, seed)
+    workdir = tempfile.mkdtemp(prefix="presto_tpu_parquet-")
+    try:
+        out = parquet_cases(conn, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    launches = out["launches"]
+    log("parquet launches " + json.dumps(
+        {**launches, "tagged": out["kernels"],
+         "not_on_path": [k for k in KERNELS if k not in out["kernels"]]}))
+    silent = [k for k in out["kernels"] if not launches.get(k)]
+    if not out["kernels"] or silent:
+        raise AssertionError(f"parquet scans launched no {silent} of the "
+                             f"tagged {out['kernels']}")
+    return launches
+
+
+# -- phase 13: the device observatory at SF10 --------------------------------
+
+# a group-by whose table, sized by ``OBSERVE_TABLE_SIZE``, overflows
+# once: one rung of the capacity ladder
+OBSERVE_RUNG_SQL = ("select o_custkey % 7 as k, count(*) as c from orders "
+                    "group by o_custkey % 7 order by k")
+OBSERVE_TABLE_SIZE = 2
+# O1's first passes of Q5 with and without the count, alternately
+OBSERVE_FIRST_PASS_PAIRS = 5
+OBSERVE_WORKER_SQL = ("select l_returnflag, count(*) as c, "
+                      "sum(l_quantity) as q from lineitem "
+                      "group by l_returnflag order by l_returnflag")
+# the port's CUDA kernels as a trace names them (kernels/csrc/*.cu)
+PORT_KERNEL_NAMES = ("seg_sum_", "seg_cmp_", "build_table_kernel",
+                     "probe_table_kernel", "build_part_kernel",
+                     "part_count_kernel", "part_scatter_kernel",
+                     "multijoin_walk_kernel", "compact_kernel",
+                     "zero_tail_kernel")
+PROCESS_GAUGES = ("presto_tpu_process_rss_bytes",
+                  "presto_tpu_process_threads",
+                  "presto_tpu_process_uptime_seconds")
+
+
+def trace_kernels(artifact: str,
+                  names: tuple = PORT_KERNEL_NAMES) -> list[str]:
+    """The events of a capture's Chrome trace named like ``names``
+    (default: the port's kernels)."""
+    import os
+
+    from presto_tpu_torch.obs import devprof
+    with open(os.path.join(artifact, devprof.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted({e["name"] for e in events
+                   if any(k in str(e.get("name", "")) for k in names)})
+
+
+def _op_rows(engine, qid: str) -> list:
+    return engine.execute(
+        "select plan_node_id, node_type, flops, hbm_bytes, intensity, "
+        f"roofline from system.operator_stats where query_id = '{qid}'")
+
+
+def check_costs(engine, qid: str, costs: list) -> dict:
+    """Every operator row of query ``qid`` carries nonzero flops,
+    hbm_bytes, intensity and roofline, and each program's rows sum to
+    its harvested flops within rounding (one per row)."""
+    ops = _op_rows(engine, qid)
+    bad = [r for r in ops if not all(r[2:])]
+    if not ops or bad:
+        raise AssertionError(f"{qid}: operator rows without a cost: "
+                             f"{bad or 'none at all'}")
+    sums: dict = {}
+    for r in ops:
+        program = str(r[0]).split(".")[0]
+        n, total = sums.get(program, (0, 0))
+        sums[program] = (n + 1, total + int(r[2]))
+    harvested = [c["flops"] for c in costs if c is not None]
+    got = [sums[p] for p in sorted(sums, key=int)]
+    if len(got) != len(harvested) or any(
+            abs(total - want) > n
+            for (n, total), want in zip(got, harvested)):
+        raise AssertionError(f"{qid}: operator flops {got} against the "
+                             f"harvested {harvested}")
+    return {"operators": len(ops), "programs": len(got),
+            "flops": harvested,
+            "roofline": [min(r[5] for r in ops), max(r[5] for r in ops)]}
+
+
+def observe_cases(conn, worker_conn, q05_rows=None,
+                  trace_names: tuple = PORT_KERNEL_NAMES) -> dict:
+    """O1-O5 over ``conn`` (a worker over ``worker_conn``), with
+    ``PRESTO_TPU_PROFILE_DIR`` a fresh directory; O2's trace must name
+    one of ``trace_names``. Returns the launches of the runs it
+    drives."""
+    import os
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    from presto_tpu_torch import Engine
+    from presto_tpu_torch.events import QueryCompletedEvent
+    from presto_tpu_torch.obs import devprof
+    from presto_tpu_torch.obs.metrics import REGISTRY
+    from presto_tpu_torch.parallel.coordinator import ClusterCoordinator
+    from presto_tpu_torch.parallel.worker import WorkerServer
+
+    launches: dict = {name: 0 for name in KERNELS}
+    harvests = REGISTRY.counter("presto_tpu_cost_harvests_total")
+
+    def run(engine, sql):
+        """(rows, seconds, harvests, query id, costs, rungs), launches
+        counted."""
+        qids: list = []
+        engine.events.add_listener(
+            lambda ev: qids.append(ev.query_id)
+            if isinstance(ev, QueryCompletedEvent) else None)
+        h0 = harvests.total()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rows, launched = counted(lambda: engine.execute(sql))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        for name, n in launched.items():
+            launches[name] += n
+        return (rows, secs, harvests.total() - h0, qids[-1],
+                list(engine.last_run.costs), engine.last_run.rungs)
+
+    profile_dir = tempfile.mkdtemp(prefix="presto_tpu_profiles-")
+    saved = os.environ.get(devprof.ENV_PROFILE_DIR)
+    os.environ[devprof.ENV_PROFILE_DIR] = profile_dir
+    out: dict = {}
+    try:
+        q05 = QUERIES["q05"]
+
+        def first_pass(count: bool):
+            """Q5 on a fresh engine (a program-cache miss, the tables
+            uploaded again), its programs' costs forgotten (counted) or
+            known to the process (not counted)."""
+            if count:
+                devprof.forget_costs()
+            fresh = Engine()
+            fresh.register_catalog("tpch", conn)
+            r = run(fresh, q05)
+            del fresh
+            gc.collect()
+            torch.cuda.empty_cache()
+            return r
+        # O1: Q5's first pass with and without the count, alternately
+        # after one that makes its costs known (and warms the host),
+        # then a fresh engine's cold run and its hit: neither counts
+        first_pass(False)
+        passes = {False: [], True: []}
+        for count in (False, True) * OBSERVE_FIRST_PASS_PAIRS:
+            passes[count].append(first_pass(count))
+        engine = Engine()
+        engine.register_catalog("tpch", conn)
+        cold = run(engine, q05)
+        hit = run(engine, q05)
+        engine.session.set("device_profile", True)
+        prof = run(engine, q05)
+        prof_again = run(engine, q05)
+        engine.session.set("device_profile", False)
+        if q05_rows is not None and not rows_close(cold[0], q05_rows):
+            raise AssertionError("O1: Q5 differs from phase 3's rows")
+        runs = passes[False] + passes[True] + [hit, prof, prof_again]
+        if any(r[0] != cold[0] for r in runs):
+            raise AssertionError("O1: Q5's runs differ")
+        if None in cold[4] or cold[2] or hit[2] or prof[2] or prof_again[2] \
+                or any(r[2] for r in passes[False]) \
+                or any(r[2] != len(cold[4]) for r in passes[True]) \
+                or any(r[4] != cold[4] for r in runs):
+            raise AssertionError(
+                f"O1: costs {[r[4] for r in runs]}, harvests "
+                f"{[r[2] for r in runs]}")
+        known_s = [r[1] for r in passes[False]]
+        counted_s = [r[1] for r in passes[True]]
+        out["O1"] = {"first_s": known_s, "first_counted_s": counted_s,
+                     "harvest_cost_s": float(np.median(counted_s)
+                                             - np.median(known_s)),
+                     "first_rungs": [r[5] for r in passes[True]],
+                     "programs": len(cold[4]),
+                     "cold_s": cold[1], "cold_harvests": cold[2],
+                     "hit_s": hit[1], "hit_harvests": hit[2],
+                     "costs": cold[4]}
+        log("observe " + json.dumps({"case": "O1 q05 harvest",
+                                     **out["O1"]}))
+        # O2: Q5 under device_profile: a Chrome trace naming the kernels
+        from presto_tpu_torch.obs import qstats as QS
+        record = QS.STORE.get(prof[3])
+        artifact = None if record is None else record.snapshot()["profile"]
+        if artifact is None or not artifact.startswith(profile_dir):
+            raise AssertionError(f"O2: no profile artifact ({artifact})")
+        names = trace_kernels(artifact, trace_names)
+        if not names:
+            raise AssertionError(f"O2: the trace names none of "
+                                 f"{trace_names}")
+        out["O2"] = {"s": prof[1], "again_s": prof_again[1],
+                     "hit_s": hit[1],
+                     "profile_cost_s": prof[1] - hit[1],
+                     "again_cost_s": prof_again[1] - hit[1],
+                     "trace_bytes": os.path.getsize(os.path.join(
+                         artifact, devprof.TRACE_FILE)),
+                     "kernels": names}
+        log("observe " + json.dumps({"case": "O2 q05 device_profile",
+                                     **out["O2"]}))
+        # O3: system.operator_stats of the cold run and of the hit
+        out["O3"] = {"cold": check_costs(engine, cold[3], cold[4]),
+                     "hit": check_costs(engine, hit[3], hit[4])}
+        log("observe " + json.dumps({"case": "O3 operator_stats",
+                                     **out["O3"]}))
+        # O4: a card worker's profile endpoints around a task, and its
+        # /metrics
+        worker = WorkerServer({"tpch": worker_conn}, device="cuda").start()
+        local = Engine()
+        local.register_catalog("tpch", worker_conn)
+        coord = ClusterCoordinator(local).start()
+        try:
+            coord.add_worker(worker.uri)
+            wait_all_live(coord)
+
+            def post(path):
+                req = urllib.request.Request(worker.uri + path, data=b"{}",
+                                             method="POST")
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    return r.status, json.loads(r.read())
+            started = post("/v1/profile/start")
+            got, launched = counted(
+                lambda: coord.execute(OBSERVE_WORKER_SQL))
+            for name, n in launched.items():
+                launches[name] += n
+            stopped = post("/v1/profile/stop")
+            with urllib.request.urlopen(worker.uri + "/metrics",
+                                        timeout=60) as r:
+                metrics = r.read().decode()
+        finally:
+            coord.stop()
+            worker.stop()
+        if got != local.execute(OBSERVE_WORKER_SQL):
+            raise AssertionError("O4: the worker's rows differ")
+        if (started[0], stopped[0]) != (200, 200) \
+                or stopped[1].get("artifact") != started[1].get("dir"):
+            raise AssertionError(f"O4: profile endpoints {started} "
+                                 f"{stopped}")
+        gauges = {g: f'{g}{{node="{worker.node_id}"}}' in metrics
+                  for g in PROCESS_GAUGES}
+        if not all(gauges.values()):
+            raise AssertionError(f"O4: /metrics lacks {gauges}")
+        out["O4"] = {"kernels": trace_kernels(stopped[1]["artifact"],
+                                              trace_names),
+                     "gauges": sorted(gauges), "launches": launched}
+        log("observe " + json.dumps({"case": "O4 worker profile",
+                                     **out["O4"]}))
+        # O5: a group-by table hinted too small climbs rungs; each rung
+        # counts once in the retry counter
+        retries = REGISTRY.counter(
+            "presto_tpu_capacity_overflow_retries_total")
+        probes = REGISTRY.counter("presto_tpu_hash_probe_overflow_total")
+        want = run(engine, OBSERVE_RUNG_SQL)
+        fresh = Engine()
+        fresh.register_catalog("tpch", conn)
+        fresh.session.set("groupby_table_size", OBSERVE_TABLE_SIZE)
+        r0, p0 = retries.total(), probes.total()
+        small = run(fresh, OBSERVE_RUNG_SQL)
+        delta = retries.total() - r0
+        if small[0] != want[0] or not small[5] or delta != small[5]:
+            raise AssertionError(
+                f"O5: {small[5]} rungs, retries counted {delta}")
+        out["O5"] = {"rungs": small[5], "retries": delta,
+                     "probe_overflows": probes.total() - p0,
+                     "s": small[1]}
+        log("observe " + json.dumps({"case": "O5 forced rung",
+                                     **out["O5"]}))
+    finally:
+        if saved is None:
+            os.environ.pop(devprof.ENV_PROFILE_DIR, None)
+        else:
+            os.environ[devprof.ENV_PROFILE_DIR] = saved
+        shutil.rmtree(profile_dir, ignore_errors=True)
+    out["launches"] = launches
+    return out
+
+
+def observe_phase(conn, seed: int, q05_rows=None) -> dict:
+    """Phase 13 over phase 3's SF10 tables (made again when it did not
+    run); the worker of O4 over SF1. Returns the launches."""
+    worker_conn = tpch_data(CLUSTER_SMALL_SCALE, seed)
+    launches = observe_cases(conn, worker_conn, q05_rows)["launches"]
+    log("observe launches " + json.dumps(launches))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -4040,6 +4658,21 @@ def main() -> int:
                                 dev)
         launches = add(serving["launches"])
         log(f"serving phase: {time.perf_counter() - t:.1f} s")
+    if "parquet" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        parquet = parquet_phase(args.seed)
+        launches = add(parquet)
+        log(f"parquet phase: {time.perf_counter() - t:.1f} s")
+    if "observe" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        conn = conn or tpch_data(args.scale, args.seed)
+        observe = observe_phase(conn, args.seed, tpch_rows.get("q05"))
+        launches = add(observe)
+        log(f"observe phase: {time.perf_counter() - t:.1f} s")
     if phases != set(PHASES):
         log(f"phases {sorted(phases)} passed; no summary without all "
             f"{len(PHASES)}")
@@ -4070,7 +4703,11 @@ def main() -> int:
                         "batched_bound_ms":
                             serving["lanes"][name]["bound_ms"],
                         "batched_max_abs_err":
-                            serving["lanes"][name]["max_abs_err"]})
+                            serving["lanes"][name]["max_abs_err"],
+                        # phases 12 and 13: the parquet scans' and the
+                        # observatory's runs
+                        "parquet_launches": parquet.get(name, 0),
+                        "observe_launches": observe.get(name, 0)})
     print(card, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

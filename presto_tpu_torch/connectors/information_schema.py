@@ -128,10 +128,9 @@ class SystemConnector(_ReflectiveConnector):
     engine's ``QueryHistory`` (``PRESTO_TPU_HISTORY_DIR``) and
     ``result_cache`` the serving layer's result cache
     (server/serving.py), empty without a coordinator server. The
-    device-cost columns of
-    ``operator_stats`` (``flops``, ``hbm_bytes``, ``intensity``,
-    ``roofline``) are 0: the reference fills them from ``obs/devprof``,
-    which is ROADMAP Queue 1 item 11."""
+    device-cost columns of ``operator_stats`` (``flops``, ``hbm_bytes``,
+    ``intensity``, ``roofline``) are each program's counted cost
+    (``obs/devprof``) split across its operators."""
 
     name = "system"
 

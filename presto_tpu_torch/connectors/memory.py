@@ -88,15 +88,19 @@ class MemoryConnector(Connector):
         if mask is None:
             mask = np.ones(n, dtype=bool)
         m = np.asarray(mask)
+        # new arrays, not writes into the scanned ones: a device copy
+        # is keyed by its host array, and a concurrent scan that sees
+        # the new version must not find the old contents there
         for c, new in values.items():
             is_str = isinstance(self._schemas[name][c], T.VarcharType)
-            arr = self._data[name][c]
+            arr = self._data[name][c].copy()
             arr[m] = np.asarray(new, dtype=object if is_str else None)[m]
+            self._data[name][c] = arr
             nv = None if valids is None else valids.get(c)
             old_v = self._valid[name].get(c)
             if nv is not None or old_v is not None:
-                if old_v is None:
-                    old_v = np.ones(n, dtype=bool)
+                old_v = (np.ones(n, dtype=bool) if old_v is None
+                         else old_v.copy())
                 new_v = nv if nv is not None else np.ones(n, dtype=bool)
                 old_v[m] = np.asarray(new_v)[m]
                 self._valid[name][c] = old_v

@@ -438,9 +438,9 @@ class Engine:
         try:
             return self._execute_statement_inner(stmt, mesh)
         finally:
-            # writes mutate connector arrays in place (the same object,
-            # the same id), and COMMIT / ROLLBACK swap snapshots in, so
-            # no device copy of a host array may outlive them
+            # writes replace connector arrays, and COMMIT / ROLLBACK
+            # swap snapshots in: no device copy of a replaced host
+            # array may outlive them
             if isinstance(stmt, (A.CreateTableAs, A.InsertStatement,
                                  A.DeleteStatement, A.UpdateStatement,
                                  A.DropTable, A.CommitStatement,

@@ -113,19 +113,31 @@ def monitored(engine, sql: str, run: Callable):
     INSIDE the stats scope: history listeners snapshot the finished
     tree off the ambient recorder. Returns run()'s result.
 
-    The reference's ``monitored`` also opens a device-profile capture
-    (``obs/devprof``), which is not in the port yet (ROADMAP Queue 1
-    item 11). It reads no tensor: the output rows are counted from the
-    host result (a list of rows, or a host Table and its numpy mask)."""
+    Under ``SET SESSION device_profile = true`` the query runs inside a
+    ``torch.profiler`` capture (``obs/devprof``; the CUDA activity on a
+    CUDA engine), whose artifact directory goes into the query record
+    (``profile_artifact``) before the query runs. It reads no tensor:
+    the output rows are counted from the host result (a list of rows,
+    or a host Table and its numpy mask)."""
+    from presto_tpu_torch.obs import devprof
     from presto_tpu_torch.obs import qstats as QS
     mgr: EventListenerManager = engine.events
     qid = mgr.next_query_id()
     t0 = time.time()
     user = engine.session.user
+    want_profile = bool(engine.session.get("device_profile"))
     mgr.query_created(QueryCreatedEvent(qid, sql, user, t0))
     with QS.query_or_current(qid, sql, user) as qr, \
             TRACER.root_or_span(qid, "query", query_id=qid, user=user,
-                                sql=sql[:200]) as sp:
+                                sql=sql[:200]) as sp, \
+            devprof.maybe_capture(
+                want_profile, qid,
+                str(getattr(engine, "device", "")).startswith("cuda")
+            ) as prof_dir:
+        if prof_dir is not None:
+            # known up front: history snapshots taken mid-query already
+            # link the artifact directory
+            qr.profile_artifact = prof_dir
         try:
             result = run()
         except Exception as exc:

@@ -36,6 +36,8 @@ serially.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -123,6 +125,7 @@ def _run_batched(engine, templates: list, plan, scans) -> list[Table]:
     from presto_tpu_torch.exec import executor as EX
     from presto_tpu_torch.exec import progcache as PC
     from presto_tpu_torch.exec.cancel import checkpoint
+    from presto_tpu_torch.obs import devprof
     from presto_tpu_torch.ops.hash import HashChainOverflow, grow_overflowed
     from presto_tpu_torch.templates import runtime as TR
 
@@ -148,10 +151,17 @@ def _run_batched(engine, templates: list, plan, scans) -> list[Table]:
     run.passes.append(0)
     run.from_memory.append(base_key in engine._caps_memory)
 
-    for _attempt in range(_MAX_ATTEMPTS):
+    cost = None
+    for attempt in range(_MAX_ATTEMPTS):
         checkpoint()
         run.passes[0] += 1
         entry = cache.lookup((base_key, PC.bucket_capacities(capacities)))
+        # the batch's first pass counts its device cost (obs/devprof:
+        # the physical operations under the vmap) unless the process
+        # knows the batched program's
+        if attempt == 0:
+            cost = devprof.known_cost(PC.backend_free(base_key))
+        counting = attempt == 0 and cost is None
         seen: dict = {}
 
         def lane_pass(*values):
@@ -170,9 +180,12 @@ def _run_batched(engine, templates: list, plan, scans) -> list[Table]:
             return out.live_mask(), parts, oks
 
         with TRACER.span("execute", cache_hit=entry is not None,
-                         batch=kp):
+                         batch=kp), (devprof.harvest() if counting
+                                     else contextlib.nullcontext()) as counted:
             live, parts, oks = torch.func.vmap(
                 lane_pass, randomness="error")(*params)
+        if counting:
+            cost = counted.summary()
         interp = seen["interp"]
         oks_all = np.ones(0, dtype=bool)
         if oks.shape[-1]:
@@ -189,6 +202,8 @@ def _run_batched(engine, templates: list, plan, scans) -> list[Table]:
                     "used_capacity": dict(interp.used_capacity),
                     "kernels": dict(interp.kernel_used)})
             engine._caps_memory[base_key] = dict(capacities)
+            devprof.remember_cost(PC.backend_free(base_key), cost)
+            run.costs.append(cost)
             engine.last_kernel_notes.update(
                 {(0, pos): tags for pos, tags in interp.kernel_used.items()})
             engine.last_backend = backend

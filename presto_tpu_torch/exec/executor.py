@@ -140,6 +140,10 @@ class QueryRun:
     # per program: did its first pass start from remembered capacities
     # (the capacity memory, keyed like the program cache)?
     from_memory: list[bool] = dataclasses.field(default_factory=list)
+    # per program: its device cost (obs/devprof.harvest), counted on its
+    # first pass in the process or known since (devprof.known_cost);
+    # None outside the cache
+    costs: list = dataclasses.field(default_factory=list)
 
     @property
     def rungs(self) -> int:
@@ -608,6 +612,10 @@ class Program:
     # the kernel backend the program ran on: its carrier compacts on
     # the same one
     backend: str = "torch"
+    # the program's device cost (obs/devprof.harvest), counted on its
+    # first pass in the process and known since (devprof.known_cost);
+    # None outside the cache
+    cost: dict | None = None
 
     def note_rows(self, engine, counts) -> None:
         """Keep the node rows that came back with the result (host
@@ -621,7 +629,8 @@ class Program:
         if self.plan is not None:
             QS.record_program(
                 engine, self.plan,
-                {"count_nodes": self.row_keys, "kernels": self.kernels},
+                {"count_nodes": self.row_keys, "kernels": self.kernels,
+                 "cost": self.cost},
                 counts, 0.0, time.perf_counter() - self.t0,
                 self.cache_hit, self.template,
                 self.template and self.cache_hit)
@@ -664,11 +673,18 @@ def prepare_plan(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
     literal values bound, so a literal variant starts from what an
     earlier variant learned. ``capacities`` given carries grown
     capacities in and out instead, shared across the programs of one
-    ladder (streamed blocks, spill partitions), outside the cache."""
+    ladder (streamed blocks, spill partitions), outside the cache.
+
+    A cached program's first pass runs under ``obs/devprof.harvest``
+    unless the process already knows the program's cost
+    (``devprof.known_cost``, under its key without the kernel backend):
+    the cost goes there, and every later run of the program carries it
+    (``Program.cost``)."""
     from presto_tpu_torch import kernels as K
     from presto_tpu_torch import templates as TPL
     from presto_tpu_torch.exec import progcache as PC
     from presto_tpu_torch.exec.cancel import checkpoint
+    from presto_tpu_torch.obs import devprof
     from presto_tpu_torch.templates import runtime as TR
     backend = K.resolve(engine.session, engine.device)
     t0 = time.perf_counter()
@@ -694,19 +710,28 @@ def prepare_plan(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
     runs, values = ((plan, []) if tpl is None
                     else (tpl.plan, [p.value for p in tpl.params]))
     order = preorder_index(runs)
+    cost = None
     for attempt in range(MAX_ATTEMPTS):
         checkpoint()
         run.passes[index] += 1
+        counting = False
         if cached:
             entry = cache.lookup((base_key, PC.bucket_capacities(capacities)))
             if tpl is not None and attempt == 0:
                 TPL.note_lookup(hit=entry is not None,
                                 params=len(tpl.params))
+            if attempt == 0:
+                cost = devprof.known_cost(PC.backend_free(base_key))
+                counting = cost is None
         interp = PlanInterpreter(scans, capacities, engine.session,
                                  engine.device, order)
         interp.collect_rows = collect_rows
-        with K.use_backend(backend), TR.active(values):
+        with K.use_backend(backend), TR.active(values), (
+                devprof.harvest() if counting
+                else contextlib.nullcontext()) as counted:
             out = interp.run(runs)
+        if counting:
+            cost = counted.summary()
         counts = (torch.stack([c for _k, c in interp.row_counts])
                   if interp.row_counts else None)
         if not interp.ok_flags:
@@ -728,12 +753,14 @@ def prepare_plan(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
                 "used_capacity": dict(interp.used_capacity),
                 "kernels": dict(interp.kernel_used)})
         engine._caps_memory[base_key] = dict(capacities)
+        devprof.remember_cost(PC.backend_free(base_key), cost)
     engine.last_kernel_notes.update(
         {(index, pos): tags for pos, tags in interp.kernel_used.items()})
     engine.last_backend = backend
+    run.costs.append(cost)
     return Program(out, index, [k for k, _c in interp.row_counts], counts,
                    plan, dict(interp.kernel_used), t0, entry is not None,
-                   tpl is not None, backend)
+                   tpl is not None, backend, cost)
 
 
 def _pool_wait(engine) -> tuple[float, float]:

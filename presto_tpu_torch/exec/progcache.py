@@ -138,6 +138,21 @@ def platform_fingerprint(device: str, backend: str) -> tuple:
     return (torch.__version__, name, f"kernels-{backend}")
 
 
+def backend_free(key):
+    """A program-cache key without its kernel backend (the session's
+    ``kernel_backend`` pair and the platform's ``kernels-<backend>``):
+    the key of the program's device cost (obs/devprof.known_cost),
+    which is counted the same on either backend (a kernel entry by its
+    formula)."""
+    if isinstance(key, str):
+        return "kernels" if key.startswith("kernels-") else key
+    if isinstance(key, tuple):
+        return tuple(backend_free(k) for k in key
+                     if not (isinstance(k, tuple) and len(k) == 2
+                             and k[0] == "kernel_backend"))
+    return key
+
+
 class ProgramCache:
     """Bounded in-memory LRU of program meta."""
 

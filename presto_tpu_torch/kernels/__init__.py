@@ -77,6 +77,73 @@ KERNELS: dict[str, dict[str, object]] = {
 }
 
 
+# a hash table's slot: key hash, build row and pad (csrc/common.cuh)
+SLOT_BYTES = 16
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _segment_cost(data, segment_ids, num_segments: int):
+    # each value and id read once, one slot per segment written
+    width = data.numel() // max(data.shape[0], 1) if data.ndim > 1 else 1
+    return (data.numel(),
+            _nbytes(data, segment_ids) + int(num_segments) * 8 * width)
+
+
+def _join_cost(build_hash, build_live, probe_hash, probe_live,
+               capacity: int, max_probes: int = 0):
+    # the build writes its table and the probe reads it; each probe row
+    # writes its build row and found flag
+    slots = _hashjoin.table_capacity(capacity)
+    nb, np_ = build_hash.shape[0], probe_hash.shape[0]
+    return (8 * (nb + np_),
+            _nbytes(build_hash, build_live, probe_hash, probe_live)
+            + 2 * slots * SLOT_BYTES + np_ * 5)
+
+
+def _walk_cost(spine_live, walk, growth: int = 1, max_probes: int = 0):
+    # each step builds its table and the spine probes it: hash columns
+    # read once, the live mask and one int32 gather per step written
+    n = spine_live.shape[0]
+    steps = len(walk.build_live)
+    slots = sum(2 * _hashjoin.table_capacity(2 * max(b.shape[0], 1))
+                * SLOT_BYTES for b in walk.build_live)
+    built = sum(b.shape[0] for b in walk.build_live)
+    return (8 * (n * steps + built),
+            _nbytes(spine_live, *walk.build_live, *walk.build_hash,
+                    *walk.key_hash, *walk.key_valid)
+            + slots + n * (1 + 4 * steps))
+
+
+def _compact_cost(live, arrays: dict, capacity: int):
+    # the mask read, at most ``capacity`` live rows read and the
+    # capacity's rows written
+    row = sum(a.element_size() * (a[0].numel() if a.ndim > 1 else 1)
+              for a in arrays.values())
+    return live.numel(), live.numel() + 2 * int(capacity) * row
+
+
+# kernel name -> (its arguments -> (operations, bytes)): what
+# obs/devprof counts for one call under a harvest, whichever backend runs
+COSTS = {"agg_sum": _segment_cost, "agg_max": _segment_cost,
+         "agg_min": _segment_cost, "join_lookup": _join_cost,
+         "multijoin": _walk_cost, "compact": _compact_cost}
+
+
+def run(name: str, backend: str, *args):
+    """Call kernel ``name`` on ``backend``. Under a cost harvest
+    (obs/devprof.harvest) the call counts by its ``COSTS`` formula, and
+    the torch operations inside it count nothing."""
+    from presto_tpu_torch.obs import devprof
+    if not devprof.harvesting():
+        return KERNELS[name][backend](*args)
+    with devprof.count_kernel(*COSTS[name](*args)):
+        return KERNELS[name][backend](*args)
+
+
 def resolve(session, device) -> str:
     """The session's ``kernel_backend`` for an engine on ``device``."""
     value = str(session.get("kernel_backend") or "auto").lower()
@@ -123,7 +190,7 @@ def dispatch(name: str, backend: str | None = None):
             # torch, which the serial route never needs
             from presto_tpu_torch.kernels import lanes
             return lanes.OPS[name](*args, backend=backend)
-        return KERNELS[name][backend](*args)
+        return run(name, backend, *args)
 
     return entry
 

@@ -44,7 +44,7 @@ _NS = "presto_tpu_torch"
 
 def _impl(name: str, backend: str):
     from presto_tpu_torch import kernels as K
-    return K.KERNELS[name][backend]
+    return lambda *args: K.run(name, backend, *args)
 
 
 def _lanes(t: Tensor, dim, k: int) -> Tensor:

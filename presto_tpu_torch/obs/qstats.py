@@ -32,10 +32,10 @@ Three pieces:
   them back (cost/stats.py), and adaptive re-planning logs its
   decisions in :data:`ADAPTIVE` (``system.adaptive_decisions``).
 
-The reference splits each program's execute time across its operators
-by the compiled program's flop estimate (``obs/devprof``); the port
-has no compiled program to ask, so the split is by rows through each
-operator (the reference's own fallback).
+Each program's execute time splits across its operators by the flop
+share of its device cost (``obs/devprof``: counted on the program's
+first pass in the process, known since), and by rows through each
+operator where a program has no cost (the reference's own fallback).
 """
 
 from __future__ import annotations
@@ -274,8 +274,8 @@ class QueryRecorder:
         self._stages_dispatched: set[str] = set()
         self._stages_done: set[str] = set()
         self._progress_floor = 0.0
-        # device-profile artifact directory: the reference's
-        # obs/devprof capture, not in the port yet, so always None
+        # device-profile artifact directory (obs/devprof capture under
+        # SET SESSION device_profile = true), set by events.monitored
         self.profile_artifact: str | None = None
 
     def add_stages(self, stages: list[dict]) -> None:
@@ -519,6 +519,7 @@ def _record_program(engine, rec: TaskRecorder, plan, meta, counts,
     kernels_by_pos = meta.get("kernels") or {}
     ops: list[dict] = []
     weights: list[int] = []
+    node_shapes: list[tuple[str, int, int, int]] = []
     for pos, node in by_pos.items():
         rows = actual.get(pos)
         if rows is None:
@@ -543,17 +544,32 @@ def _record_program(engine, rec: TaskRecorder, plan, meta, counts,
         })
         weights.append((0 if in_rows is None else int(in_rows))
                        + int(rows) + 1)
+        node_shapes.append((ntype,
+                            0 if in_rows is None else int(in_rows),
+                            int(rows), int(nbytes)))
         if ntype in _DIVERGENCE_NODES and est is not None:
             ratio = (rows + 1) / (est + 1)
             _DIVERGENCE_RATIO.observe(ratio, node_type=ntype)
             DIVERGENCE.observe(qid, rec.stage, f"{program}.{pos}",
                                ntype, _subtree_table(node), est, rows)
 
-    # split the program's wall by rows through each operator (in+out):
-    # no per-operator timer runs on the execute path, and rounding
-    # means the parts sum to the program wall only approximately
-    total_w = sum(weights) or 1
-    for op, w in zip(ops, weights):
+    # attribute the program's first-pass device cost (obs/devprof; the
+    # process keeps it, so a hit attributes too) across
+    # its operators, then split the execute wall by flops share. No
+    # per-operator timer runs on the execute path: the weighting makes
+    # "which operator dominates" answerable from SQL, and rounding
+    # means the parts sum to the program wall only approximately.
+    # Without a cost (a program run outside the cache) the split falls
+    # back to rows through each operator (in+out), which let a
+    # cheap-wide node absorb an expensive-narrow node's wall
+    from presto_tpu_torch.obs import devprof
+    per_node, flop_w = devprof.attribute(meta.get("cost"), node_shapes,
+                                         getattr(engine, "device", None))
+    for op, costs in zip(ops, per_node):
+        op.update(costs)
+    wall_w = flop_w if flop_w is not None else weights
+    total_w = sum(wall_w) or 1
+    for op, w in zip(ops, wall_w):
         op["wallMillis"] = round(execute_s * 1000.0 * w / total_w)
 
     _observe_shapes(by_pos, order, actual)

@@ -79,15 +79,46 @@ def lexsort(keys: list[torch.Tensor]) -> torch.Tensor:
 def grow_overflowed(capacities: dict, ok_keys, oks,
                     used_capacity: dict, growth: int = 4) -> int:
     """One rung of the capacity retry ladder: grow each failed key's
-    capacity by ``growth``. Returns how many hash-table (not output)
-    capacities overflowed."""
+    capacity by ``growth`` (``oks`` are host values). Every failed key
+    counts one ``presto_tpu_capacity_overflow_retries_total{operator=
+    <kind>}``, the kind naming the operator role the capacity sizes
+    (table/final = hash build or aggregation table, out/pout =
+    expanding-join output, probe_exch/build_exch/agg_exch = exchange
+    buckets, ...); the hash-table ones (table, final) also count in
+    ``presto_tpu_hash_probe_overflow_total``, as the reference's do.
+    Returns how many hash-table (not output) capacities overflowed."""
     overflowed = 0
     for key, okv in zip(ok_keys, oks):
         if not bool(okv):
             if key[1] in ("table", "final"):
                 overflowed += 1
+            note_capacity_retry(str(key[1]))
             capacities[key] = growth * used_capacity[key]
+    if overflowed:
+        note_probe_overflow(overflowed)
     return overflowed
+
+
+def note_capacity_retry(kind: str) -> None:
+    """Count one capacity-overflow retry rung (one more interpreter
+    pass) for the capacity kind that overflowed."""
+    from presto_tpu_torch.obs.metrics import REGISTRY
+    REGISTRY.counter(
+        "presto_tpu_capacity_overflow_retries_total",
+        "capacity-overflow retry-ladder rungs (each one is a "
+        "recompile), by the operator-role capacity kind that "
+        "overflowed").inc(operator=kind)
+
+
+def note_probe_overflow(count: int = 1) -> None:
+    """Count a hash-TABLE overflow caught by the capacity retry ladder
+    (a build or group count past its table's capacity); output and
+    compaction capacity retries are not counted here."""
+    from presto_tpu_torch.obs.metrics import REGISTRY
+    REGISTRY.counter(
+        "presto_tpu_hash_probe_overflow_total",
+        "hash-table probe-chain/capacity overflows caught by the "
+        "capacity retry ladder").inc(count)
 
 
 def splitmix64(x: torch.Tensor) -> torch.Tensor:

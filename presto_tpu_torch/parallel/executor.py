@@ -34,6 +34,7 @@ sync, so a query syncs as often on 2 shards as on 8.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -1024,6 +1025,7 @@ def execute_plan_distributed(engine, plan: N.PlanNode, mesh,
     from presto_tpu_torch.exec.executor import _find_match_recognize
     from presto_tpu_torch.exec.spill import partitioning_symbols
     from presto_tpu_torch.exec.varlen import find_varlen_aggregate
+    from presto_tpu_torch.obs import devprof
     from presto_tpu_torch.templates import runtime as TR
 
     group = mesh
@@ -1074,6 +1076,7 @@ def execute_plan_distributed(engine, plan: N.PlanNode, mesh,
     capacities = dict(known or {})
     run.from_memory.append(known is not None)
     entry = None
+    cost = None
     t0 = time.perf_counter()
     for attempt in range(MAX_ATTEMPTS):
         checkpoint()
@@ -1081,15 +1084,24 @@ def execute_plan_distributed(engine, plan: N.PlanNode, mesh,
         entry = cache.lookup((base_key, PC.bucket_capacities(capacities)))
         if tpl is not None and attempt == 0:
             TPL.note_lookup(hit=entry is not None, params=len(tpl.params))
+        # the first pass of a program whose device cost the process
+        # does not know counts it (obs/devprof), which the process keeps
+        if attempt == 0:
+            cost = devprof.known_cost(PC.backend_free(base_key))
+        counting = attempt == 0 and cost is None
         interp = ShardedInterpreter(by_node, capacities, group, session,
                                     order)
         # the shards share each literal's and dictionary lookup's upload
         with K.use_backend(backend), TR.active(values), \
-                HS.shared_uploads():
+                HS.shared_uploads(), (
+                    devprof.harvest() if counting
+                    else contextlib.nullcontext()) as counted:
             out = interp.run(runs)
             if out.dist == SHARDED:  # a root below Output
                 out = DistTable([_gather(group, out.dts)], REPLICATED)
             oks, counts = interp.reduced()
+        if counting:
+            cost = counted.summary()
         # one host sync for every flag of the pass
         oks_np = HS.fetch(oks, site="dist-ok-ladder")
         if oks_np.all():
@@ -1106,6 +1118,8 @@ def execute_plan_distributed(engine, plan: N.PlanNode, mesh,
             "used_capacity": dict(interp.used_capacity),
             "kernels": dict(interp.kernel_used)})
     engine._caps_memory[base_key] = dict(capacities)
+    devprof.remember_cost(PC.backend_free(base_key), cost)
+    run.costs.append(cost)
     engine.last_kernel_notes.update(
         {(0, pos): tags for pos, tags in interp.kernel_used.items()})
     engine.last_backend = backend
@@ -1114,7 +1128,7 @@ def execute_plan_distributed(engine, plan: N.PlanNode, mesh,
     table = fetch_table(engine, plan, Program(
         out.dt, 0, [pos for pos, _d, _c in interp.row_counts], counts,
         plan, dict(interp.kernel_used), t0, entry is not None,
-        tpl is not None), "dist-demux")
+        tpl is not None, cost=cost), "dist-demux")
     run_s = time.perf_counter() - t0
     engine.last_dist_meta = {
         "used_capacity": dict(interp.used_capacity),

@@ -24,9 +24,11 @@ the GPU unless the caller asks for the CPU), so a fragment runs through
 ``exec/executor.run_plan`` and the CUDA kernels. A worker's tasks run
 in its HTTP handler threads on the device's current stream.
 ``PRESTO_TPU_WORKER_MEMORY_BYTES`` caps each worker engine's memory
-pool, whose bytes ``/v1/status`` and ``/metrics`` report. The
-reference's process gauges and its device-profile endpoints are not in
-the port yet (ROADMAP Queue 1 item 11).
+pool, whose bytes ``/v1/status`` and ``/metrics`` report; ``/metrics``
+also refreshes the process gauges (``obs/procstats``), and
+``/v1/profile/start`` / ``/v1/profile/stop`` wrap the tasks run between
+them in a ``torch.profiler`` capture of this process (``obs/devprof``),
+with the CUDA activity on a CUDA worker.
 """
 
 from __future__ import annotations
@@ -503,9 +505,10 @@ class WorkerServer(HttpService):
                 parts = self.path.strip("/").split("/")
                 if self.path == "/metrics":
                     # worker-side gauges refresh at scrape time; the
-                    # text body is the process-wide shared registry.
-                    # The reference's process gauges (obs/procstats)
-                    # wait for item 11
+                    # text body is the process-wide shared registry
+                    from presto_tpu_torch.obs.procstats import (
+                        update_process_gauges)
+                    update_process_gauges(node=outer.node_id)
                     with outer._lock:
                         engines = list(outer._engines.values())
                     pools = [e.memory_pool.info() for e in engines]
@@ -721,12 +724,18 @@ class WorkerServer(HttpService):
                     return
                 if self.path in ("/v1/profile/start",
                                  "/v1/profile/stop"):
-                    # the reference's on-demand device profiler
-                    # (obs/devprof) is ROADMAP Queue 1 item 11
-                    self._send_json(
-                        {"error": "device profiling is not in "
-                                  "presto_tpu_torch yet (ROADMAP Queue "
-                                  "1 item 11)"}, 501)
+                    # on-demand device profiler on THIS worker's
+                    # process (obs/devprof.py): task execution between
+                    # start and stop lands in the capture
+                    from presto_tpu_torch.obs import devprof
+                    if self.path.endswith("/start"):
+                        res = devprof.start_capture(
+                            f"worker-{outer.node_id}",
+                            cuda=outer.device.type == "cuda")
+                    else:
+                        res = devprof.stop_capture()
+                    self._send_json(res,
+                                    503 if res.get("error") else 200)
                     return
                 if self.path != "/v1/task":
                     self._send_json({"error": "not found"}, 404)

@@ -4,10 +4,10 @@ The port of ``presto_tpu/server/server.py``. ``CoordinatorServer(engine)``
 serves whatever device the engine is on (``Engine()`` is the card,
 ``Engine(device="cpu")`` the CPU); ``CoordinatorServer(cluster=)``
 routes SELECTs through the port's ``ClusterCoordinator``. Arrow result
-pages are the port's own wire codec (``parallel/wire.py``). Left out
-until ROADMAP item 11: the process gauges of ``/metrics``
-(``obs/procstats``) and the device-profile endpoints
-(``/v1/profile/start``, ``/v1/profile/stop``), which answer 404.
+pages are the port's own wire codec (``parallel/wire.py``). ``/metrics``
+refreshes the process gauges (``obs/procstats``) at scrape time, and
+``/v1/profile/start`` / ``/v1/profile/stop`` wrap whatever runs between
+them in a ``torch.profiler`` capture (``obs/devprof``).
 
 Endpoints (reference file:line):
 - POST /v1/statement            submit SQL; returns QueryResults JSON with
@@ -765,6 +765,8 @@ class _Handler(JsonHandler):
         shared MetricsRegistry at the event sites; snapshot-derived
         gauges refresh here at scrape time, then the whole registry
         renders (the worker's /metrics renders the same registry)."""
+        from presto_tpu_torch.obs.procstats import update_process_gauges
+        update_process_gauges(node="coordinator")
         qs = self.manager.snapshot()
         for state in ("QUEUED", "RUNNING", "FINISHED", "FAILED",
                       "CANCELED"):
@@ -915,6 +917,21 @@ class _Handler(JsonHandler):
                                 extra_headers={"Retry-After": "1"})
                 return
             self._send_json(self._query_results(q, 0))
+            return
+        if self.path in ("/v1/profile/start", "/v1/profile/stop"):
+            # on-demand device profiler (obs/devprof.py): wraps
+            # whatever executes between start and stop in a
+            # torch.profiler capture under PRESTO_TPU_PROFILE_DIR
+            if self._authenticated_user() is None:
+                return
+            from presto_tpu_torch.obs import devprof
+            if self.path.endswith("/start"):
+                res = devprof.start_capture(
+                    "coordinator",
+                    cuda=self.manager.engine.device.type == "cuda")
+            else:
+                res = devprof.stop_capture()
+            self._send_json(res, 503 if res.get("error") else 200)
             return
         self._send_json({"error": "not found"}, 404)
 

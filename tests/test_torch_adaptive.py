@@ -3,11 +3,13 @@ the port (presto_tpu_torch/parallel/adaptive.py, cost/adapt.py,
 ft/speculate.py): the counterparts of tests/test_adaptive.py over
 workers on device="cpu".
 
-The reference's acceptance run is timing-bound (ROADMAP R11) and reads
-the capacity-overflow counter, which the port does not have yet
-(ROADMAP Queue 1 item 11): here it is held on rows (the sqlite oracle
-and the static run) and on the re-plan's records
-(``last_distribution``, the annotated plan, ``system.adaptive_decisions``).
+The reference's acceptance run is timing-bound (ROADMAP R11): here it
+is held on rows (the sqlite oracle and the static run), on the
+capacity-overflow counter (the static run pays rungs, as the
+reference's does; the adaptive run pays no more, all of them the
+expanding join's output rung, where the reference's pays none: ROADMAP
+P12) and on the re-plan's records (``last_distribution``, the annotated
+plan, ``system.adaptive_decisions``), without the wall-time comparison.
 
 The within-query feedback-loop acceptance suite:
 
@@ -40,9 +42,9 @@ import urllib.request
 import pytest
 import torch
 
-from presto_tpu.sql.parser import parse_statement
-from presto_tpu.sql.sqlite_dialect import to_sqlite
-from presto_tpu.testing.oracle import rows_equal
+from presto_tpu_torch.sql.parser import parse_statement
+from presto_tpu_torch.sql.sqlite_dialect import to_sqlite
+from presto_tpu_torch.testing.oracle import rows_equal
 
 from presto_tpu_torch import Engine
 from presto_tpu_torch.connectors.tpch import TpchConnector
@@ -55,6 +57,8 @@ from presto_tpu_torch.parallel.worker import WorkerServer
 
 from tpch_queries import QUERIES
 
+_CAP_RETRIES = REGISTRY.counter(
+    "presto_tpu_capacity_overflow_retries_total")
 _REPLANS = REGISTRY.counter("presto_tpu_adaptive_replans_total")
 _SPEC_ATTEMPTS = REGISTRY.counter(
     "presto_tpu_speculative_attempts_total")
@@ -140,10 +144,15 @@ def _unpoison_ledger():
 
 def test_adaptive_replan_beats_poisoned_static_plan(adaptive_cluster,
                                                     oracle):
-    """The acceptance chaos run, on rows and records: with the ledger
-    poisoned, the static TASK plan and the adaptive run (which
-    re-plans the remainder after the divergent side stage, the join
-    flipped broadcast->partitioned) both equal the sqlite oracle."""
+    """The acceptance chaos run, on rows, counters and records: with the
+    ledger poisoned, the static TASK plan pays capacity-overflow retry
+    rungs; the adaptive run re-plans the remainder after the divergent
+    side stage (the join flipped broadcast->partitioned) and pays no
+    more; both equal the sqlite oracle. The reference's adaptive run
+    pays none: the port cuts the re-costed output capacity of the
+    expanding join to its first rung, twice the join's input rows
+    (exec/executor.PlanInterpreter._capacity), so it pays that one
+    output rung (ROADMAP P12)."""
     coord, _workers, local, _spool = adaptive_cluster
     want = oracle.query(to_sqlite(parse_statement(_CHAOS_SQL)))
     _poison_ledger()
@@ -153,18 +162,27 @@ def test_adaptive_replan_beats_poisoned_static_plan(adaptive_cluster,
         # the broadcast-vs-partitioned line mid-query
         local.session.set("broadcast_join_threshold_rows", 64)
         local.session.set("adaptive_replanning", False)
+        base = _CAP_RETRIES.total()
         got_static = coord.execute(_CHAOS_SQL)
+        static_rungs = _CAP_RETRIES.total() - base
         ok, msg = rows_equal(got_static, want, ordered=True)
         assert ok, f"static vs oracle: {msg}"
         assert "replans" not in coord.last_distribution
+        assert static_rungs > 0, (
+            "poisoned static plan should pay overflow retry rungs")
 
         local.session.set("adaptive_replanning", True)
         _poison_ledger()  # the static run recorded real observations
         r_base = _REPLANS.value(kind="stage-divergence")
+        base = _CAP_RETRIES.total()
+        base_out = _CAP_RETRIES.value(operator="out")
         got_adapt = coord.execute(_CHAOS_SQL)
+        adapt_rungs = _CAP_RETRIES.total() - base
         ok, msg = rows_equal(got_adapt, want, ordered=True)
         assert ok, f"adaptive vs oracle: {msg}"
         assert got_adapt == got_static
+        assert adapt_rungs <= static_rungs
+        assert adapt_rungs == _CAP_RETRIES.value(operator="out") - base_out
         assert _REPLANS.value(kind="stage-divergence") > r_base
         assert coord.last_distribution["replans"] >= 1
         kinds = {d["kind"]
@@ -182,6 +200,8 @@ def test_adaptive_replan_beats_poisoned_static_plan(adaptive_cluster,
         assert ("join-distribution", "broadcast",
                 "partitioned") in rows
         assert "presto_tpu_adaptive_replans_total" in REGISTRY.render()
+        assert "presto_tpu_capacity_overflow_retries_total" \
+            in REGISTRY.render()
     finally:
         _unpoison_ledger()
         local.session.set("adaptive_replanning", True)

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from presto_tpu import Engine as RefEngine
-from presto_tpu.testing.oracle import rows_equal
+from presto_tpu_torch.testing.oracle import rows_equal
 
 from presto_tpu_torch import Engine
 from presto_tpu_torch.connectors.tpch import TpchConnector

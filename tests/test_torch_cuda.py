@@ -1368,9 +1368,10 @@ def _memory_engine(backend: str, block_rows: int = 0) -> Engine:
 @pytest.mark.parametrize("block_rows", [0, 1 << 14])
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
 def test_update_drops_the_resident_cuda_column(cuda, backend, block_rows):
-    # the UPDATE mutates the host column in place: a stale CUDA copy
-    # would give the old sums, whole or sliced into streamed blocks (a
-    # streamed scan slices the resident copy when there is one)
+    # the UPDATE writes a new host column and drops the old one's CUDA
+    # copy: a stale copy would give the old sums, whole or sliced into
+    # streamed blocks (a streamed scan slices the resident copy when
+    # there is one)
     e = _memory_engine(backend)
     e.execute("create table memory.li as select l_orderkey, l_quantity "
               "from lineitem")
@@ -1385,8 +1386,9 @@ def test_update_drops_the_resident_cuda_column(cuda, backend, block_rows):
     hit = key % 7 == 0
     assert e.execute("update memory.li set l_quantity = l_quantity + 100 "
                      "where l_orderkey % 7 = 0") == [(int(hit.sum()),)]
-    assert data["l_quantity"] is qty  # mutated in place
+    assert data["l_quantity"] is not qty  # a new array
     assert e.resident(qty) is None and e._dev_cache_bytes == 0
+    qty = data["l_quantity"]
     got = e.execute(sql)
     if block_rows:
         assert e.last_streamed_blocks > 1
@@ -1744,3 +1746,104 @@ def test_concurrent_threads_compact_on_their_own_backend(tpch_pair):
     for (backend, _i), (last, carriers) in seen.items():
         assert last == backend
         assert carriers == {f"{backend}:compact"}, (backend, carriers)
+
+
+# -- parquet scans and the device observatory on the card --------------------
+
+@pytest.fixture(scope="module")
+def parquet_card(tmp_path_factory):
+    """The port's TPC-H tables at SF0.1 written by chip_smoke's writer
+    (the sorted lineitem in row groups of 2^17), the tpch connector they
+    came from, and a card engine over that connector."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on "
+                    "the card (this host has no CUDA device)")
+    import os
+    cs = _chip_smoke()
+    conn = TpchConnector(scale=0.1)
+    d = tmp_path_factory.mktemp("parquet")
+    tables, srt = str(d / "tables"), str(d / "sorted")
+    os.makedirs(tables)
+    os.makedirs(srt)
+    cs.write_tpch_parquet(conn, tables, srt, 1 << 17)
+    ref = Engine()
+    ref.register_catalog("tpch", conn)
+    return cs, conn, tables, srt, ref
+
+
+def test_parquet_scan_onto_the_card_equals_the_tpch_connector(
+        parquet_card):
+    """Phase 12's queries over the files on both backends: rows equal
+    to the tpch connector's on the card, and the same kernels tagged on
+    either backend (the files declare no keys, so no unique join is
+    planned over them)."""
+    from presto_tpu_torch.connectors.parquet import ParquetConnector
+    cs, _conn, tables, _srt, ref = parquet_card
+    e = Engine()
+    e.register_catalog("tpch", ParquetConnector(tables))
+    # Q5 too: at this scale its keyless join order fits the card
+    for q in cs.PARQUET_QUERIES + tuple(cs.PARQUET_OVER_MEMORY):
+        sql = cs.QUERIES[q]
+        want = ref.execute(sql)
+        ran = {}
+        for backend in ("cuda", "torch"):
+            e.session.set("kernel_backend", backend)
+            got = e.execute(sql)
+            assert cs.rows_close(got, want), (q, backend)
+            ran[backend] = {t.split(":", 1)[1]
+                            for tags in e.last_kernel_notes.values()
+                            for t in tags if t.startswith(backend + ":")}
+        assert ran["cuda"] == ran["torch"], (q, ran)
+
+
+def test_parquet_sorted_lineitem_prunes_on_the_card(parquet_card):
+    from presto_tpu_torch.connectors.parquet import ParquetConnector
+    cs, _conn, _tables, srt, ref = parquet_card
+    e = Engine()
+    conn = ParquetConnector(srt)
+    e.register_catalog("tpch", conn)
+    groups = len(conn._meta("lineitem")[0].row_groups)
+    kept = cs.kept_row_groups(e, cs.QUERIES["q06"])
+    assert groups > 1 and kept[0] < groups
+    assert e.execute(cs.QUERIES["q06"]) == ref.execute(cs.QUERIES["q06"])
+
+
+def test_device_profile_capture_names_a_port_kernel(parquet_card,
+                                                    tmp_path, monkeypatch):
+    """Q5 on the card under device_profile: the query's Chrome trace
+    names the port's CUDA kernels (the CUDA activity)."""
+    from presto_tpu_torch.obs import devprof
+    from presto_tpu_torch.obs import qstats as QS
+    cs, conn, _tables, _srt, _ref = parquet_card
+    monkeypatch.setenv(devprof.ENV_PROFILE_DIR, str(tmp_path))
+    e = Engine()
+    e.register_catalog("tpch", conn)
+    qids: list = []
+    e.events.add_listener(lambda ev: qids.append(ev.query_id)
+                          if hasattr(ev, "end_time") else None)
+    e.session.set("device_profile", True)
+    e.execute(cs.QUERIES["q05"])
+    artifact = QS.STORE.get(qids[-1]).snapshot()["profile"]
+    assert artifact.startswith(str(tmp_path))
+    names = cs.trace_kernels(artifact)
+    assert any("multijoin_walk_kernel" in n for n in names), names
+
+
+def test_cost_columns_are_nonzero_on_the_card(parquet_card):
+    """Every operator row of Q5 on the card carries flops, hbm_bytes,
+    intensity and roofline (against the H100's ridge), each program's
+    rows summing to its counted flops; a cache hit carries them too."""
+    from presto_tpu_torch.obs import devprof
+    cs, conn, _tables, _srt, _ref = parquet_card
+    e = Engine()
+    e.register_catalog("tpch", conn)
+    qids: list = []
+    e.events.add_listener(lambda ev: qids.append(ev.query_id)
+                          if hasattr(ev, "end_time") else None)
+    for _ in range(2):
+        e.execute(cs.QUERIES["q05"])
+        cs.check_costs(e, qids[-1], e.last_run.costs)
+    flops, bw = devprof.device_peaks(e.device)
+    for _pid, _nt, f, b, intensity, roofline in cs._op_rows(e, qids[-1]):
+        assert roofline == round(intensity / (flops / bw), 4) or \
+            abs(roofline - intensity / (flops / bw)) < 1e-4

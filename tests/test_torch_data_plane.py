@@ -20,7 +20,7 @@ import torch
 
 from presto_tpu import Engine as RefEngine
 from presto_tpu.parallel import wire as REF_WIRE
-from presto_tpu.testing.oracle import rows_equal
+from presto_tpu_torch.testing.oracle import rows_equal
 
 from presto_tpu_torch import Engine
 from presto_tpu_torch import types as T

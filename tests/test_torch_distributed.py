@@ -20,10 +20,9 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
-from presto_tpu.sql.parser import parse_statement
-from presto_tpu.sql.sqlite_dialect import to_sqlite
-from presto_tpu.testing.oracle import SqliteOracle, rows_equal
-from presto_tpu.connectors.tpch import TpchConnector as RefTpch
+from presto_tpu_torch.sql.parser import parse_statement
+from presto_tpu_torch.sql.sqlite_dialect import to_sqlite
+from presto_tpu_torch.testing.oracle import SqliteOracle, rows_equal
 
 from presto_tpu_torch import Engine
 from presto_tpu_torch import types as T
@@ -275,7 +274,7 @@ def zipf():
 @pytest.fixture(scope="module")
 def zipf_oracle():
     o = SqliteOracle()
-    o.load_connector(RefTpch(scale=0.01, skew="zipf:1.3"))
+    o.load_connector(TpchConnector(scale=0.01, skew="zipf:1.3"))
     return o
 
 

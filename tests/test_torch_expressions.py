@@ -22,7 +22,7 @@ import torch
 import jax.numpy as jnp
 
 from presto_tpu.expr import aggregates as RA
-from presto_tpu.testing.oracle import assert_query
+from presto_tpu_torch.testing.oracle import assert_query
 
 from presto_tpu_torch import Engine as TorchEngine
 from presto_tpu_torch.connectors.tpch import TpchConnector as TorchTpch

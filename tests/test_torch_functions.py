@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from presto_tpu.testing.oracle import assert_query
+from presto_tpu_torch.testing.oracle import assert_query
 
 from presto_tpu_torch import Engine as TorchEngine
 from presto_tpu_torch import types as PT

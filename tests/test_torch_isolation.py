@@ -54,7 +54,14 @@ def test_no_module_of_the_port_imports_jax_or_presto_tpu():
                    *(f"parallel/{m}.py" for m in (
                        "auth", "exchange_host", "wire", "buffer",
                        "fragmenter", "worker", "coordinator",
-                       "adaptive"))):
+                       "adaptive")),
+                   # parquet scans, the device observatory and the
+                   # test tooling
+                   "formats/__init__.py", "formats/parquet.py",
+                   "connectors/parquet.py", "obs/devprof.py",
+                   "obs/procstats.py", "testing/__init__.py",
+                   "testing/oracle.py", "testing/verifier.py",
+                   "sql/sqlite_dialect.py"):
         assert PORT / module in files, module
     bad = [f"{f.relative_to(REPO)}:{line}: {mod}"
            for f in files for line, mod in _imports(f) if _forbidden(mod)]
@@ -198,6 +205,65 @@ print(json.dumps({"rows": [j, a], "lanes": len(lanes), "bad": bad}))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"rows": [[[25]], [[5]]], "lanes": 2, "bad": []}
+
+
+def test_parquet_and_observatory_in_a_fresh_process_load_neither():
+    """A parquet table written by pyarrow, read and queried under
+    device_profile (a torch.profiler capture), its cost columns, a
+    worker's /metrics and profile endpoints and the port's own sqlite
+    oracle, and neither jax nor presto_tpu is imported."""
+    code = """
+import json, os, sys, tempfile, urllib.request
+import numpy as np
+import pyarrow as pa, pyarrow.parquet as pq
+from presto_tpu_torch import Engine
+from presto_tpu_torch.connectors.parquet import ParquetConnector
+from presto_tpu_torch.connectors.tpch import TpchConnector
+from presto_tpu_torch.obs import devprof
+from presto_tpu_torch.parallel.worker import WorkerServer
+from presto_tpu_torch.testing import SqliteOracle, assert_query
+d = tempfile.mkdtemp()
+os.environ[devprof.ENV_PROFILE_DIR] = os.path.join(d, "prof")
+pq.write_table(pa.table({"k": np.arange(100) % 7, "v": np.arange(100)}),
+               os.path.join(d, "t.parquet"))
+conn = ParquetConnector(d)
+e = Engine(device="cpu")
+e.register_catalog("pq", conn)
+e.session.catalog = "pq"
+e.session.set("device_profile", True)
+sql = "select k, sum(v) from t group by k order by k"
+rows = e.execute(sql)
+e.session.set("device_profile", False)
+o = SqliteOracle()
+o.load_connector(conn)
+assert_query(e, o, sql)
+costed = e.execute("select count(*) from system.operator_stats "
+                   "where flops > 0")[0][0]
+w = WorkerServer({"tpch": TpchConnector(scale=0.01)}, device="cpu").start()
+try:
+    req = urllib.request.Request(w.uri + "/v1/profile/start", data=b"{}",
+                                 method="POST")
+    started = urllib.request.urlopen(req, timeout=60).status
+    req = urllib.request.Request(w.uri + "/v1/profile/stop", data=b"{}",
+                                 method="POST")
+    stopped = urllib.request.urlopen(req, timeout=60).status
+    metrics = urllib.request.urlopen(w.uri + "/metrics").read().decode()
+finally:
+    w.stop()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "presto_tpu"))
+print(json.dumps({"rows": len(rows), "costed": bool(costed > 0),
+                  "endpoints": [started, stopped],
+                  "gauge": "presto_tpu_process_rss_bytes" in metrics,
+                  "bad": bad}))
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"rows": 7, "costed": True, "endpoints": [200, 200],
+                   "gauge": True, "bad": []}
 
 
 def test_engine_without_a_device_needs_cuda():

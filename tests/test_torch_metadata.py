@@ -3,8 +3,8 @@ events of the port (presto_tpu_torch/connectors/information_schema.py,
 events.py), held against presto_tpu on the SQL of
 tests/test_metadata.py over the same SF0.01 data: rows, or the error's
 type and message, equal the reference's. The system tables that read
-the runtime-stats recorders keep the reference's schemas and raise on
-a scan (ROADMAP Queue 1 item 11)."""
+the runtime-stats recorders keep the reference's schemas (their rows:
+tests/test_torch_qstats.py, test_torch_observatory.py)."""
 
 import pytest
 import torch

@@ -12,7 +12,7 @@ other statements are new here, so they are held against sqlite only."""
 import pytest
 import torch
 
-from presto_tpu.testing.oracle import assert_query, rows_equal
+from presto_tpu_torch.testing.oracle import assert_query, rows_equal
 
 from presto_tpu_torch import Engine as TorchEngine
 from presto_tpu_torch.connectors.tpch import TpchConnector as TorchTpch

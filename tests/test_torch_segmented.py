@@ -17,7 +17,7 @@ from presto_tpu import types as RT
 from presto_tpu.connectors.tpcds import TpcdsConnector as RefTpcds
 from presto_tpu.exec import executor as REX
 from presto_tpu.exec import progcache as RPC
-from presto_tpu.testing.oracle import assert_query
+from presto_tpu_torch.testing.oracle import assert_query
 
 from presto_tpu_torch import Engine as TorchEngine
 from presto_tpu_torch import types as T

@@ -137,6 +137,28 @@ def test_invalidation_chaos_stays_byte_identical(serving_server):
     assert Client(base, user="u").execute(sql)[1] == post
 
 
+def test_scan_after_an_update_sees_it_before_the_sweep():
+    """A scan that sees a table's new version sees its new contents,
+    even before the write's statement has swept the device cache (the
+    window a concurrent reader of the chaos test above can hit): an
+    update replaces the arrays it writes instead of writing into the
+    ones a device copy is keyed by."""
+    engine = Engine()
+    mem = MemoryConnector()
+    engine.register_catalog("mem", mem)
+    mem.create_table("t", {"x": T.BIGINT},
+                     {"x": np.array([10, 20, 30, 40], dtype=np.int64)},
+                     {"x": None})
+    sql = "select x from mem.t order by x"
+    assert engine.execute(sql) == [(10,), (20,), (30,), (40,)]
+    version = mem.table_version("t")
+    # the connector's write, before the statement's device-cache sweep
+    mem.update_rows("t", {"x": np.full(4, 77, dtype=np.int64)}, None,
+                    np.array([False, True, False, False]))
+    assert mem.table_version("t") == version + 1
+    assert engine.execute(sql) == [(10,), (30,), (40,), (77,)]
+
+
 def test_result_cache_toggle_off(serving_server):
     _engine, _mem, _srv, base = serving_server
     c = Client(base, user="u")

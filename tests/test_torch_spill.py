@@ -15,7 +15,7 @@ from presto_tpu import types as RT
 from presto_tpu.connectors.memory import MemoryConnector as RefMemory
 from presto_tpu.memory import MemoryLimitExceeded as RefMemoryLimitExceeded
 from presto_tpu.memory import estimate_plan_memory as ref_estimate
-from presto_tpu.testing.oracle import assert_query
+from presto_tpu_torch.testing.oracle import assert_query
 
 from presto_tpu_torch import Engine as TorchEngine
 from presto_tpu_torch import types as T

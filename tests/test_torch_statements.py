@@ -241,8 +241,11 @@ def test_update_invalidates_device_cache(ref, port):
         assert len(e._dev_cache) == 0  # the UPDATE dropped them
         assert sorted(e.execute("select x from memory.dc")) == \
             [(1,), (3,), (9,)]
-    assert port.resident(host) is not None  # the repeat uploaded anew
-    assert port._dev_cache_bytes == host.nbytes
+    # the UPDATE wrote a new array; the repeat uploaded it anew
+    new = port.catalogs["memory"]._data["dc"]["x"]
+    assert new is not host and port.resident(host) is None
+    assert port.resident(new) is not None
+    assert port._dev_cache_bytes == new.nbytes
 
 
 def test_insert_invalidates_device_cache(ref, port):

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from presto_tpu import Engine as RefEngine
-from presto_tpu.testing.oracle import assert_query
+from presto_tpu_torch.testing.oracle import assert_query
 
 from presto_tpu_torch import Engine as TorchEngine
 from presto_tpu_torch.connectors.tpch import TpchConnector as TorchTpch

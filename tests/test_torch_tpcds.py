@@ -1,20 +1,20 @@
 """The TPC-DS suite through the port: every query of
 tests/test_tpcds.py through presto_tpu_torch.Engine(device="cpu") over
 the port's own TpcdsConnector at scale 0.003, held against the sqlite
-oracle (the reference suite's oracle, with its q36 rewrite).
+oracle (the port's copy of the reference suite's oracle, with its q36
+rewrite).
 
-The oracle loads the REFERENCE's connector over the same (scale, seed):
+The oracle loads the port's connector over the same (scale, seed):
 ``SqliteOracle.load_connector`` decodes dictionaries and unscales
-decimals by the reference's own type classes, so the port's connector
-would load as raw codes and scaled integers. The two connectors make
-identical data (tests/test_torch_tpcds_data.py). The rows against the
-reference engine are in tests/test_torch_tpcds_reference.py."""
+decimals by the port's own type classes. The port's and the reference's
+connectors make identical data (tests/test_torch_tpcds_data.py). The
+rows against the reference engine are in
+tests/test_torch_tpcds_reference.py."""
 
 import pytest
 import torch
 
-from presto_tpu.connectors.tpcds import TpcdsConnector as RefTpcds
-from presto_tpu.testing.oracle import SqliteOracle, assert_query
+from presto_tpu_torch.testing.oracle import SqliteOracle, assert_query
 
 from presto_tpu_torch import Engine as TorchEngine
 from presto_tpu_torch.connectors.tpcds import TpcdsConnector
@@ -46,7 +46,7 @@ def port():
 @pytest.fixture(scope="module")
 def ds_oracle():
     o = SqliteOracle()
-    o.load_connector(RefTpcds(scale=SCALE))
+    o.load_connector(TpcdsConnector(scale=SCALE))
     return o
 
 

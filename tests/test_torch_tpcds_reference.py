@@ -12,7 +12,7 @@ import torch
 
 from presto_tpu import Engine as RefEngine
 from presto_tpu.connectors.tpcds import TpcdsConnector as RefTpcds
-from presto_tpu.testing.oracle import rows_equal
+from presto_tpu_torch.testing.oracle import rows_equal
 
 from presto_tpu_torch import Engine as TorchEngine
 from presto_tpu_torch.connectors.tpcds import TpcdsConnector

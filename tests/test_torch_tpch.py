@@ -14,7 +14,7 @@ oracle over the same data plus two indexes (see ``indexed_oracle``)."""
 import pytest
 import torch
 
-from presto_tpu.testing.oracle import SqliteOracle, assert_query
+from presto_tpu_torch.testing.oracle import SqliteOracle, assert_query
 
 from presto_tpu_torch import Engine as TorchEngine
 from presto_tpu_torch.connectors.tpch import TpchConnector as TorchTpch
@@ -78,13 +78,13 @@ def test_sweep_covers_all_22_queries():
 
 
 @pytest.fixture(scope="module")
-def indexed_oracle(tpch_tiny):
+def indexed_oracle():
     """The sqlite oracle over the same SF0.01 data, with indexes on the
     keys Q19's and Q21's correlated lookups probe: without them sqlite
     scans lineitem once per outer row (minutes for Q21). An index is an
     access path only; the answers are the oracle's."""
     o = SqliteOracle()
-    o.load_connector(tpch_tiny)
+    o.load_connector(TorchTpch(scale=0.01))
     o.conn.execute("create index lineitem_orderkey on lineitem(l_orderkey)")
     o.conn.execute("create index part_partkey on part(p_partkey)")
     return o

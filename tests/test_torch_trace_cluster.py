@@ -13,7 +13,6 @@ presto_tpu's single engine."""
 from __future__ import annotations
 
 import json
-import urllib.error
 import uuid
 import urllib.request
 
@@ -153,16 +152,43 @@ def test_exchange_metrics_count_partitioned_transfer(traced_cluster):
     assert after > before
 
 
-def test_worker_profile_endpoint_names_the_missing_module(traced_cluster):
-    """The reference's on-demand device profiler (obs/devprof) is not in
-    the port yet: the endpoint says so instead of pretending."""
-    _coord, workers, _engine, _want = traced_cluster
-    req = urllib.request.Request(f"{workers[0].uri}/v1/profile/start",
-                                 data=b"{}", method="POST")
-    with pytest.raises(urllib.error.HTTPError) as exc:
-        urllib.request.urlopen(req, timeout=10)
-    assert exc.value.code == 501
-    assert "item 11" in json.loads(exc.value.read())["error"]
+def test_worker_profile_endpoint_captures_a_task(traced_cluster,
+                                                 tmp_path, monkeypatch):
+    """The worker's on-demand profiler (obs/devprof): /v1/profile/start,
+    a fragmented query whose tasks run on the workers, then
+    /v1/profile/stop answer 200; the artifact directory is the one the
+    start named, under PRESTO_TPU_PROFILE_DIR, and holds the capture's
+    Chrome trace. A second start while live reports the live capture;
+    a second stop is a no-op."""
+    import os
+
+    from presto_tpu_torch.obs import devprof
+
+    coord, workers, _engine, want = traced_cluster
+    monkeypatch.setenv(devprof.ENV_PROFILE_DIR, str(tmp_path))
+
+    def post(path):
+        req = urllib.request.Request(f"{workers[0].uri}{path}",
+                                     data=b"{}", method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read())
+
+    status, res = post("/v1/profile/start")
+    assert status == 200 and res["started"] and res["profiling"]
+    assert res["dir"].startswith(str(tmp_path))
+    again = post("/v1/profile/start")
+    assert again == (200, {"profiling": True, "dir": res["dir"],
+                           "started": False})
+    try:
+        _run(coord, want)
+    finally:
+        status, stopped = post("/v1/profile/stop")
+    assert status == 200 and stopped["artifact"] == res["dir"]
+    trace = os.path.join(stopped["artifact"], devprof.TRACE_FILE)
+    with open(trace) as f:
+        assert "traceEvents" in json.load(f)
+    assert post("/v1/profile/stop") == (200, {"profiling": False,
+                                              "artifact": None})
 
 
 def test_server_query_trace_links_worker_spans(traced_cluster):

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from presto_tpu.testing.oracle import assert_query
+from presto_tpu_torch.testing.oracle import assert_query
 
 from presto_tpu_torch import Engine as TorchEngine
 from presto_tpu_torch.connectors.tpch import TpchConnector as TorchTpch
@@ -238,7 +238,7 @@ def test_range_frame_null_keys(port, engine):
     # another table "t" into the session's oracle, in whichever worker
     # runs both files
     from presto_tpu import types as RT
-    from presto_tpu.testing.oracle import SqliteOracle
+    from presto_tpu_torch.testing.oracle import SqliteOracle
     from presto_tpu.connectors.memory import MemoryConnector as RefMemory
     from presto_tpu_torch import types as PT
     from presto_tpu_torch.connectors.memory import MemoryConnector
@@ -253,7 +253,7 @@ def test_range_frame_null_keys(port, engine):
     engine.register_catalog("mem", ref_mem)
     port.register_catalog("mem", port_mem)
     oracle = SqliteOracle()
-    oracle.load_connector(ref_mem)
+    oracle.load_connector(port_mem)
     got = port.execute(NULL_KEY_SQL)
     assert got == engine.execute(NULL_KEY_SQL)
     assert_query(port, oracle, NULL_KEY_SQL)
