@@ -194,9 +194,11 @@ Phases (any failure exits non-zero before the result line):
    to w1 crashing, then with a 4 s straggler under speculation, and
    C5 tests/test_adaptive.py's poisoned-ledger re-plan, all three at
    ``CLUSTER_SMALL_SCALE`` (SF1, cut: at SF10 C2 alone took 61 s a
-   pass), C5 held on rows and on its records
-   (``system.adaptive_decisions``, the annotated plan). Rows equal
-   phase 3's (or one engine's), floats within FLOAT_STATE_RTOL. Then
+   pass), C5 held on rows, on its capacity rungs and on its records
+   (``system.adaptive_decisions``, the annotated plan), and again at
+   the reference test's SF0.01, where the join fits the re-costed
+   capacity and the re-plan pays no rung. Rows
+   equal phase 3's (or one engine's), floats within FLOAT_STATE_RTOL. Then
    one C1 and one C2 case at SF1 with the workers on the card and
    again on the CPU (the plain versions): equal rows. Each case's line
    carries cold and timed seconds beside phase 3's, the mode, stages
@@ -3042,6 +3044,9 @@ CLUSTER_ADAPTIVE_SQL = (
     "where s_nationkey = c_nationkey and c_mktsegment = 'BUILDING' "
     "group by s_nationkey order by s_nationkey")
 CLUSTER_POISON_KEY = ("tpch.customer", "eq(c_mktsegment, ?)")
+# tests/test_adaptive.py's scale, C5's second run: there the expanding
+# join fits the capacity that cost/adapt.revise_join re-costs
+CLUSTER_ADAPTIVE_REF_SCALE = 0.01
 CLUSTER_JOIN_KERNELS = ("build_table", "probe_table", "multijoin_walk",
                         "filter_compact")
 
@@ -3097,18 +3102,22 @@ def cluster_run(coord, sql: str, **props) -> dict:
     coordinator), launches per kernel, the counts set to 0 just before
     ``coord.execute`` and read just after (the workers' tasks and the
     coordinator's own stage), the kernels the worker tasks' operators
-    noted, those the coordinator's engine noted, the process's peak
-    device GB and the query's system.tasks row count."""
+    noted, those the coordinator's engine noted, the capacity rungs the
+    process paid (``presto_tpu_capacity_overflow_retries_total``), the
+    process's peak device GB and the query's system.tasks row count."""
     import torch
 
     from presto_tpu_torch.exec import hostsync as HS
     from presto_tpu_torch.kernels import build as B
     from presto_tpu_torch.obs import qstats as QS
+    from presto_tpu_torch.obs.metrics import REGISTRY
+    rungs = REGISTRY.counter("presto_tpu_capacity_overflow_retries_total")
     engine = coord.engine
     before = {k: engine.session.get(k) for k in props}
     for k, v in props.items():
         engine.session.set(k, v)
     syncs0, up0 = HS.SYNCS.total(), HS.UPLOADS.total()
+    rungs0 = rungs.total()
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3123,6 +3132,7 @@ def cluster_run(coord, sql: str, **props) -> dict:
             engine.session.set(k, v)
     syncs = HS.SYNCS.total() - syncs0
     uploads = HS.UPLOADS.total() - up0
+    paid = rungs.total() - rungs0
     peak = torch.cuda.max_memory_allocated() / 1e9
     coordinator_kernels = sorted({
         tag for tags in engine.last_kernel_notes.values() for tag in tags})
@@ -3147,7 +3157,7 @@ def cluster_run(coord, sql: str, **props) -> dict:
             "exchange_pages": sum(t["exchangePages"] for t in tasks),
             "exchange_bytes_by_codec": by_codec,
             "pages_emitted": sum(t["pagesEmitted"] for t in tasks),
-            "host_syncs": syncs, "uploads": uploads,
+            "host_syncs": syncs, "uploads": uploads, "rungs": paid,
             "launches": launches,
             "worker_kernels": sorted({
                 k for t in tasks for op in t["operators"]
@@ -3319,8 +3329,11 @@ def cluster_cases(conn, small_conn, local_rows: dict,
     finally:
         shutil.rmtree(spool, ignore_errors=True)
 
-    # C5: the poisoned-ledger re-plan, on rows and records
+    # C5: the poisoned-ledger re-plan, on rows, rungs and records, at
+    # the phase's small scale and at the reference test's
     out["C5"] = adaptive_case(small_conn, run)
+    out["C5 reference scale"] = adaptive_case(
+        tpch_data(CLUSTER_ADAPTIVE_REF_SCALE, small_conn.gen.seed), run)
     out["notes"] = sorted(notes)
     out["coordinator_notes"] = sorted(coord_notes)
     out["launches"] = launched
@@ -3335,8 +3348,12 @@ def adaptive_case(conn, run) -> list:
     customer side; the adaptive run re-plans the rest after that stage
     (the join flipped to partitioned, its capacity re-bucketed). Both
     equal one engine's rows; the flip is in ``last_distribution``, the
-    annotated plan and ``system.adaptive_decisions``. Returns the
-    adaptive run's rows."""
+    annotated plan and ``system.adaptive_decisions``. The static run
+    pays capacity rungs. Where the join's rows fit revise_join's bound,
+    8x its larger input, the adaptive run pays none, as the reference's
+    test asserts; where they do not (SF1: 1.2e7 rows against 8x 30,000
+    customers), no more than the static run (the reference on the CPU
+    pays 12 and 9 there). Returns the adaptive run's rows."""
     from presto_tpu_torch.obs import qstats as QS
 
     # between the poisoned estimate of the filtered customers (1/1500
@@ -3354,6 +3371,14 @@ def adaptive_case(conn, run) -> list:
     with cluster(conn, retry_policy="TASK",
                  broadcast_join_threshold_rows=threshold) as coord:
         want = coord.engine.execute(CLUSTER_ADAPTIVE_SQL)
+        # the join's rows and its inputs' (the filtered customers, the
+        # suppliers), from the run: does revise_join's bound hold it?
+        join_rows = sum(int(c) for _k, c in want)
+        inputs = max(int(conn.table("supplier").nrows), int(
+            coord.engine.execute(
+                "select count(*) from customer "
+                "where c_mktsegment = 'BUILDING'")[0][0]))
+        fits = join_rows <= 8 * inputs
         try:
             poison()
             static = run(coord, CLUSTER_ADAPTIVE_SQL,
@@ -3371,19 +3396,27 @@ def adaptive_case(conn, run) -> list:
             "where kind = 'join-distribution'")
         if not (rows_close(static["rows"], want)
                 and adapt["rows"] == static["rows"]
+                and 0 < static["rungs"]
+                and adapt["rungs"] <= (0 if fits else static["rungs"])
                 and adapt["distribution"].get("replans", 0) >= 1
                 and "join-capacity" in kinds
                 and "replanned: broadcast->partitioned"
                 in (coord.last_adaptive_explain or "")
                 and ("join-distribution", "broadcast", "partitioned")
                 in [tuple(r) for r in audit]):
-            raise AssertionError(f"C5: {adapt['distribution']}, {audit}")
+            raise AssertionError(
+                f"C5: rungs {static['rungs']} static, {adapt['rungs']} "
+                f"adaptive ({join_rows} join rows, 8x {inputs} inputs); "
+                f"{adapt['distribution']}, {audit}")
         reduced = (f"SF{conn.scale:g}: the expanding join holds 1.2e9 "
                    "rows at SF10")
         _cluster_line("C5 static (poisoned ledger)", static,
-                      reduced=reduced, threshold=threshold)
+                      reduced=reduced, threshold=threshold,
+                      scale=conn.scale)
         _cluster_line("C5 adaptive re-plan", adapt, reduced=reduced,
-                      threshold=threshold, decisions=sorted(kinds))
+                      threshold=threshold, decisions=sorted(kinds),
+                      scale=conn.scale, join_rows=join_rows,
+                      fits_revise_join_bound=fits)
     return adapt["rows"]
 
 

@@ -82,6 +82,23 @@ def _has_partitioned_carrier(node: N.PlanNode,
                for s in node.sources())
 
 
+def _grounded(node: N.PlanNode, stats: StatsCalculator) -> bool:
+    """Is ``node``'s row estimate bounded by rows that exist? So it is
+    when no operator under it multiplies rows (a join that is not
+    unique, a cross join, an unnest) and every leaf is a relation of
+    known size: a catalog table, inline values, or a carrier whose rows
+    were observed. The estimate of a chain of expanding joins compounds
+    (2^30-2^44 rows for TPC-DS q57, q72 and q95 at scale 10); a
+    grounded one is at most a leaf's rows or their sum."""
+    if (isinstance(node, N.Join) and not node.build_unique) \
+            or isinstance(node, (N.CrossJoin, N.Unnest)):
+        return False
+    srcs = node.sources()
+    if not srcs:
+        return stats.stats(node).confident
+    return all(_grounded(s, stats) for s in srcs)
+
+
 def reannotate(plan: N.PlanNode, engine, stats: OverlayStats,
                exchange_sources: dict | None = None,
                note=None) -> N.PlanNode:
@@ -154,11 +171,18 @@ def reannotate(plan: N.PlanNode, engine, stats: OverlayStats,
                     salt = (d.salt_factor if d.salt_factor > 1
                             else None)
         out_cap = node.output_capacity
+        observed = node.output_observed
         if out_rows is not None:
             cap = min(2 * max(int(out_rows), int(p_est.row_count)),
                       8 * max(int(p_est.row_count),
                               int(b_est.row_count)))
             out_cap = next_pow2(max(cap, 2))
+            # the interpreter takes the capacity as it is only where
+            # the bound above rests on rows that exist: over a chain of
+            # expanding joins it stays a static hint, cut at the first
+            # rung
+            observed = _grounded(node.left, stats) and \
+                _grounded(node.right, stats)
         tell("join-capacity", node, old_rows or -1, new_rows,
              str(node.capacity), str(next_pow2(2 * new_rows)))
         if new_dist != old_dist:
@@ -167,8 +191,8 @@ def reannotate(plan: N.PlanNode, engine, stats: OverlayStats,
         return dataclasses.replace(
             node, build_rows=new_rows,
             capacity=next_pow2(2 * max(int(b_est.row_count), 1)),
-            output_capacity=out_cap, distribution=new_dist,
-            hot_keys=hot_keys, salt_factor=salt)
+            output_capacity=out_cap, output_observed=observed,
+            distribution=new_dist, hot_keys=hot_keys, salt_factor=salt)
 
     def revise_multijoin(node: N.MultiJoin) -> N.MultiJoin:
         rows_list = list(node.build_rows)

@@ -639,10 +639,10 @@ def _table_to_host(table: Table, engine=None):
     if writers > 1 and len(items) > 1:
         from concurrent.futures import ThreadPoolExecutor
 
-        # convert() is host numpy only: no span, checkpoint or session
-        # read happens on the writer threads
+        # context-free by design: convert() is host numpy only: no
+        # span, checkpoint or session read happens on the writer threads
         with ThreadPoolExecutor(max_workers=writers) as pool:
-            results = list(pool.map(convert, items))
+            results = list(pool.map(convert, items))  # lint: disable=handoff
     else:
         writers = 1
         results = [convert(i) for i in items]

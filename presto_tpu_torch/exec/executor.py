@@ -83,6 +83,15 @@ from presto_tpu_torch.ops.hash import HashChainOverflow, grow_overflowed
 from presto_tpu_torch.ops.sizes import next_pow2
 from presto_tpu_torch.plan import nodes as N
 
+# dispatch-exhaustiveness opt-outs (lint/dispatch.py): node types the
+# PlanInterpreter deliberately has no _r_ handler for
+DISPATCH_EXEMPT = {
+    "MatchRecognize": "execute_plan splits the plan at the "
+    "MatchRecognize node before interpretation (host-side NFA, see "
+    "_execute_with_match_recognize); a node reaching the interpreter "
+    "fails loudly in run()",
+}
+
 RETRY_GROWTH = 4  # overshoot on overflow to bound re-runs at ~1
 MAX_ATTEMPTS = 6
 # the first group capacity of an aggregate with a sketch (about 9 MB of
@@ -351,13 +360,17 @@ class PlanInterpreter:
                   override: int | None = None,
                   most: int | None = None) -> int:
         """Host retry override > session override > planner hint >
-        default, normalized to pow2. A planner hint is cut to ``most``:
-        the largest capacity the node's inputs can need (a hash or group
-        table twice its input rows), or for an expanding join's output
-        its first rung, twice its inputs' rows. The planner's estimates
-        compound over chained joins (output hints of 2^30 to 2^44 rows
-        and a 2^42-slot table for TPC-DS q57, q72 and q95 at scale 10);
-        a capacity that proves too small grows on the retry ladder."""
+        default, normalized to pow2. A static planner hint is cut to
+        ``most``: the largest capacity the node's inputs can need (a
+        hash or group table twice its input rows), or for an expanding
+        join's output its first rung, twice its inputs' rows. The
+        planner's estimates compound over chained joins (output hints
+        of 2^30 to 2^44 rows and a 2^42-slot table for TPC-DS q57, q72
+        and q95 at scale 10); a capacity that proves too small grows on
+        the retry ladder. An output capacity that cost/adapt.revise_join
+        re-costed over inputs of known size (``Join.output_observed``)
+        is taken as it is: its bound, 8x the larger input, rests on
+        rows that exist."""
         cap = self.capacities.get(self._node_key(node, kind))
         if cap is None:
             if override:
@@ -366,7 +379,9 @@ class PlanInterpreter:
                 hint = getattr(node, "capacity" if kind == "table"
                                else "output_capacity", None)
                 cap = next_pow2(hint) if hint else default
-                if most is not None:
+                observed = kind == "out" and getattr(
+                    node, "output_observed", False)
+                if most is not None and not observed:
                     cap = min(cap, most)
             else:
                 cap = default
@@ -789,7 +804,9 @@ def reserve(engine, tag: str, tensors) -> None:
     kill reaches."""
     from presto_tpu_torch.exec import cancel as C
     block_s, kill_s = _pool_wait(engine)
-    engine.memory_pool.reserve(
+    # freed by the CALLER's finally: every caller reserves inside
+    # ``with pool_tag(engine) as tag``, whose finally frees the tag
+    engine.memory_pool.reserve(  # lint: disable=pool-discipline
         tag, sum(int(t.nbytes) for t in tensors if t is not None),
         block_s=block_s, kill_after_s=kill_s, owner=C.current())
 

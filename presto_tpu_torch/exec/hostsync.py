@@ -12,6 +12,13 @@ Every host->device copy of host data on the execute path goes through
 ``upload``: it pins the array and copies it without blocking, so the
 host does not wait for the stream to drain (a copy from pageable
 memory does), and counts it against its call site in :data:`UPLOADS`.
+
+The ``device-sync`` lint (lint/devicesync.py) enforces the boundary
+statically: any host-blocking sync on the execute path OUTSIDE this
+module is a finding. Deliberate exceptions are declared in
+``DEVICE_SYNC_EXEMPT`` below (id -> justification) and carry the same
+staleness discipline as ``exec/progcache.TRACE_KEY_EXEMPT``: an entry
+that matches no finding is itself a finding.
 """
 
 from __future__ import annotations
@@ -42,6 +49,16 @@ class SyncCounter:
 
 SYNCS = SyncCounter()
 UPLOADS = SyncCounter()  # host->device copies, none of them a sync
+
+# Deliberate syncs OUTSIDE the boundary, id -> justification. Id form:
+# "<relpath>:<dotted.unit.path>:<kind>" where kind names the sync
+# (synchronize | asarray | item | tolist | cpu | numpy | to_cpu | int |
+# float | bool). Stale entries (matching no finding) are findings. The
+# reference's entries (its EXPLAIN ANALYZE measurement syncs, its cost
+# harvest's floats) have no counterpart: the port's EXPLAIN ANALYZE
+# times each program up to its counted fetch, and its cost counts
+# (obs/devprof) are host numbers.
+DEVICE_SYNC_EXEMPT: dict[str, str] = {}
 
 # the upload memo of a shared_uploads() scope, or None
 _SHARED: contextvars.ContextVar[dict | None] = contextvars.ContextVar(

@@ -65,6 +65,32 @@ TRACE_RELEVANT_PROPERTIES = (
     "skew_hot_key_threshold",
 )
 
+# Ambient reads the tracekey provenance analysis (lint/tracekey.py)
+# sees inside a program's pass that are DELIBERATELY not part of the
+# key, each with the soundness argument. Ids are the rule's finding ids
+# (``session:<prop>``, ``env:<NAME>``, ``global:<relpath>:<NAME>``,
+# ``key:<prop>``); an entry that stops matching a finding becomes a
+# ``stale-exemption`` finding itself, so this registry cannot rot into
+# a blanket waiver.
+TRACE_KEY_EXEMPT = {
+    "global:presto_tpu_torch/expr/compile.py:_DATE_FORMAT_CACHE":
+        "pure memoization keyed by the date_format literal: the LUT "
+        "is a content-only function of the format string, which is "
+        "structural (never hoisted by templates/analysis.py) and so "
+        "participates in the plan fingerprint",
+    "env:CUDA_HOME":
+        "kernels/build.nvcc_path picks the compiler that builds the "
+        "kernels' shared library, only when no library for the "
+        "current sources and NVCC_FLAGS exists yet (its file name is "
+        "their digest); every nvcc builds the same sm_90a kernels "
+        "from them, and a cache entry holds capacities, a layout and "
+        "kernel notes, never code",
+    "env:CUDA_PATH":
+        "read beside CUDA_HOME by kernels/build.nvcc_path, as a "
+        "fallback name for the same toolkit directory: the same "
+        "argument holds",
+}
+
 DEFAULT_MAX_ENTRIES = 64
 
 

@@ -139,6 +139,14 @@ class LaunchCounts:
 
 LAUNCHES = LaunchCounts()
 
+# lint/kernels.py kernel-parity rule: *_cuda functions outside the
+# dispatch table must justify themselves
+KERNEL_DISPATCH_EXEMPT = {
+    "require_cuda": "the argument check every wrapper makes before it "
+                    "launches (contiguous CUDA tensors on one device); "
+                    "it launches nothing",
+}
+
 
 def nvcc_path() -> str:
     """nvcc from CUDA_HOME, /usr/local/cuda or PATH."""

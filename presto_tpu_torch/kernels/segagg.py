@@ -30,6 +30,13 @@ from presto_tpu_torch.ops import segred
 _DTYPE_CODES = {torch.bool: 0, torch.uint8: 1, torch.int8: 2,
                 torch.int16: 3, torch.int32: 4, torch.int64: 5}
 
+# lint/kernels.py kernel-parity rule: *_cuda functions outside the
+# dispatch table must justify themselves
+KERNEL_DISPATCH_EXEMPT = {
+    "_segment_cmp_cuda": "shared body of segment_max_cuda/"
+                         "segment_min_cuda, both registered",
+}
+
 
 def _out_dtype(data: torch.Tensor) -> torch.dtype:
     return torch.int64 if data.dtype == torch.bool else data.dtype

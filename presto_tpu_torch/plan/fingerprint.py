@@ -22,6 +22,8 @@ import hashlib
 
 import numpy as np
 
+from presto_tpu_torch.plan.nodes import omitted
+
 # This dispatch site is total over plan-node types by construction:
 # _tok walks dataclasses.fields() generically, so a new PlanNode
 # subclass fingerprints without registration. The lint's
@@ -41,6 +43,8 @@ def _tok(x, emit) -> None:
         emit(b"(")
         emit(type(x).__name__.encode())
         for f in dataclasses.fields(x):
+            if omitted(x, f):
+                continue
             emit(f.name.encode())
             _tok(getattr(x, f.name), emit)
         emit(b")")

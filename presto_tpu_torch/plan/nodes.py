@@ -16,6 +16,18 @@ from presto_tpu_torch import types as T
 from presto_tpu_torch.expr import ir
 from presto_tpu_torch.expr.aggmeta import AggCall
 
+# field metadata key: the wire dict (plan/serde.py) and the plan
+# fingerprint (plan/fingerprint.py) leave such a field out while it
+# holds its default
+OMIT_DEFAULT = "omit_default"
+
+
+def omitted(node, f: dataclasses.Field) -> bool:
+    """Is field ``f`` of ``node`` marked OMIT_DEFAULT and at its
+    default?"""
+    return bool(f.metadata.get(OMIT_DEFAULT)) and \
+        getattr(node, f.name) == f.default
+
 
 @dataclasses.dataclass
 class PlanNode:
@@ -194,6 +206,14 @@ class Join(PlanNode):
     # plan/dense.py: build rows scatter into a (hi-lo+1)-slot
     # direct-address table; probes become one gather (no sort, no hash)
     dense_key: tuple[int, int, int] | None = None
+    # output_capacity was re-costed by cost/adapt.revise_join over
+    # inputs of known size (observed carriers, tables, no expanding
+    # join below): the interpreter takes it as it is, where it cuts a
+    # static hint at the first rung. Left out of the wire dict and the
+    # fingerprint while False (OMIT_DEFAULT), so a static plan's dict
+    # and fingerprint are the reference's
+    output_observed: bool = dataclasses.field(
+        default=False, repr=False, metadata={OMIT_DEFAULT: True})
 
     def sources(self):
         return [self.left, self.right]

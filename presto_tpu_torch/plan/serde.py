@@ -74,7 +74,8 @@ def to_dict(obj):
             raise TypeError(f"unregistered plan class: {name}")
         return {"$c": name,
                 "fields": {f.name: to_dict(getattr(obj, f.name))
-                           for f in dataclasses.fields(obj)}}
+                           for f in dataclasses.fields(obj)
+                           if not N.omitted(obj, f)}}
     raise TypeError(f"cannot serialize {type(obj).__name__}")
 
 

@@ -61,7 +61,14 @@ def test_no_module_of_the_port_imports_jax_or_presto_tpu():
                    "connectors/parquet.py", "obs/devprof.py",
                    "obs/procstats.py", "testing/__init__.py",
                    "testing/oracle.py", "testing/verifier.py",
-                   "sql/sqlite_dialect.py"):
+                   "sql/sqlite_dialect.py",
+                   # the lint suite: stdlib ast only
+                   *(f"lint/{m}.py" for m in (
+                       "__init__", "__main__", "core", "sarif",
+                       "tracer", "locks", "races", "handoff",
+                       "timeouts", "spans", "pools", "metrics",
+                       "dispatch", "kernels", "tracekey", "devicesync",
+                       "retrace"))):
         assert PORT / module in files, module
     bad = [f"{f.relative_to(REPO)}:{line}: {mod}"
            for f in files for line, mod in _imports(f) if _forbidden(mod)]
@@ -90,6 +97,31 @@ print(json.dumps({"rows": len(rows), "bad": bad}))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"rows": 1, "bad": []}
+
+
+def test_lint_in_a_fresh_process_exits_0_loading_neither_jax_nor_presto_tpu():
+    """``python -m presto_tpu_torch.lint presto_tpu_torch``: the port
+    lints clean, and the lint (stdlib ast, plus the port's own metric
+    validator) loads neither jax nor the reference package."""
+    code = """
+import json, runpy, sys
+sys.argv = ["presto_tpu_torch.lint", "presto_tpu_torch"]
+try:
+    runpy.run_module("presto_tpu_torch.lint", run_name="__main__",
+                     alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "presto_tpu"))
+print(json.dumps({"rc": rc, "bad": bad}))
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"rc": 0, "bad": []}, out.stdout
 
 
 def test_statements_in_a_fresh_process_load_neither_jax_nor_presto_tpu():
