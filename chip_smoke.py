@@ -71,7 +71,17 @@ Phases (any failure exits non-zero before the result line):
    last on the card and must run out of memory; q72's line carries the
    rows of its expanding join, counted with numpy. The queries of
    ``TPCDS_PLAIN_QUERIES`` (cut from all 101) run again with
-   kernel_backend=torch: rows identical to the card's.
+   kernel_backend=torch: rows identical to the card's. The phase's
+   engine writes the program cache's persistent store in a fresh
+   directory (the only phase before 14 with the store on; on an empty
+   store it runs as without it); last, that engine is let go and a new
+   one over the same tables runs the first pass of ``STORE_QUERIES``
+   (the seven that climbed rungs cold) with the process's costs
+   forgotten (``devprof.forget_costs``): each must climb no rung, hit
+   the store (``presto_tpu_program_cache_hits_total{tier="disk"}``),
+   count no cost (``presto_tpu_cost_harvests_total``) and return phase
+   4's rows; its seconds are logged beside the cold pass's ``cold_s``
+   and its launches on a line of their own, outside the summary.
 
 5. Functions: the TPC-H tables of phase 3 (made again when it did not
    run) through the queries of ``FUNCTION_QUERIES`` on both backends
@@ -266,16 +276,25 @@ Phases (any failure exits non-zero before the result line):
    ``OBSERVE_RUNG_SQL`` with its group-by table hinted too small
    climbs rungs, each counted once in
    ``presto_tpu_capacity_overflow_retries_total``.
+14. Store: two fresh processes of this script (``--store-child``), one
+   after the other, on one new store directory
+   (``PRESTO_TPU_PROGRAM_CACHE_DIR``): each makes TPC-DS at
+   ``STORE_CHILD_SCALE``, uploads the columns of
+   ``STORE_CHILD_QUERIES`` (timed apart) and runs each query's first
+   pass through ``Engine()`` with ``STORE_CHILD_PROPS``. The cold child
+   climbs at least ``STORE_MIN_RUNGS`` rungs; the warm one climbs none,
+   counts no cost, hits the store for every query and returns the cold
+   one's rows and program costs. Its launches are logged apart.
 
 The query lines of phases 3-6 carry the first (cold) pass's time and
 capacity rungs (``cold_s``, ``cold_rungs``) beside the timed pass's:
 the timed pass starts every program from the capacities the first
 remembered (``from_memory``).
 
-    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions,arrays,session,statements,distributed,cluster,serving,parquet,observe
+    python3 chip_smoke.py --phases kernels,tpch,tpcds,functions,arrays,session,statements,distributed,cluster,serving,parquet,observe,store
 
 (the default) runs the named phases only (a shorter call while a phase
-is worked on; the summary line needs all twelve).
+is worked on; the summary line needs all of them).
 
 The queries are the repository's TPC-H texts (tests/tpch_queries.py),
 TPC-DS texts (tests/test_tpcds.py), ``FUNCTION_QUERIES`` and
@@ -298,9 +317,12 @@ import dataclasses
 import decimal
 import gc
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -381,7 +403,7 @@ TPCDS_SCALE = 10.0
 TPCDS_PLAIN_QUERIES = ("q96", "q42", "q07", "q23", "q58", "q55")
 PHASES = ("kernels", "tpch", "tpcds", "functions", "arrays", "session",
           "statements", "distributed", "cluster", "serving", "parquet",
-          "observe")
+          "observe", "store")
 TPCDS_SEED = 20030527  # the connector's default, as tests/test_tpcds.py
 
 
@@ -1317,7 +1339,11 @@ def tpcds_phase(scale: float, seed: int) -> dict:
         f"{time.perf_counter() - t0:.1f} s, store_sales "
         f"{conn.table('store_sales').nrows} rows, "
         f"{sum(conn.table(n).nrows for n in conn.table_names())} in all")
-    engine = Engine()
+    # the program cache's persistent store, in a fresh directory: the
+    # first engine finds it empty and runs as without it
+    store_dir = tempfile.mkdtemp(prefix="presto_tpu_store_")
+    with program_store(store_dir):
+        engine = Engine()
     engine.register_catalog("tpcds", conn)
     engine.session.catalog = "tpcds"
     fits = {q: sql for q, sql in queries.items()
@@ -1369,6 +1395,17 @@ def tpcds_phase(scale: float, seed: int) -> dict:
         require_over_memory(engine, q, queries[q], blocker,
                             {"expanding_join_rows": q72_expansion(conn)}
                             if q == "q72" else {})
+    # the engine and its resident columns go before the store's case
+    # makes another
+    import torch
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        store_warm_case(conn, queries, rows, cold_secs, cold_notes,
+                        store_dir)
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
     return launches
 
 
@@ -4577,12 +4614,229 @@ def observe_phase(conn, seed: int, q05_rows=None) -> dict:
     return launches
 
 
+# -- the program cache's persistent store: phase 4's last case, phase 14 ----
+
+# the TPC-DS queries whose first pass climbed capacity rungs at scale 10
+# on the card (q58 10, q02 4, q83 4, q23 2, q78 2, q04 1, q11 1)
+STORE_QUERIES = ("q02", "q04", "q11", "q23", "q58", "q78", "q83")
+# phase 14's children: TPC-DS at scale 1 with the group-by table hinted
+# small, where q02's three aggregates climb rungs (q58 and q83 do not at
+# this scale)
+STORE_CHILD_SCALE = 1.0
+STORE_CHILD_QUERIES = ("q58", "q02", "q83")
+STORE_CHILD_PROPS = {"groupby_table_size": 64}
+STORE_MIN_RUNGS = 3
+STORE_CHILD_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def program_store(path: str):
+    """``PRESTO_TPU_PROGRAM_CACHE_DIR`` set to ``path`` while engines are
+    made (an engine's program cache reads it when made), and restored
+    after: every other phase keeps the store off."""
+    from presto_tpu_torch.exec import progcache as PC
+    saved = os.environ.get(PC.ENV_DIR)
+    os.environ[PC.ENV_DIR] = path
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(PC.ENV_DIR, None)
+        else:
+            os.environ[PC.ENV_DIR] = saved
+
+
+def jsonable_rows(rows) -> list:
+    """Rows as JSON values: floats stay floats (``rows_close`` holds
+    them within FLOAT_STATE_RTOL), integers stay integers, anything
+    else becomes its text."""
+    def one(v):
+        if v is None or isinstance(v, (bool, str)):
+            return v
+        if isinstance(v, (float, np.floating)):
+            return float(v)
+        if isinstance(v, (int, np.integer)):
+            return int(v)
+        return str(v)
+    return [[one(v) for v in r] for r in rows]
+
+
+def first_passes(engine, queries: dict[str, str]) -> dict:
+    """Each query's first pass on ``engine`` (kernel_backend=cuda), one
+    at a time: rows, seconds, rungs, uploads, the program costs, and
+    the store's counters around it (disk hits, load errors, cost
+    harvests)."""
+    from presto_tpu_torch.obs.metrics import REGISTRY
+    hits = REGISTRY.counter("presto_tpu_program_cache_hits_total")
+    errors = REGISTRY.counter("presto_tpu_program_cache_disk_errors_total")
+    harvests = REGISTRY.counter("presto_tpu_cost_harvests_total")
+    out = {}
+    for q, sql in queries.items():
+        h0, e0, c0 = (hits.value(tier="disk"), errors.value(op="load"),
+                      harvests.total())
+        rows, secs, notes = run_queries(engine, {q: sql}, "cuda")
+        out[q] = {"rows": rows[q], "s": secs[q],
+                  "rungs": notes[q]["rungs"],
+                  "uploads": notes[q]["uploads"],
+                  "costs": list(engine.last_run.costs),
+                  "disk_hits": hits.value(tier="disk") - h0,
+                  "load_errors": errors.value(op="load") - e0,
+                  "harvests": harvests.total() - c0}
+    return out
+
+
+def launches_since(before: dict) -> dict:
+    from presto_tpu_torch.kernels import build as B
+    return {k: v - before.get(k, 0) for k, v in B.LAUNCHES.snapshot().items()}
+
+
+def store_warm_case(conn, queries: dict[str, str], rows: dict,
+                    cold_secs: dict, cold_notes: dict,
+                    store_dir: str) -> None:
+    """Phase 4's last case: a new engine over phase 4's tables, on the
+    store phase 4's engine wrote, runs the first pass of
+    ``STORE_QUERIES`` with the process's costs forgotten: no rung, a
+    disk hit and no cost counted for each, rows equal to phase 4's.
+    Its launches are logged on their own line, outside the summary."""
+    from presto_tpu_torch import Engine
+    from presto_tpu_torch.kernels import build as B
+    from presto_tpu_torch.obs import devprof
+
+    with program_store(store_dir):
+        engine = Engine()
+    engine.register_catalog("tpcds", conn)
+    engine.session.catalog = "tpcds"
+    devprof.forget_costs()
+    before = B.LAUNCHES.snapshot()
+    got = first_passes(engine, {q: queries[q] for q in STORE_QUERIES})
+    faults = []
+    for q, g in got.items():
+        log("tpcds store " + json.dumps({
+            "query": q, "s": g["s"], "cold_s": cold_secs[q],
+            "cold_rungs": cold_notes[q]["rungs"], "rungs": g["rungs"],
+            "disk_hits": g["disk_hits"], "load_errors": g["load_errors"],
+            "harvests": g["harvests"], "uploads": g["uploads"]}))
+        if g["rungs"] or not g["disk_hits"] or g["harvests"] \
+                or g["load_errors"]:
+            faults.append(f"{q}: {g['rungs']} rungs, {g['disk_hits']} disk "
+                          f"hits, {g['harvests']} harvests, "
+                          f"{g['load_errors']} load errors")
+        if not rows_close(g["rows"], rows[q]):
+            faults.append(f"{q}: rows differ from phase 4's")
+    log("tpcds store launches " + json.dumps(launches_since(before)))
+    log(f"tpcds store first pass: {sum(g['s'] for g in got.values()):.2f} s "
+        f"against {sum(cold_secs[q] for q in got):.2f} s cold")
+    if faults:
+        raise AssertionError("store faults:\n" + "\n".join(faults))
+
+
+def store_child(scale: float, seed: int) -> dict:
+    """Phase 14's child process: TPC-DS at ``scale``, one
+    ``Engine()`` on the store its environment names, the columns of
+    ``STORE_CHILD_QUERIES`` uploaded (timed apart: a fresh process always
+    pays it), then each query's first pass (``first_passes``)."""
+    import torch
+
+    from presto_tpu_torch import Engine
+    from presto_tpu_torch.connectors.tpcds import TpcdsConnector
+    from presto_tpu_torch.exec.executor import collect_scans
+    from presto_tpu_torch.kernels import build as B
+
+    queries = {q: tpcds_queries()[q] for q in STORE_CHILD_QUERIES}
+    t = time.perf_counter()
+    conn = TpcdsConnector(scale=scale, seed=seed)
+    for name in conn.table_names():
+        conn.table(name)
+    datagen_s = time.perf_counter() - t
+    engine = Engine()
+    engine.register_catalog("tpcds", conn)
+    engine.session.catalog = "tpcds"
+    for prop, value in STORE_CHILD_PROPS.items():
+        engine.session.set(prop, value)
+    t = time.perf_counter()
+    for sql in queries.values():
+        collect_scans(engine.plan_sql(sql)[0], engine)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t
+    before = B.LAUNCHES.snapshot()
+    got = first_passes(engine, queries)
+    for g in got.values():
+        g["rows"] = jsonable_rows(g["rows"])
+    return {"datagen_s": datagen_s, "upload_s": upload_s,
+            "launches": launches_since(before), "queries": got}
+
+
+def spawn_store_child(store_dir: str) -> dict:
+    """``store_child`` in a fresh process of this script on the card,
+    with ``PRESTO_TPU_PROGRAM_CACHE_DIR`` set to ``store_dir``; killed
+    past STORE_CHILD_TIMEOUT_S."""
+    from presto_tpu_torch.exec import progcache as PC
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--store-child"],
+        env={**os.environ, PC.ENV_DIR: store_dir}, capture_output=True,
+        text=True, timeout=STORE_CHILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"store child exited {proc.returncode}:\n"
+                             + proc.stderr[-4000:])
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["wall_s"] = time.perf_counter() - t
+    return out
+
+
+def store_phase(spawn=spawn_store_child) -> dict:
+    """Phase 14: two fresh children, one after the other, sharing one
+    store. The cold one climbs at least STORE_MIN_RUNGS rungs; the warm
+    one climbs none, counts no cost, hits the store for every query and
+    returns the cold one's rows and costs. Returns both children."""
+    store_dir = tempfile.mkdtemp(prefix="presto_tpu_store_")
+    try:
+        cold = spawn(store_dir)
+        warm = spawn(store_dir)
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    faults = []
+    for q in STORE_CHILD_QUERIES:
+        c, w = cold["queries"][q], warm["queries"][q]
+        log("store " + json.dumps({
+            "query": q, "cold_s": c["s"], "warm_s": w["s"],
+            "cold_rungs": c["rungs"], "warm_rungs": w["rungs"],
+            "cold_harvests": c["harvests"], "warm_harvests": w["harvests"],
+            "warm_disk_hits": w["disk_hits"],
+            "warm_load_errors": w["load_errors"], "rows": len(c["rows"])}))
+        if w["rungs"] or w["harvests"] or not w["disk_hits"] \
+                or w["load_errors"]:
+            faults.append(f"{q}: the warm child climbed {w['rungs']} rungs, "
+                          f"counted {w['harvests']} costs, hit the store "
+                          f"{w['disk_hits']} times")
+        if not rows_close(w["rows"], c["rows"]):
+            faults.append(f"{q}: the children's rows differ")
+        if w["costs"] != c["costs"]:
+            faults.append(f"{q}: the children's program costs differ")
+    cold_rungs = sum(c["rungs"] for c in cold["queries"].values())
+    if cold_rungs < STORE_MIN_RUNGS:
+        faults.append(f"the cold child climbed {cold_rungs} rungs, fewer "
+                      f"than {STORE_MIN_RUNGS}")
+    for name, child in (("cold", cold), ("warm", warm)):
+        log(f"store {name} child " + json.dumps({
+            "wall_s": child.get("wall_s"), "datagen_s": child["datagen_s"],
+            "upload_s": child["upload_s"],
+            "first_pass_s": sum(g["s"] for g in child["queries"].values()),
+            "launches": child["launches"]}))
+    if faults:
+        raise AssertionError("store faults:\n" + "\n".join(faults))
+    return {"cold": cold, "warm": warm}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=10.0)
     ap.add_argument("--seed", type=int, default=19920101)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--store-child", action="store_true",
+                    help="run phase 14's child (store_child) and print "
+                    "its JSON; the store is PRESTO_TPU_PROGRAM_CACHE_DIR")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not phases <= set(PHASES):
@@ -4593,6 +4847,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if args.store_child:
+        print(json.dumps(store_child(STORE_CHILD_SCALE, TPCDS_SEED)),
+              flush=True)
+        return 0
     from presto_tpu_torch.kernels import build as B
 
     card = card_line()
@@ -4706,6 +4964,12 @@ def main() -> int:
         observe = observe_phase(conn, args.seed, tpch_rows.get("q05"))
         launches = add(observe)
         log(f"observe phase: {time.perf_counter() - t:.1f} s")
+    if "store" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        store_phase()
+        log(f"store phase: {time.perf_counter() - t:.1f} s")
     if phases != set(PHASES):
         log(f"phases {sorted(phases)} passed; no summary without all "
             f"{len(PHASES)}")

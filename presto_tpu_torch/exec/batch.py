@@ -37,6 +37,7 @@ serially.
 from __future__ import annotations
 
 import contextlib
+import time
 
 import numpy as np
 import torch
@@ -138,7 +139,12 @@ def _run_batched(engine, templates: list, plan, scans) -> list[Table]:
     kp = 1 << (k - 1).bit_length()
     base_key = (EX._cache_key(engine, plan, scans, backend)
                 + (("batch", kp),))
-    capacities = dict(engine._caps_memory.get(base_key) or {})
+    fpr = PC.platform_fingerprint(str(engine.device), backend)
+    known = engine._caps_memory.get(base_key)
+    from_memory = known is not None
+    if known is None:  # the persistent store's vector, or {}
+        known = cache.load_caps(base_key, fpr)
+    capacities = dict(known)
     dictionaries = _dictionaries(templates)
     params = [HS.upload(a, engine.device, "batch-params")
               for a in _stack_params(_pad(
@@ -149,18 +155,20 @@ def _run_batched(engine, templates: list, plan, scans) -> list[Table]:
     run = engine.last_run
     run.programs.append(plan)
     run.passes.append(0)
-    run.from_memory.append(base_key in engine._caps_memory)
+    run.from_memory.append(from_memory)
 
     cost = None
     for attempt in range(_MAX_ATTEMPTS):
         checkpoint()
         run.passes[0] += 1
-        entry = cache.lookup((base_key, PC.bucket_capacities(capacities)))
+        t_pass = time.perf_counter()
+        key = (base_key, PC.bucket_capacities(capacities))
+        entry = cache.lookup(key, fpr)
         # the batch's first pass counts its device cost (obs/devprof:
         # the physical operations under the vmap) unless the process
-        # knows the batched program's
+        # or the batched program's entry knows it
         if attempt == 0:
-            cost = devprof.known_cost(PC.backend_free(base_key))
+            cost = EX.first_cost(base_key, entry)
         counting = attempt == 0 and cost is None
         seen: dict = {}
 
@@ -193,14 +201,13 @@ def _run_batched(engine, templates: list, plan, scans) -> list[Table]:
             # grows for the whole batch
             oks_all = np.asarray(HS.fetch(oks, site="batch-ok-ladder")
                                  ).all(axis=0)
+        EX.log_pass(t_pass, capacities, plan)
         if oks_all.all():
             if entry is None:
-                cache.insert((base_key, PC.bucket_capacities(capacities)), {
-                    "out": [(sym, v.dtype, v.valid is not None)
-                            for sym, v in seen["cols"].items()],
-                    "ok_keys": list(interp.ok_keys),
-                    "used_capacity": dict(interp.used_capacity),
-                    "kernels": dict(interp.kernel_used)})
+                cache.insert(key, EX.program_meta(seen["cols"], interp,
+                                                  cost), fpr)
+            if capacities != known:
+                cache.store_caps(base_key, capacities, fpr)
             engine._caps_memory[base_key] = dict(capacities)
             devprof.remember_cost(PC.backend_free(base_key), cost)
             run.costs.append(cost)
@@ -210,6 +217,8 @@ def _run_batched(engine, templates: list, plan, scans) -> list[Table]:
             _BATCHED.inc(k)
             _BATCH_SIZE.observe(float(k))
             return _demux(plan, seen["cols"], seen["slots"], live, parts, k)
+        if entry is not None:
+            cache.discard(key, fpr)
         grow_overflowed(capacities, interp.ok_keys, oks_all,
                         interp.used_capacity, EX.RETRY_GROWTH)
     raise HashChainOverflow(

@@ -51,20 +51,26 @@ program's meta under the same key. A cancellation token or the
 ``query_max_run_time`` deadline is checked at every rung, streamed
 block, segment and spill partition (``exec/cancel.py``).
 
-Left out (ROADMAP): the AOT disk tier, the template carrier-width
-floor (carriers keep the reference's exact rule, ``cap_floor=None``),
-the parallel segment pool (segments run in order on one stream), and
-every plan node outside TableScan,
-Values, Filter, Project, Aggregate, Join, MultiJoin, SemiJoin,
-CrossJoin, Union, Window, MarkDistinct, Distinct, Unnest,
-MatchRecognize, Sort, TopN, Limit, Exchange and Output (each raises
-NotImplementedError).
+A fresh engine, process or worker starts from what another learned
+when ``PRESTO_TPU_PROGRAM_CACHE_DIR`` names a shared persistent store:
+each program's capacity vector and device cost (exec/progcache.py).
+
+Left out (ROADMAP): the reference's serialized executables (eager
+PyTorch has none), the template carrier-width floor (carriers keep
+the reference's exact rule, ``cap_floor=None``), the parallel segment
+pool (segments run in order on one stream), and every plan node
+outside TableScan, Values, Filter, Project, Aggregate, Join,
+MultiJoin, SemiJoin, CrossJoin, Union, Window, MarkDistinct,
+Distinct, Unnest, MatchRecognize, Sort, TopN, Limit, Exchange and
+Output (each raises NotImplementedError).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
+import sys
 import time
 import uuid
 
@@ -691,10 +697,21 @@ def prepare_plan(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
     ladder (streamed blocks, spill partitions), outside the cache.
 
     A cached program's first pass runs under ``obs/devprof.harvest``
-    unless the process already knows the program's cost
-    (``devprof.known_cost``, under its key without the kernel backend):
-    the cost goes there, and every later run of the program carries it
-    (``Program.cost``)."""
+    unless its cost is known: to the process (``devprof.known_cost``,
+    under its key without the kernel backend) or from its cache entry.
+    The cost goes there, and every later run of the program carries it
+    (``Program.cost``).
+
+    With the persistent store (``PRESTO_TPU_PROGRAM_CACHE_DIR``,
+    exec/progcache.py) a program the engine does not remember starts
+    from the capacity vector stored for it, and its entry brings its
+    cost: a fresh engine, process or worker climbs no rung and counts
+    nothing. ``run.from_memory`` names the engine's own memory only;
+    the store's hits are counted in
+    ``presto_tpu_program_cache_hits_total{tier="disk"}``.
+
+    With ``PRESTO_TPU_LOG_COMPILES`` set, each pass of a cached program
+    prints one stderr line (:func:`log_pass`)."""
     from presto_tpu_torch import kernels as K
     from presto_tpu_torch import templates as TPL
     from presto_tpu_torch.exec import progcache as PC
@@ -714,12 +731,14 @@ def prepare_plan(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
             tpl = TPL.parameterize(plan)
         cache = engine._program_cache
         cache.configure(engine.session)
+        fpr = PC.platform_fingerprint(str(engine.device), backend)
         base_key = _cache_key(engine, plan if tpl is None else tpl.plan,
                               scans, backend)
         known = engine._caps_memory.get(base_key)
-        # {} is a real answer: no capacity needs an override
-        capacities = dict(known or {})
         run.from_memory.append(known is not None)
+        if known is None:  # {} is a real answer: no override needed
+            known = cache.load_caps(base_key, fpr)
+        capacities = dict(known)
     else:
         run.from_memory.append(False)
     runs, values = ((plan, []) if tpl is None
@@ -729,14 +748,16 @@ def prepare_plan(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
     for attempt in range(MAX_ATTEMPTS):
         checkpoint()
         run.passes[index] += 1
+        t_pass = time.perf_counter()
         counting = False
         if cached:
-            entry = cache.lookup((base_key, PC.bucket_capacities(capacities)))
+            key = (base_key, PC.bucket_capacities(capacities))
+            entry = cache.lookup(key, fpr)
             if tpl is not None and attempt == 0:
                 TPL.note_lookup(hit=entry is not None,
                                 params=len(tpl.params))
             if attempt == 0:
-                cost = devprof.known_cost(PC.backend_free(base_key))
+                cost = first_cost(base_key, entry)
                 counting = cost is None
         interp = PlanInterpreter(scans, capacities, engine.session,
                                  engine.device, order)
@@ -750,23 +771,27 @@ def prepare_plan(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
         counts = (torch.stack([c for _k, c in interp.row_counts])
                   if interp.row_counts else None)
         if not interp.ok_flags:
+            if cached:
+                log_pass(t_pass, capacities, runs)
             break
         oks = torch.stack([o.reshape(()) for o in interp.ok_flags])
         oks_np, counts = HS.fetch((oks, counts), site=site)
+        if cached:
+            log_pass(t_pass, capacities, runs)
         if oks_np.all():
             break
+        if entry is not None:
+            # remembered for smaller data of the same shape
+            cache.discard(key, fpr)
         grow_overflowed(capacities, interp.ok_keys, oks_np,
                         interp.used_capacity, RETRY_GROWTH)
     else:
         raise HashChainOverflow("hash table capacity retry limit exceeded")
     if cached:
         if entry is None:
-            cache.insert((base_key, PC.bucket_capacities(capacities)), {
-                "out": [(sym, v.dtype, v.valid is not None)
-                        for sym, v in out.cols.items()],
-                "ok_keys": list(interp.ok_keys),
-                "used_capacity": dict(interp.used_capacity),
-                "kernels": dict(interp.kernel_used)})
+            cache.insert(key, program_meta(out.cols, interp, cost), fpr)
+        if capacities != known:
+            cache.store_caps(base_key, capacities, fpr)
         engine._caps_memory[base_key] = dict(capacities)
         devprof.remember_cost(PC.backend_free(base_key), cost)
     engine.last_kernel_notes.update(
@@ -776,6 +801,45 @@ def prepare_plan(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
     return Program(out, index, [k for k, _c in interp.row_counts], counts,
                    plan, dict(interp.kernel_used), t0, entry is not None,
                    tpl is not None, backend, cost)
+
+
+def first_cost(base_key, entry: dict | None) -> dict | None:
+    """The device cost of a cached program at its first pass: the one
+    the process counted, else the one its cache entry brought (a fresh
+    process reading the persistent store), which the process then
+    keeps; None when the pass must count it."""
+    from presto_tpu_torch.exec import progcache as PC
+    from presto_tpu_torch.obs import devprof
+    key = PC.backend_free(base_key)
+    cost = devprof.known_cost(key)
+    if cost is None and entry is not None:
+        cost = entry.get("cost")
+        devprof.remember_cost(key, cost)
+    return cost
+
+
+def program_meta(cols: dict, interp, cost: dict | None) -> dict:
+    """A program-cache entry: the output layout (``cols``, the output
+    columns of the pass that succeeded), its ok-flag and capacity keys,
+    its kernel notes and the program's device cost."""
+    return {"out": [(sym, v.dtype, v.valid is not None)
+                    for sym, v in cols.items()],
+            "ok_keys": list(interp.ok_keys),
+            "used_capacity": dict(interp.used_capacity),
+            "kernels": dict(interp.kernel_used),
+            "cost": cost}
+
+
+def log_pass(t0: float, capacities: dict, plan: N.PlanNode) -> None:
+    """One stderr line for the interpreter pass of a cached program
+    that began at ``t0`` (its seconds up to its ok flags' fetch, its
+    capacities, its root node) when ``PRESTO_TPU_LOG_COMPILES`` is set:
+    the reference prints each compile so; here the ladder's rungs
+    show."""
+    if os.environ.get("PRESTO_TPU_LOG_COMPILES"):
+        print(f"[pass] {time.perf_counter() - t0:.3f}s "
+              f"caps={dict(capacities)} root={type(plan).__name__}",
+              file=sys.stderr)
 
 
 def _pool_wait(engine) -> tuple[float, float]:

@@ -1,14 +1,30 @@
-"""The program cache's memory tier: a size-bounded LRU of what each
-program learned, keyed like the reference's.
+"""The program cache: a size-bounded LRU of what each program learned,
+keyed like the reference's, over an optional persistent store.
 
-The port of ``presto_tpu/exec/progcache.py``, memory tier only. The
-reference caches compiled XLA executables; eager PyTorch compiles
-nothing, so an entry holds the program's ``meta``: the node keys of
-its capacities, its output layout and its kernel notes. What makes a
-repeat query cheap is the capacity memory beside the cache
-(``engine._caps_memory``, keyed by the same base key): a program
-starts from the capacity vector that succeeded last time instead of
-climbing the ladder again (``exec/executor.prepare_plan``).
+The port of ``presto_tpu/exec/progcache.py``. The reference caches
+compiled XLA executables; eager PyTorch compiles nothing, so an entry
+holds the program's ``meta``: its output layout, the node keys of its
+ok flags and capacities, its kernel notes and its device cost
+(``obs/devprof``). What makes a repeat query cheap is the capacity
+memory beside the cache (``engine._caps_memory``, keyed by the same
+base key): a program starts from the capacity vector that succeeded
+last time instead of climbing the ladder again
+(``exec/executor.prepare_plan``).
+
+The persistent store (``PRESTO_TPU_PROGRAM_CACHE_DIR``, bounded by
+``PRESTO_TPU_PROGRAM_CACHE_DISK_BYTES``) carries both across engines,
+processes and workers sharing the directory: each successful program's
+meta, with its counted cost, as a plain JSON entry named by
+:func:`entry_digest` of its key and :func:`platform_fingerprint`, and
+the reference's ``.caps.json`` sidecar of the successful capacity
+vector (``[pos, kind, cap]`` rows) under the base key. A fresh engine
+reads the sidecar, starts at that vector (no rung) and finds its
+entry, whose cost spares the first pass its count. Writes are atomic
+(a tmp file, then ``os.replace``); past the budget the oldest files
+go. An entry that is corrupt, of another format or stored under
+another key counts a load error and a miss and is unlinked: the
+ladder runs as without the store, and rows never depend on it. Entries
+hold no pickle: nothing in a shared directory runs code on load.
 
 Key canonicalization follows the reference: capacities go to pow2
 buckets (:func:`bucket_capacities`); the session component holds only
@@ -17,27 +33,34 @@ resolved through ``Session.get``); dictionary contents take part
 (:func:`dictionary_token`), since a program's meta carries the decode
 dictionaries.
 
-Left out (ROADMAP): the persistent AOT disk tier and its capacity
-sidecar (no torch counterpart to serializing an executable),
-``map_parallel`` (there is no compile to run in parallel) and
-CUDA-graph capture.
+Left out (ROADMAP): the reference's serialized executables (eager
+PyTorch has none to store), ``map_parallel`` (there is no compile to
+run in parallel) and CUDA-graph capture.
 """
 
 from __future__ import annotations
 
 import functools
 import hashlib
+import json
+import os
 import threading
 
 from presto_tpu_torch.obs.metrics import REGISTRY
 from presto_tpu_torch.ops.sizes import next_pow2
 
+ENV_DIR = "PRESTO_TPU_PROGRAM_CACHE_DIR"
+
 _HITS = REGISTRY.counter(
     "presto_tpu_program_cache_hits_total",
-    "program cache hits, labeled tier=memory")
+    "program cache hits, labeled tier=memory|disk")
 _MISSES = REGISTRY.counter(
     "presto_tpu_program_cache_misses_total",
     "program cache misses")
+_DISK_ERRORS = REGISTRY.counter(
+    "presto_tpu_program_cache_disk_errors_total",
+    "persistent-store failures (the ladder runs as without the store), "
+    "labeled op=load|store")
 _EVICTIONS = REGISTRY.counter(
     "presto_tpu_program_cache_evictions_total",
     "LRU evictions from the in-memory program cache")
@@ -92,6 +115,11 @@ TRACE_KEY_EXEMPT = {
 }
 
 DEFAULT_MAX_ENTRIES = 64
+# the persistent store's budget: past it the oldest files are pruned
+# (after each entry written); the store gathers entries across schema,
+# scale, session and platform variations forever otherwise
+DISK_BYTES_LIMIT = int(os.environ.get(
+    "PRESTO_TPU_PROGRAM_CACHE_DISK_BYTES", 32 << 30))
 
 
 def trace_session_key(session) -> tuple:
@@ -154,14 +182,34 @@ def scan_dictionary_key(scans) -> tuple:
         for sym, d in scan.dictionaries.items() if d is not None)
 
 
+# the stored entries' format: it takes part in the platform
+# fingerprint, so an entry of another format lands at another digest
+# (a clean miss), and each entry carries it too (an entry of another
+# format found at this digest is a load error and a miss). "meta1":
+# JSON meta with the program's counted device cost
+PROGRAM_FORMAT = "meta1"
+
+
 @functools.lru_cache(maxsize=32)
 def platform_fingerprint(device: str, backend: str) -> tuple:
-    """What a program's meta is valid for: torch's version, the
-    device's name and the resolved kernel backend."""
+    """What a program's meta is valid for: torch's and CUDA's versions,
+    the device's name and count, the stored entries' format and the
+    resolved kernel backend."""
     import torch
-    name = (torch.cuda.get_device_name(torch.device(device))
-            if torch.device(device).type == "cuda" else device)
-    return (torch.__version__, name, f"kernels-{backend}")
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    return (torch.__version__, torch.version.cuda,
+            torch.cuda.get_device_name(dev) if cuda else device,
+            torch.cuda.device_count() if cuda else 1,
+            PROGRAM_FORMAT, f"kernels-{backend}")
+
+
+def entry_digest(key, fingerprint) -> str:
+    """Content address of one (key, platform fingerprint) pair in the
+    persistent store."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(repr((key, fingerprint)).encode())
+    return h.hexdigest()
 
 
 def backend_free(key):
@@ -179,10 +227,41 @@ def backend_free(key):
     return key
 
 
-class ProgramCache:
-    """Bounded in-memory LRU of program meta."""
+def _meta_to_json(meta: dict) -> dict:
+    """A program's meta as plain JSON: dtypes as strings, tuple keys as
+    rows."""
+    return {"out": [[sym, str(dtype), bool(valid)]
+                    for sym, dtype, valid in meta["out"]],
+            "ok_keys": [list(k) for k in meta["ok_keys"]],
+            "used_capacity": [[*k, int(cap)]
+                              for k, cap in meta["used_capacity"].items()],
+            "kernels": [[pos, list(tags)]
+                        for pos, tags in meta["kernels"].items()],
+            "cost": meta.get("cost")}
 
-    def __init__(self, max_entries: int = DEFAULT_MAX_ENTRIES):
+
+def _meta_from_json(doc: dict) -> dict:
+    """The inverse of :func:`_meta_to_json` (dtypes stay strings);
+    raises on a malformed entry."""
+    return {"out": [(str(sym), str(dtype), bool(valid))
+                    for sym, dtype, valid in doc["out"]],
+            "ok_keys": [(int(pos), str(kind))
+                        for pos, kind in doc["ok_keys"]],
+            "used_capacity": {(int(pos), str(kind)): int(cap)
+                              for pos, kind, cap in doc["used_capacity"]},
+            "kernels": {int(pos): [str(t) for t in tags]
+                        for pos, tags in doc["kernels"]},
+            "cost": (None if doc["cost"] is None
+                     else {str(k): v for k, v in doc["cost"].items()})}
+
+
+class ProgramCache:
+    """Bounded in-memory LRU of program meta over an optional
+    persistent store (``disk_dir``; from ``PRESTO_TPU_PROGRAM_CACHE_DIR``
+    when None)."""
+
+    def __init__(self, max_entries: int = DEFAULT_MAX_ENTRIES,
+                 disk_dir: str | None = None):
         self._lock = threading.Lock()
         # key -> meta; insertion order = LRU order
         self._entries: dict = {}
@@ -190,6 +269,9 @@ class ProgramCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        if disk_dir is None:
+            disk_dir = os.environ.get(ENV_DIR) or None
+        self.disk_dir = disk_dir
 
     def __len__(self) -> int:
         with self._lock:
@@ -200,7 +282,8 @@ class ProgramCache:
             return {"entries": len(self._entries),
                     "max_entries": self.max_entries,
                     "hits": self.hits, "misses": self.misses,
-                    "evictions": self.evictions}
+                    "evictions": self.evictions,
+                    "disk_dir": self.disk_dir}
 
     def configure(self, session) -> None:
         """Refresh the entry bound from the session (SET SESSION
@@ -212,23 +295,52 @@ class ProgramCache:
             self.max_entries = max(1, limit)
             self._trim()
 
-    def lookup(self, key):
-        """The meta stored under ``key``, or None; counts one hit or
-        one miss."""
+    def lookup(self, key, fingerprint: tuple | None = None):
+        """The meta stored under ``key``, or None: the memory tier
+        first, then the store (an entry read there is promoted into
+        memory). Counts one hit, labeled by tier, or one miss."""
         with self._lock:
             meta = self._entries.pop(key, None)
             if meta is not None:
                 self._entries[key] = meta  # re-append: most recent
                 self.hits += 1
-            else:
-                self.misses += 1
         if meta is not None:
             _HITS.inc(tier="memory")
-        else:
+            return meta
+        meta = self._disk_load(key, fingerprint)
+        if meta is None:
+            with self._lock:
+                self.misses += 1
             _MISSES.inc()
+            return None
+        with self._lock:
+            self.hits += 1
+        self._remember(key, meta)
+        _HITS.inc(tier="disk")
         return meta
 
-    def insert(self, key, meta) -> None:
+    def insert(self, key, meta, fingerprint: tuple | None = None) -> None:
+        """Keep a program's meta, and write it to the store when there
+        is one. The ladders insert only the rung that succeeded, so
+        every insert persists (the reference's ``persist=False`` rungs
+        have no counterpart here)."""
+        if self.disk_dir:
+            self._disk_store(key, meta, fingerprint)
+        self._remember(key, meta)
+
+    def discard(self, key, fingerprint: tuple | None = None) -> None:
+        """Drop one entry from both tiers without counting an eviction:
+        a program whose remembered vector overflowed on new data of
+        the same shape grows past it, and its sidecar then names the
+        new vector, so the old entry is never looked up again."""
+        with self._lock:
+            if self._entries.pop(key, None) is not None:
+                _ENTRIES_G.dec()
+        if self.disk_dir:
+            self._unlink(self._path(entry_digest(key, fingerprint),
+                                    ".prog.json"))
+
+    def _remember(self, key, meta) -> None:
         with self._lock:
             if self._entries.pop(key, None) is None:
                 _ENTRIES_G.inc()
@@ -242,3 +354,117 @@ class ProgramCache:
             self.evictions += 1
             _ENTRIES_G.dec()
             _EVICTIONS.inc()
+
+    # -- the persistent store ------------------------------------------------
+
+    def _path(self, digest: str, suffix: str) -> str:
+        return os.path.join(self.disk_dir, digest + suffix)
+
+    @staticmethod
+    def _unlink(path: str) -> None:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass  # another process got there first
+
+    def _write(self, path: str, doc) -> None:
+        """Write ``doc`` as JSON to ``path`` atomically: concurrent
+        writers in other processes and threads race only to replace
+        the file with the same content."""
+        os.makedirs(self.disk_dir, exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(doc, f)
+        os.replace(tmp, path)
+
+    def _disk_load(self, key, fingerprint) -> dict | None:
+        """The meta stored under ``key``, or None when the store has no
+        such entry. An entry that cannot be read, is of another format
+        or was stored under another key counts a load error and is
+        unlinked (the next success writes it again)."""
+        if not self.disk_dir:
+            return None
+        path = self._path(entry_digest(key, fingerprint), ".prog.json")
+        try:
+            with open(path, encoding="utf-8") as f:
+                doc = json.load(f)
+            if doc["format"] != PROGRAM_FORMAT or doc["key"] != repr(key):
+                raise ValueError("stale entry or digest collision")
+            meta = _meta_from_json(doc["meta"])
+        except FileNotFoundError:
+            return None
+        except Exception:  # noqa: BLE001 - a bad entry is a miss
+            _DISK_ERRORS.inc(op="load")
+            self._unlink(path)
+            return None
+        return meta
+
+    def _disk_store(self, key, meta, fingerprint) -> None:
+        """Write one entry, then prune the store to its budget. A
+        failure is counted and the query goes on."""
+        try:
+            self._write(
+                self._path(entry_digest(key, fingerprint), ".prog.json"),
+                {"format": PROGRAM_FORMAT, "key": repr(key),
+                 "meta": _meta_to_json(meta)})
+        except Exception:  # noqa: BLE001 - never fail the query
+            _DISK_ERRORS.inc(op="store")
+            return
+        self._prune_disk()
+
+    def _prune_disk(self) -> None:
+        """Best-effort budget: drop the oldest files (by mtime) past
+        DISK_BYTES_LIMIT. Concurrent processes may race to unlink the
+        same file; losing is fine."""
+        try:
+            files, total = [], 0
+            with os.scandir(self.disk_dir) as it:
+                for de in it:
+                    if de.name.endswith((".prog.json", ".caps.json")):
+                        st = de.stat()
+                        files.append((st.st_mtime, st.st_size, de.path))
+                        total += st.st_size
+            for _mtime, size, path in sorted(files):
+                if total <= DISK_BYTES_LIMIT:
+                    break
+                self._unlink(path)
+                total -= size
+        except OSError:
+            pass
+
+    # -- the capacity sidecar ------------------------------------------------
+
+    def load_caps(self, base_key, fingerprint: tuple | None = None) -> dict:
+        """The successful capacity vector stored for a program, so a
+        fresh engine skips the ladder; {} when there is none. A sidecar
+        that cannot be read counts a load error and is unlinked."""
+        if not self.disk_dir:
+            return {}
+        path = self._path(entry_digest(base_key, fingerprint),
+                          ".caps.json")
+        try:
+            with open(path, encoding="utf-8") as f:
+                rows = json.load(f)
+            return {(int(pos), str(kind)): int(cap)
+                    for pos, kind, cap in rows}
+        except FileNotFoundError:
+            return {}
+        except Exception:  # noqa: BLE001 - a bad sidecar = no caps
+            _DISK_ERRORS.inc(op="load")
+            self._unlink(path)
+            return {}
+
+    def store_caps(self, base_key, caps: dict,
+                   fingerprint: tuple | None = None) -> None:
+        """Write a program's successful capacity vector as the
+        reference's ``[pos, kind, cap]`` rows."""
+        if not self.disk_dir or not caps:
+            return
+        try:
+            self._write(
+                self._path(entry_digest(base_key, fingerprint),
+                           ".caps.json"),
+                [[int(pos), str(kind), int(cap)]
+                 for (pos, kind), cap in sorted(caps.items())])
+        except Exception:  # noqa: BLE001 - the sidecar is best-effort
+            _DISK_ERRORS.inc(op="store")

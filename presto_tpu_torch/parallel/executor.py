@@ -49,7 +49,8 @@ from presto_tpu_torch.exec import operators as OP
 from presto_tpu_torch.exec.executor import (
     MAX_ATTEMPTS, RETRY_GROWTH, SKETCH_FIRST_RUNG, PlanInterpreter, Program,
     QueryRun, ScanInput, apply_blooms, bloom_bits, carrier_arrays,
-    collect_scans, fetch_table, preorder_index)
+    collect_scans, fetch_table, first_cost, log_pass, preorder_index,
+    program_meta)
 from presto_tpu_torch.exec.operators import DTable
 from presto_tpu_torch.expr import aggmeta as A
 from presto_tpu_torch.expr.compile import Val, is_long_dec
@@ -1015,8 +1016,10 @@ def execute_plan_distributed(engine, plan: N.PlanNode, mesh,
     segmentation, as the reference's does. Its capacity vector is
     remembered under its key (``engine._caps_memory``), so a repeat
     query climbs no rung; with ``plan_templates`` on, the key is the
-    template's, so a literal variant starts from it too. Sets
-    ``engine.last_run`` (one program), ``engine.last_kernel_notes`` and
+    template's, so a literal variant starts from it too; the persistent
+    store (exec/progcache.py) carries the vector and the program's cost
+    to a fresh engine under the same key, which holds the shard count.
+    Sets ``engine.last_run`` (one program), ``engine.last_kernel_notes`` and
     ``engine.last_dist_meta``."""
     from presto_tpu_torch import kernels as K
     from presto_tpu_torch import templates as TPL
@@ -1069,25 +1072,30 @@ def execute_plan_distributed(engine, plan: N.PlanNode, mesh,
     order = preorder_index(runs)
 
     base_key = _distributed_key(engine, runs, sharded, group, backend)
+    fpr = PC.platform_fingerprint(str(group.device), backend)
     cache = engine._program_cache
     cache.configure(session)
     known = engine._caps_memory.get(base_key)
-    # {} is a real answer: no capacity needs an override
-    capacities = dict(known or {})
     run.from_memory.append(known is not None)
+    if known is None:  # {} is a real answer: no override needed
+        known = cache.load_caps(base_key, fpr)
+    capacities = dict(known)
     entry = None
     cost = None
     t0 = time.perf_counter()
     for attempt in range(MAX_ATTEMPTS):
         checkpoint()
         run.passes[0] += 1
-        entry = cache.lookup((base_key, PC.bucket_capacities(capacities)))
+        t_pass = time.perf_counter()
+        key = (base_key, PC.bucket_capacities(capacities))
+        entry = cache.lookup(key, fpr)
         if tpl is not None and attempt == 0:
             TPL.note_lookup(hit=entry is not None, params=len(tpl.params))
-        # the first pass of a program whose device cost the process
-        # does not know counts it (obs/devprof), which the process keeps
+        # the first pass of a program whose device cost neither the
+        # process nor the program's entry knows counts it (obs/devprof),
+        # which the process keeps
         if attempt == 0:
-            cost = devprof.known_cost(PC.backend_free(base_key))
+            cost = first_cost(base_key, entry)
         counting = attempt == 0 and cost is None
         interp = ShardedInterpreter(by_node, capacities, group, session,
                                     order)
@@ -1104,19 +1112,19 @@ def execute_plan_distributed(engine, plan: N.PlanNode, mesh,
             cost = counted.summary()
         # one host sync for every flag of the pass
         oks_np = HS.fetch(oks, site="dist-ok-ladder")
+        log_pass(t_pass, capacities, runs)
         if oks_np.all():
             break
+        if entry is not None:
+            cache.discard(key, fpr)
         grow_overflowed(capacities, interp.ok_keys, oks_np,
                         interp.used_capacity, RETRY_GROWTH)
     else:
         raise HashChainOverflow("hash table capacity retry limit exceeded")
     if entry is None:
-        cache.insert((base_key, PC.bucket_capacities(capacities)), {
-            "out": [(sym, v.dtype, v.valid is not None)
-                    for sym, v in out.dt.cols.items()],
-            "ok_keys": list(interp.ok_keys),
-            "used_capacity": dict(interp.used_capacity),
-            "kernels": dict(interp.kernel_used)})
+        cache.insert(key, program_meta(out.dt.cols, interp, cost), fpr)
+    if capacities != known:
+        cache.store_caps(base_key, capacities, fpr)
     engine._caps_memory[base_key] = dict(capacities)
     devprof.remember_cost(PC.backend_free(base_key), cost)
     run.costs.append(cost)

@@ -416,6 +416,12 @@ class WorkerServer(HttpService):
                  max_tasks: int | None = None, device=None):
         from presto_tpu_torch.engine import resolve_device
         from presto_tpu_torch.parallel import auth as _auth
+        from presto_tpu_torch.parallel import wire as _wire
+        # the page codec's pyarrow is imported on the thread that makes
+        # the worker: imported first on a request thread of a process
+        # that had called torch.set_num_threads, its arrow encode of
+        # the task's result crashed the process (SIGSEGV)
+        _wire._pyarrow()
         self.catalogs = catalogs
         self.device = resolve_device(device)
         self.node_id = node_id

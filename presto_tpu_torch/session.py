@@ -171,12 +171,15 @@ SYSTEM_SESSION_PROPERTIES: dict[str, tuple[Any, type, str]] = {
                              "cannot distribute instead of silently "
                              "running them on the local engine"),
     "program_cache_entries": (64, int,
-                              "max compiled XLA programs held in the "
-                              "engine's in-memory LRU program cache "
+                              "max programs whose meta (output "
+                              "layout, capacity keys, kernel notes, "
+                              "device cost) the engine's in-memory "
+                              "LRU program cache holds "
                               "(exec/progcache.py; the persistent "
-                              "disk store at "
-                              "PRESTO_TPU_PROGRAM_CACHE_DIR is "
-                              "bounded separately by "
+                              "store at PRESTO_TPU_PROGRAM_CACHE_DIR, "
+                              "which also keeps each program's "
+                              "successful capacities, is bounded "
+                              "separately by "
                               "PRESTO_TPU_PROGRAM_CACHE_DISK_BYTES)"),
     "parallel_compile_width": (4, int,
                                "max concurrent XLA compilations for "

@@ -1847,3 +1847,45 @@ def test_cost_columns_are_nonzero_on_the_card(parquet_card):
     for _pid, _nt, f, b, intensity, roofline in cs._op_rows(e, qids[-1]):
         assert roofline == round(intensity / (flops / bw), 4) or \
             abs(roofline - intensity / (flops / bw)) < 1e-4
+
+
+def test_fresh_card_engine_starts_from_the_store(cuda, tmp_path,
+                                                 monkeypatch):
+    """The program cache's persistent store on the card: a first engine
+    climbs a group-by's ladder (2000 part keys of SF0.01's lineitem,
+    joined to orders, through a table hinted at 16 slots) and writes
+    the store; a fresh engine over it takes one pass, hits the store,
+    counts no cost, notes the first engine's kernels and returns the
+    plain backend's rows."""
+    from presto_tpu_torch.exec import progcache as PC
+    from presto_tpu_torch.obs import devprof
+    from presto_tpu_torch.obs.metrics import REGISTRY
+
+    monkeypatch.setenv(PC.ENV_DIR, str(tmp_path))
+    conn = TpchConnector(scale=0.01)
+    sql = ("select l_partkey, sum(l_quantity), count(*) "
+           "from lineitem, orders where l_orderkey = o_orderkey "
+           "group by l_partkey order by l_partkey")
+
+    def engine(backend):
+        e = Engine()
+        e.register_catalog("tpch", conn)
+        e.session.set("groupby_table_size", 16)
+        e.session.set("kernel_backend", backend)
+        return e
+
+    first = engine("cuda")
+    want = first.execute(sql)
+    assert first.last_run.passes[0] > 1
+    notes = first.last_kernel_notes
+    devprof.forget_costs()
+    hits = REGISTRY.counter("presto_tpu_program_cache_hits_total")
+    harvests = REGISTRY.counter("presto_tpu_cost_harvests_total")
+    h0, c0 = hits.value(tier="disk"), harvests.total()
+    e = engine("cuda")
+    got = e.execute(sql)
+    assert e.last_run.passes == [1]
+    assert hits.value(tier="disk") - h0 == 1
+    assert harvests.total() == c0
+    assert e.last_kernel_notes == notes
+    assert got == want == engine("torch").execute(sql)
