@@ -18,7 +18,8 @@ caller's ``cancel_token``, the session's ``query_max_run_time``
 deadline at the executor's checkpoints and its
 ``query_max_planning_time`` at the planner's; ``exec/cancel.py``) and
 under query monitoring (``events.monitored``: lifecycle events, the
-history behind ``system.runtime.queries``, a root span).
+history behind ``system.runtime.queries``, a ``query`` span inside an
+open trace).
 
 Every write checks ``access_control.check_can_write`` and snapshots
 its connector into the open transaction, and every statement that may
@@ -423,15 +424,22 @@ class Engine:
     def _execute_query(self, query, mesh=None, preplanned=None) -> Table:
         """Plan and run a query: over the shard group ``mesh`` when one
         is given (no streaming, spill or segmentation there, as in the
-        reference), else on the engine's device."""
+        reference), else on the engine's device. Inside an open trace
+        the run is an ``execute`` span beside ``plan``, carrying the
+        route ``execute_part`` took."""
         self.last_spill = None
         plan = self._plan_query(query, preplanned=preplanned)
-        if mesh is not None:
-            from presto_tpu_torch.parallel.executor import (
-                execute_plan_distributed)
-            return execute_plan_distributed(self, plan, mesh)
-        from presto_tpu_torch.exec.executor import execute_plan
-        return execute_plan(self, plan)
+        with TRACER.span("execute") as sp:
+            if mesh is not None:
+                from presto_tpu_torch.parallel.executor import (
+                    execute_plan_distributed)
+                return execute_plan_distributed(self, plan, mesh)
+            from presto_tpu_torch.exec.executor import execute_plan
+            try:
+                return execute_plan(self, plan)
+            finally:
+                if sp is not None:
+                    sp.attrs["route"] = self.last_run.route
 
     def _execute_statement(self, stmt, mesh=None) -> list[tuple]:
         from presto_tpu_torch.sql import ast as A

@@ -8,9 +8,10 @@ when a query is admitted and a completed event with statistics when it
 finishes; listeners are plain callables registered on the engine.
 Recent completed events also back the system.runtime.queries table.
 
-``monitored()`` is also the engine-level tracing entry: it opens the
-query's root span (obs/trace.py) when no trace is active, so a direct
-Engine query is traced as an admitted one would be.
+``monitored()`` is also the engine-level tracing entry: inside an open
+trace (the HTTP server's, a worker's attached context, a caller's own
+``TRACER.trace``) it opens the query's ``query`` span (obs/trace.py);
+outside one it records nothing, so an untraced query pays no span.
 """
 
 from __future__ import annotations
@@ -106,8 +107,8 @@ class EventListenerManager:
 
 def monitored(engine, sql: str, run: Callable):
     """Run ``run()`` under query monitoring: emits created/completed
-    events, records history, opens the query's root span (a child span
-    when a trace is already active) and opens the query's runtime-stats
+    events, records history, opens the query's ``query`` span when a
+    trace is active (none otherwise) and opens the query's runtime-stats
     scope (obs/qstats.py; reused when a caller already opened one, so
     the stats id and the trace id coincide). The completed event fires
     INSIDE the stats scope: history listeners snapshot the finished
@@ -128,8 +129,8 @@ def monitored(engine, sql: str, run: Callable):
     want_profile = bool(engine.session.get("device_profile"))
     mgr.query_created(QueryCreatedEvent(qid, sql, user, t0))
     with QS.query_or_current(qid, sql, user) as qr, \
-            TRACER.root_or_span(qid, "query", query_id=qid, user=user,
-                                sql=sql[:200]) as sp, \
+            TRACER.span("query", query_id=qid, user=user,
+                        sql=sql[:200]) as sp, \
             devprof.maybe_capture(
                 want_profile, qid,
                 str(getattr(engine, "device", "")).startswith("cuda")

@@ -84,6 +84,7 @@ from presto_tpu_torch.exec import operators as OP
 from presto_tpu_torch.exec.operators import DTable
 from presto_tpu_torch.expr import aggmeta as A
 from presto_tpu_torch.expr.compile import Val, is_long_dec
+from presto_tpu_torch.obs.trace import TRACER
 from presto_tpu_torch.ops import hash as H
 from presto_tpu_torch.ops.hash import HashChainOverflow, grow_overflowed
 from presto_tpu_torch.ops.sizes import next_pow2
@@ -159,6 +160,9 @@ class QueryRun:
     # first pass in the process or known since (devprof.known_cost);
     # None outside the cache
     costs: list = dataclasses.field(default_factory=list)
+    # the route execute_part took for the whole plan: whole, segmented,
+    # streamed, spilled, grouped, varlen or match_recognize
+    route: str | None = None
 
     @property
     def rungs(self) -> int:
@@ -332,7 +336,7 @@ class PlanInterpreter:
             raise NotImplementedError(
                 f"plan node {type(node).__name__} is not ported to "
                 "presto_tpu_torch yet")
-        with K.collect() as used:
+        with K.collect() as used, TRACER.span(type(node).__name__):
             dt = m(node)
         key = self.node_order.get(id(node), id(node))
         if used:
@@ -586,7 +590,15 @@ def execute_part(engine, plan: N.PlanNode) -> Table:
     block-streamed when its one scan exceeds the session block size and
     its shape allows, else host-partitioned when its estimate exceeds
     the memory budget, else bucket by bucket under grouped execution,
-    else segmented when it has a split, else whole."""
+    else segmented when it has a split, else whole. The route taken for
+    the outermost part is ``engine.last_run.route``."""
+    route, out = _route(engine, plan)
+    engine.last_run.route = route
+    return out
+
+
+def _route(engine, plan: N.PlanNode) -> tuple[str, Table]:
+    """(the route execute_part takes, the plan's result)."""
     from presto_tpu_torch.exec.spill import (try_execute_grouped,
                                              try_execute_spilled)
     from presto_tpu_torch.exec.streaming import try_execute_streamed
@@ -594,20 +606,22 @@ def execute_part(engine, plan: N.PlanNode) -> Table:
                                               find_varlen_aggregate)
     mr = _find_match_recognize(plan)
     if mr is not None:
-        return _execute_with_match_recognize(engine, plan, mr)
+        return "match_recognize", _execute_with_match_recognize(
+            engine, plan, mr)
     vl = find_varlen_aggregate(plan)
     if vl is not None:
-        return execute_with_varlen(engine, plan, vl)
+        return "varlen", execute_with_varlen(engine, plan, vl)
     # streaming first: a block-streamed scan bounds its own working set,
     # so the memory budget must not veto it
-    for route in (try_execute_streamed, try_execute_spilled,
-                  try_execute_grouped):
-        done = route(engine, plan)
+    for route, attempt in (("streamed", try_execute_streamed),
+                           ("spilled", try_execute_spilled),
+                           ("grouped", try_execute_grouped)):
+        done = attempt(engine, plan)
         if done is not None:
-            return done
+            return route, done
     if _find_split(plan, engine) is not None:
-        return _execute_segmented(engine, plan)
-    return run_plan(engine, plan, collect_scans(plan, engine))
+        return "segmented", _execute_segmented(engine, plan)
+    return "whole", run_plan(engine, plan, collect_scans(plan, engine))
 
 
 @dataclasses.dataclass
@@ -711,7 +725,23 @@ def prepare_plan(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
     ``presto_tpu_program_cache_hits_total{tier="disk"}``.
 
     With ``PRESTO_TPU_LOG_COMPILES`` set, each pass of a cached program
-    prints one stderr line (:func:`log_pass`)."""
+    prints one stderr line (:func:`log_pass`).
+
+    Inside an open trace the call is a ``program`` span (its
+    ``cache_hit`` and ``passes``) and each interpreter pass a ``pass``
+    span, whose plan nodes are spans named by their node type."""
+    with TRACER.span("program") as sp:
+        prog = _climb(engine, plan, scans, capacities, site, collect_rows)
+        if sp is not None:
+            sp.attrs.update(cache_hit=prog.cache_hit,
+                            passes=engine.last_run.passes[prog.index])
+    return prog
+
+
+def _climb(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
+           capacities: dict[tuple, int] | None, site: str,
+           collect_rows: bool) -> Program:
+    """prepare_plan's capacity ladder."""
     from presto_tpu_torch import kernels as K
     from presto_tpu_torch import templates as TPL
     from presto_tpu_torch.exec import progcache as PC
@@ -764,7 +794,8 @@ def prepare_plan(engine, plan: N.PlanNode, scans: dict[int, ScanInput],
         interp.collect_rows = collect_rows
         with K.use_backend(backend), TR.active(values), (
                 devprof.harvest() if counting
-                else contextlib.nullcontext()) as counted:
+                else contextlib.nullcontext()) as counted, \
+                TRACER.span("pass"):
             out = interp.run(runs)
         if counting:
             cost = counted.summary()

@@ -143,7 +143,7 @@ def query_or_current(query_id: str, sql: str, user: str):
     """The ``events.monitored`` entry: reuse the already-open query
     scope (HTTP-admitted queries, whose scope the server opened under
     the protocol query id) or open a fresh one (CLI/dbapi/direct
-    Engine queries) — the same pattern as ``Tracer.root_or_span``."""
+    Engine queries)."""
     cur = _CURRENT_QUERY.get()
     if cur is not None:
         yield cur

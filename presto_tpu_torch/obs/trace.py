@@ -7,7 +7,18 @@ io.trino.tracing.TrinoAttributes): a :class:`Span` records one timed
 unit of work; the ambient (trace_id, span_id) context lives in a
 ``contextvars.ContextVar`` so engine internals can instrument
 unconditionally — ``span()`` is a no-op when no trace is active, which
-also bounds the store to externally-admitted queries.
+also bounds the store to queries someone traces: an HTTP-admitted
+query (the server opens its trace), a worker task attached to the
+coordinator's context, or a caller's own ``TRACER.trace``. A direct
+``Engine.execute`` outside any trace records nothing, and each span
+site then costs one ``ContextVar`` lookup.
+
+Every span is stamped by :func:`clock` (epoch seconds), the one clock
+that the Chrome export, a worker merge and a device-trace alignment
+share. Span ids are a per-process random prefix and a counter, unique
+across the processes whose spans :meth:`Tracer.import_spans` merges.
+Spans past ``MAX_SPANS_PER_TRACE`` in one trace are dropped and counted
+in ``presto_tpu_trace_spans_dropped_total``.
 
 Cross-process propagation is explicit: the coordinator serializes the
 current context into the ``X-Presto-TPU-Trace`` request header on task
@@ -28,10 +39,14 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import itertools
+import os
+import secrets
 import threading
 import time
-import uuid
 from collections import OrderedDict
+
+from presto_tpu_torch.obs.metrics import REGISTRY
 
 TRACE_HEADER = "X-Presto-TPU-Trace"
 
@@ -48,8 +63,29 @@ MAX_TRACES = 256
 MAX_SPANS_PER_TRACE = 4096
 
 
+_DROPPED = REGISTRY.counter(
+    "presto_tpu_trace_spans_dropped_total",
+    "spans not recorded because their trace held MAX_SPANS_PER_TRACE")
+
+
+def clock() -> float:
+    """The spans' clock: wall-clock epoch seconds (``time.time()``)."""
+    return time.time()
+
+
+def _reseed_ids() -> None:
+    global _ID_PREFIX, _ID_SEQ
+    _ID_PREFIX = f"{secrets.randbits(32):08x}"
+    _ID_SEQ = itertools.count(1)
+
+
+_reseed_ids()
+# a forked child must not repeat its parent's ids
+os.register_at_fork(after_in_child=_reseed_ids)
+
+
 def _new_span_id() -> str:
-    return uuid.uuid4().hex[:16]
+    return f"{_ID_PREFIX}{next(_ID_SEQ):08x}"
 
 
 @dataclasses.dataclass
@@ -59,7 +95,7 @@ class Span:
     parent_id: str | None
     name: str
     attrs: dict
-    t0: float               # wall clock, seconds (time.time())
+    t0: float               # wall clock, seconds (clock())
     t1: float | None = None
 
     def to_dict(self) -> dict:
@@ -122,60 +158,35 @@ class Tracer:
                 spans = self._traces[span.trace_id] = []
             if len(spans) < self.max_spans:
                 spans.append(span)
+                return
+        _DROPPED.inc()
 
     # -- span creation ------------------------------------------------------
 
-    @contextlib.contextmanager
     def trace(self, trace_id: str, name: str, **attrs):
         """Open a ROOT span with an explicit trace id (query
-        admission: the trace id IS the query id)."""
-        attrs = dict(attrs)
-        if "node" not in attrs and _NODE.get() is not None:
-            attrs["node"] = _NODE.get()
-        span = Span(trace_id, _new_span_id(), None, name, attrs,
-                    time.time())
-        self._record(span)
-        token = _CURRENT.set((trace_id, span.span_id))
-        try:
-            yield span
-        finally:
-            span.t1 = time.time()
-            _CURRENT.reset(token)
+        admission: the trace id IS the query id). A context manager
+        that yields the span."""
+        return _Scope(self, self._new(trace_id, None, name, attrs))
 
-    @contextlib.contextmanager
     def span(self, name: str, **attrs):
-        """Child span of the ambient context; yields None (and records
-        nothing) when no trace is active."""
+        """Child span of the ambient context, a context manager that
+        yields it; yields None (and records nothing) when no trace is
+        active."""
         ctx = _CURRENT.get()
         if ctx is None:
-            yield None
-            return
-        trace_id, parent = ctx
-        attrs = dict(attrs)
-        if "node" not in attrs and _NODE.get() is not None:
-            attrs["node"] = _NODE.get()
-        span = Span(trace_id, _new_span_id(), parent, name,
-                    attrs, time.time())
-        self._record(span)
-        token = _CURRENT.set((trace_id, span.span_id))
-        try:
-            yield span
-        finally:
-            span.t1 = time.time()
-            _CURRENT.reset(token)
+            return _UNTRACED
+        return _Scope(self, self._new(ctx[0], ctx[1], name, attrs))
 
-    @contextlib.contextmanager
-    def root_or_span(self, trace_id: str, name: str, **attrs):
-        """Root span when untraced, child span otherwise — the entry
-        hook ``events.monitored`` uses so direct Engine/CLI/dbapi
-        queries start their own trace while HTTP-admitted queries nest
-        under the server's root (whose trace id is the HTTP query id)."""
-        if _CURRENT.get() is None:
-            with self.trace(trace_id, name, **attrs) as s:
-                yield s
-        else:
-            with self.span(name, **attrs) as s:
-                yield s
+    @staticmethod
+    def _new(trace_id: str, parent: str | None, name: str,
+             attrs: dict) -> Span:
+        if "node" not in attrs:
+            node = _NODE.get()
+            if node is not None:
+                attrs["node"] = node
+        return Span(trace_id, _new_span_id(), parent, name, attrs,
+                    clock())
 
     def instant_for(self, trace_id: str, name: str,
                     create: bool = False, **attrs) -> None:
@@ -192,13 +203,10 @@ class Tracer:
             exists = trace_id in self._traces
         if not exists and not create:
             return
-        attrs = dict(attrs)
         attrs["instant"] = True
-        if "node" not in attrs and _NODE.get() is not None:
-            attrs["node"] = _NODE.get()
-        now = time.time()
-        self._record(Span(trace_id, _new_span_id(), None, name, attrs,
-                          now, now))
+        span = self._new(trace_id, None, name, attrs)
+        span.t1 = span.t0
+        self._record(span)
 
     def add_span(self, name: str, t0: float, t1: float,
                  **attrs) -> None:
@@ -207,12 +215,9 @@ class Tracer:
         ctx = _CURRENT.get()
         if ctx is None:
             return
-        trace_id, parent = ctx
-        attrs = dict(attrs)
-        if "node" not in attrs and _NODE.get() is not None:
-            attrs["node"] = _NODE.get()
-        self._record(Span(trace_id, _new_span_id(), parent, name,
-                          attrs, t0, t1))
+        span = self._new(ctx[0], ctx[1], name, attrs)
+        span.t0, span.t1 = t0, t1
+        self._record(span)
 
     @contextlib.contextmanager
     def attach(self, ctx: tuple[str, str] | None,
@@ -242,6 +247,11 @@ class Tracer:
         with self._lock:
             return list(self._traces.get(trace_id, ()))
 
+    def trace_ids(self) -> list[str]:
+        """The ids of the traces in the store, oldest first."""
+        with self._lock:
+            return list(self._traces)
+
     def import_spans(self, dicts: list[dict]) -> None:
         """Merge remote spans (a worker's ``/v1/trace/{id}`` payload)
         into this store for unified export."""
@@ -254,7 +264,7 @@ class Tracer:
         process lane per ``node`` attr, plus span/parent ids in
         ``args`` so the tree survives the format."""
         spans = self.spans(trace_id)
-        now = time.time()
+        now = clock()
         pids: dict[str, int] = {}
         events: list[dict] = []
         for s in spans:
@@ -289,6 +299,30 @@ class Tracer:
                 "pid": pid, "tid": 0, "args": args})
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
+
+class _Scope:
+    """An open span: recorded when entered, the ambient context while
+    open, stamped and the context restored when left."""
+
+    __slots__ = ("tracer", "span", "token")
+
+    def __init__(self, tracer: Tracer, span: Span):
+        self.tracer = tracer
+        self.span = span
+
+    def __enter__(self) -> Span:
+        span = self.span
+        self.tracer._record(span)
+        self.token = _CURRENT.set((span.trace_id, span.span_id))
+        return span
+
+    def __exit__(self, *exc) -> None:
+        self.span.t1 = clock()
+        _CURRENT.reset(self.token)
+
+
+# what span() returns outside a trace: enters to None, records nothing
+_UNTRACED = contextlib.nullcontext()
 
 # the process-wide default tracer: servers, engine, and executor layers
 # all record here; an in-process cluster therefore exports unified
