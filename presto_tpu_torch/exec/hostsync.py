@@ -155,7 +155,9 @@ def upload(array, device, site: str) -> torch.Tensor:
 def _upload(array, device, site: str) -> torch.Tensor:
     device = torch.device(device)
     on_card = device.type == "cuda"
-    host = (np.require(array, requirements="C") if on_card
+    # a read-only array (a dictionary memo's remap) is copied once on
+    # the card too: torch tensors over numpy memory must be writable
+    host = (np.require(array, requirements="CW") if on_card
             else np.array(array, order="C", copy=True))
     UPLOADS.inc(site, host.nbytes)
     with TRACER.span("upload", site=site, bytes=host.nbytes):

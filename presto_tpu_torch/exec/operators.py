@@ -35,13 +35,13 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from presto_tpu_torch import kernels as K
 from presto_tpu_torch import types as T
 from presto_tpu_torch.exec import hostsync as HS
 from presto_tpu_torch.expr import aggregates as A
+from presto_tpu_torch.expr import dictmemo as DM
 from presto_tpu_torch.expr import ir
 from presto_tpu_torch.expr.compile import (ExprCompiler, Val, _align_strings,
                                            cast_val, is_long_dec)
@@ -1013,12 +1013,10 @@ def _unify_string_vals(vals: list[Val]) -> list[Val]:
     dicts = [v.dictionary for v in vals]
     if all(d is dicts[0] for d in dicts):
         return vals
-    union = np.unique(np.concatenate([d.astype("U") for d in dicts]))
-    uobj = union.astype(object)
+    uobj, remaps = DM.union(dicts)
     out = []
-    for v in vals:
-        remap = HS.upload(np.searchsorted(union, v.dictionary.astype("U"))
-                          .astype(np.int32), v.data.device, "dictionary-lut")
+    for v, r in zip(vals, remaps):
+        remap = HS.upload(r, v.data.device, "dictionary-lut")
         codes = torch.clamp(v.data.to(torch.int64), 0,
                             max(len(v.dictionary) - 1, 0))
         out.append(dataclasses.replace(v, data=take(remap, codes),

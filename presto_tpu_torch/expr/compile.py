@@ -44,6 +44,7 @@ import torch
 
 from presto_tpu_torch import types as T
 from presto_tpu_torch.exec import hostsync as HS
+from presto_tpu_torch.expr import dictmemo as DM
 from presto_tpu_torch.expr import ir
 
 
@@ -160,30 +161,24 @@ def _by_code(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 # --- dictionary helpers (host side) ----------------------------------------
 
 
-def _dict_transform(v: Val, fn: Callable[[np.ndarray], np.ndarray]) -> Val:
+def _dict_transform(v: Val, fn: Callable[[np.ndarray], np.ndarray],
+                    key=None) -> Val:
     """Apply a host string->string function over the dictionary and
-    remap codes to the new sorted dictionary."""
-    new_strings = fn(v.dictionary.astype("U")).astype(object)
-    new_dict, inverse = np.unique(new_strings.astype("U"),
-                                  return_inverse=True)
-    remap = _lut(inverse.astype(np.int32), v.data)
-    return Val(T.VARCHAR, _by_code(remap, v.data), v.valid,
-               new_dict.astype(object))
+    remap codes to the new sorted dictionary. ``key`` (the function's
+    name and its literal parameters) memoizes the host part
+    (``dictmemo.transform``)."""
+    new_dict, inverse = DM.transform(v.dictionary, fn, key)
+    remap = _lut(inverse, v.data)
+    return Val(T.VARCHAR, _by_code(remap, v.data), v.valid, new_dict)
 
 
 def _merge_dicts(a: Val, b: Val) -> tuple[Val, Val]:
     """Bring two string Vals onto one shared sorted dictionary."""
     if a.dictionary is b.dictionary:
         return a, b
-    union = np.unique(np.concatenate(
-        [a.dictionary.astype("U"), b.dictionary.astype("U")]))
-    ra = _lut(np.searchsorted(union, a.dictionary.astype("U"))
-              .astype(np.int32), a.data)
-    rb = _lut(np.searchsorted(union, b.dictionary.astype("U"))
-              .astype(np.int32), b.data)
-    u = union.astype(object)
-    return (Val(a.dtype, _by_code(ra, a.data), a.valid, u),
-            Val(b.dtype, _by_code(rb, b.data), b.valid, u))
+    u, (ra, rb) = DM.union((a.dictionary, b.dictionary), kind="merge")
+    return (Val(a.dtype, _by_code(_lut(ra, a.data), a.data), a.valid, u),
+            Val(b.dtype, _by_code(_lut(rb, b.data), b.data), b.valid, u))
 
 
 def _dict_predicate(v: Val, pred: Callable[[np.ndarray], np.ndarray]) -> Val:
@@ -219,11 +214,7 @@ def _align_strings(a: Val, b: Val) -> tuple[object, object]:
     string is absent from b's dictionary)."""
     if a.dictionary is b.dictionary:
         return a.data, b.data
-    idx = np.searchsorted(b.dictionary, a.dictionary.astype("U"))
-    idx = np.clip(idx, 0, max(len(b.dictionary) - 1, 0))
-    ok = (b.dictionary.astype("U")[idx] == a.dictionary.astype("U")) if len(
-        b.dictionary) else np.zeros(len(a.dictionary), bool)
-    mapping = np.where(ok, idx, -1).astype(np.int32)
+    mapping = DM.align(a.dictionary, b.dictionary)
     return _by_code(_lut(mapping, a.data), a.data), b.data
 
 
@@ -990,17 +981,19 @@ def _substring(e, args):
             return np.array([s[s0 - 1:] for s in d], object)
         return np.array([s[s0 - 1:s0 - 1 + ln] for s in d], object)
 
-    return _dict_transform(args[0], f)
+    return _dict_transform(args[0], f, key=("substring", s0, ln))
 
 
 @scalar("lower")
 def _lower(e, args):
-    return _dict_transform(args[0], lambda d: np.char.lower(d).astype(object))
+    return _dict_transform(args[0], lambda d: np.char.lower(d).astype(object),
+                           key=("lower",))
 
 
 @scalar("upper")
 def _upper(e, args):
-    return _dict_transform(args[0], lambda d: np.char.upper(d).astype(object))
+    return _dict_transform(args[0], lambda d: np.char.upper(d).astype(object),
+                           key=("upper",))
 
 
 # the largest dictionary product a concat of two string columns builds
@@ -1258,22 +1251,23 @@ def _length(e, args):
 
 @scalar("trim")
 def _trim(e, args):
-    return _dict_transform(args[0], np.char.strip)
+    return _dict_transform(args[0], np.char.strip, key=("trim",))
 
 
 @scalar("ltrim")
 def _ltrim(e, args):
-    return _dict_transform(args[0], np.char.lstrip)
+    return _dict_transform(args[0], np.char.lstrip, key=("ltrim",))
 
 
 @scalar("rtrim")
 def _rtrim(e, args):
-    return _dict_transform(args[0], np.char.rstrip)
+    return _dict_transform(args[0], np.char.rstrip, key=("rtrim",))
 
 
 @scalar("reverse")
 def _reverse(e, args):
-    return _dict_transform(args[0], _per_entry(lambda s: s[::-1]))
+    return _dict_transform(args[0], _per_entry(lambda s: s[::-1]),
+                           key=("reverse",))
 
 
 @scalar("replace")
@@ -1281,7 +1275,10 @@ def _replace(e, args):
     _literal_args(e, "replace")
     pat = str(e.args[1].value)
     rep = str(e.args[2].value) if len(e.args) > 2 else ""
-    return _dict_transform(args[0], lambda d: np.char.replace(d, pat, rep))
+    # np.char.replace raises on an empty array (numpy 2.0)
+    return _dict_transform(
+        args[0], lambda d: np.char.replace(d, pat, rep) if len(d) else d,
+        key=("replace", pat, rep))
 
 
 @scalar("starts_with")
@@ -1306,7 +1303,8 @@ def _lpad(e, args):
     _literal_args(e, "lpad")
     n = int(e.args[1].value)
     fill = str(args[2].dictionary[0]) if len(args) > 2 else " "
-    return _dict_transform(args[0], _per_entry(lambda s: s.rjust(n, fill)[:n]))
+    return _dict_transform(args[0], _per_entry(lambda s: s.rjust(n, fill)[:n]),
+                           key=("lpad", n, fill))
 
 
 @scalar("rpad")
@@ -1314,7 +1312,8 @@ def _rpad(e, args):
     _literal_args(e, "rpad")
     n = int(e.args[1].value)
     fill = str(args[2].dictionary[0]) if len(args) > 2 else " "
-    return _dict_transform(args[0], _per_entry(lambda s: s.ljust(n, fill)[:n]))
+    return _dict_transform(args[0], _per_entry(lambda s: s.ljust(n, fill)[:n]),
+                           key=("rpad", n, fill))
 
 
 @scalar("split_part")
@@ -1403,7 +1402,8 @@ def _translate(e, args):
     src, dst = str(e.args[1].value), str(e.args[2].value)
     table = {ord(c): (dst[i] if i < len(dst) else None)
              for i, c in enumerate(src)}
-    return _dict_transform(args[0], _per_entry(lambda s: s.translate(table)))
+    return _dict_transform(args[0], _per_entry(lambda s: s.translate(table)),
+                           key=("translate", src, dst))
 
 
 def _levenshtein_to(want: str):

@@ -63,6 +63,8 @@ LOCK_SCOPES = (
     # is read by concurrently-tracing queries; the package must obey
     # the same discipline as the interpreters that install it
     "presto_tpu_torch/kernels/",
+    # the host dictionary memo is shared by every concurrent query
+    "presto_tpu_torch/expr/dictmemo.py",
 )
 
 _LOCK_NAME_RE = re.compile(
